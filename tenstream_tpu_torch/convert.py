@@ -1,0 +1,34 @@
+"""Carry the JAX package's tables into the port.
+
+The port's "weights" are the LUT tables.  `lut_from_arrays` takes any
+object with the JAX `LUT`'s attributes (`scheme`, `dir_axes`,
+`diff_axes`, `dir2dir`, `dir2diff`, `diff2diff`; arrays convertible with
+numpy) and returns the port's `LUT` on `device`, so both packages can
+solve with identical tables.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tenstream_tpu_torch.optprop.lut import LUT, LUTAxes
+
+
+def _axes(a, direct: bool) -> LUTAxes:
+    f = lambda v: np.asarray(v, np.float32)
+    if direct:
+        return LUTAxes(f(a.tau), f(a.w0), f(a.aspect), f(a.g), f(a.phi), f(a.theta))
+    return LUTAxes(f(a.tau), f(a.w0), f(a.aspect), f(a.g))
+
+
+def lut_from_arrays(obj, device="cuda") -> LUT:
+    t = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=device)
+    return LUT(
+        scheme=str(obj.scheme),
+        dir_axes=_axes(obj.dir_axes, True),
+        diff_axes=_axes(obj.diff_axes, False),
+        dir2dir=t(obj.dir2dir),
+        dir2diff=t(obj.dir2diff),
+        diff2diff=t(obj.diff2diff),
+    )

@@ -1,0 +1,123 @@
+// PyTorch binding of the diffuse-operator kernels in orbit_ops.cu.  The
+// only source that includes PyTorch's headers: it checks the tensors,
+// allocates the outputs, launches on the current stream and checks the
+// launch.
+#include <torch/extension.h>
+
+#include <ATen/cuda/CUDAContext.h>
+#include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGuard.h>
+
+#include <vector>
+
+#include "orbit_tables.h"
+
+namespace {
+
+// itab layout (see tenstream_tpu_torch/pprts/cuda_ops.py::_tables):
+// nd, norb, ncls, ngroups[D], gorb[D][D], gmask[D][D], gz[D], gx[D], gy[D],
+// ccz[C], ccx[C], ccy[C], cmask[C], dn_mask; ftab: walb[D]
+OrbitTables make_tables(const std::vector<int64_t>& itab, const std::vector<double>& ftab) {
+  const size_t D = TS_MAXD, C = TS_MAXC;
+  const size_t want = 3 + D + 2 * D * D + 3 * D + 4 * C + 1;
+  TORCH_CHECK(itab.size() == want, "orbit tables: expected ", want, " ints, got ", itab.size());
+  TORCH_CHECK(ftab.size() == D, "orbit tables: expected ", D, " floats");
+  OrbitTables t;
+  size_t q = 0;
+  t.nd = (int)itab[q++];
+  t.norb = (int)itab[q++];
+  t.ncls = (int)itab[q++];
+  for (size_t d = 0; d < D; ++d) t.ngroups[d] = (int)itab[q++];
+  for (size_t d = 0; d < D; ++d)
+    for (size_t g = 0; g < D; ++g) t.gorb[d][g] = (int)itab[q++];
+  for (size_t d = 0; d < D; ++d)
+    for (size_t g = 0; g < D; ++g) t.gmask[d][g] = (int)itab[q++];
+  for (size_t s = 0; s < D; ++s) t.gz[s] = (int)itab[q++];
+  for (size_t s = 0; s < D; ++s) t.gx[s] = (int)itab[q++];
+  for (size_t s = 0; s < D; ++s) t.gy[s] = (int)itab[q++];
+  for (size_t c = 0; c < C; ++c) t.ccz[c] = (int)itab[q++];
+  for (size_t c = 0; c < C; ++c) t.ccx[c] = (int)itab[q++];
+  for (size_t c = 0; c < C; ++c) t.ccy[c] = (int)itab[q++];
+  for (size_t c = 0; c < C; ++c) t.cmask[c] = (int)itab[q++];
+  t.dn_mask = (int)itab[q++];
+  for (size_t d = 0; d < D; ++d) t.walb[d] = (float)ftab[d];
+  TORCH_CHECK(t.nd == TS_MAXD, "kernels are built for the 3_10 scheme (nd = 10), got nd = ", t.nd);
+  TORCH_CHECK(t.ncls >= 1 && t.ncls <= TS_MAXC, "bad class count ", t.ncls);
+  return t;
+}
+
+void check_f32(const torch::Tensor& x, const char* name, int64_t dim) {
+  TORCH_CHECK(x.is_cuda(), name, " must be a CUDA tensor");
+  TORCH_CHECK(x.scalar_type() == torch::kFloat32, name, " must be float32");
+  TORCH_CHECK(x.dim() == dim, name, " must have ", dim, " dims, got ", x.dim());
+  TORCH_CHECK(x.is_contiguous(), name, " must be contiguous");
+}
+
+torch::Tensor orbit_contract(torch::Tensor src, torch::Tensor orb,
+                             std::vector<int64_t> itab, std::vector<double> ftab) {
+  const OrbitTables t = make_tables(itab, ftab);
+  check_f32(src, "src", 5);
+  check_f32(orb, "orb", 5);
+  const int64_t B = src.size(0);
+  TORCH_CHECK(src.size(1) == t.nd, "src dof dim ", src.size(1), " != ", t.nd);
+  TORCH_CHECK(orb.size(0) == B && orb.size(1) == t.norb, "orb must be (B, norb, ...)");
+  TORCH_CHECK(orb.size(2) == src.size(2) && orb.size(3) == src.size(3) &&
+                  orb.size(4) == src.size(4),
+              "orb and src cell dims differ");
+  TORCH_CHECK(orb.device() == src.device(), "src and orb on different devices");
+  const int64_t ncell = src.size(2) * src.size(3) * src.size(4);
+  TORCH_CHECK(ncell * t.norb < (int64_t)1 << 31, "field too large for int indexing");
+  const c10::cuda::CUDAGuard guard(src.device());
+  auto out = torch::empty_like(src);
+  if (B == 0 || ncell == 0) return out;
+  cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  C10_CUDA_CHECK(launch_orbit_contract(src.data_ptr<float>(), orb.data_ptr<float>(),
+                                       out.data_ptr<float>(), &t, (int)B, (int)ncell, stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
+std::vector<torch::Tensor> fused_A_dots(torch::Tensor u, torch::Tensor w, torch::Tensor orb,
+                                        torch::Tensor albedo, std::vector<int64_t> itab,
+                                        std::vector<double> ftab) {
+  const OrbitTables t = make_tables(itab, ftab);
+  check_f32(u, "u", 5);
+  check_f32(w, "w", 5);
+  check_f32(orb, "orb", 5);
+  check_f32(albedo, "albedo", 3);
+  const int64_t B = u.size(0), nz = u.size(2) - 1, nx = u.size(3), ny = u.size(4);
+  TORCH_CHECK(u.size(1) == t.nd, "u dof dim ", u.size(1), " != ", t.nd);
+  TORCH_CHECK(nz >= 1, "u needs at least two face levels");
+  TORCH_CHECK(w.sizes() == u.sizes(), "w must have the shape of u");
+  TORCH_CHECK(orb.size(0) == B && orb.size(1) == t.norb && orb.size(2) == nz &&
+                  orb.size(3) == nx && orb.size(4) == ny,
+              "orb must be (B, norb, nz, nx, ny)");
+  TORCH_CHECK(albedo.size(0) == B && albedo.size(1) == nx && albedo.size(2) == ny,
+              "albedo must be (B, nx, ny)");
+  TORCH_CHECK(w.device() == u.device() && orb.device() == u.device() &&
+                  albedo.device() == u.device(),
+              "tensors on different devices");
+  TORCH_CHECK(nz * nx * ny * t.norb < (int64_t)1 << 31 && (nz + 1) * nx * ny * t.nd < (int64_t)1 << 31,
+              "field too large for int indexing");
+  const c10::cuda::CUDAGuard guard(u.device());
+  auto Au = torch::empty_like(u);
+  auto dots = torch::empty({B, 2}, u.options());
+  const int nblk = fused_A_dots_blocks((int)nz, (int)nx, (int)ny);
+  auto partials = torch::empty({B, nblk, 2}, u.options());
+  if (B == 0) return {Au, dots};
+  cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  C10_CUDA_CHECK(launch_fused_A_dots(u.data_ptr<float>(), w.data_ptr<float>(),
+                                     orb.data_ptr<float>(), albedo.data_ptr<float>(),
+                                     Au.data_ptr<float>(), partials.data_ptr<float>(),
+                                     dots.data_ptr<float>(), &t, (int)B, (int)nz, (int)nx,
+                                     (int)ny, stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {Au, dots};
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("orbit_contract", &orbit_contract, "K2: per-cell orbit contraction (CUDA)");
+  m.def("fused_A_dots", &fused_A_dots, "K1: A(u) = u - S(u) plus two dots (CUDA)");
+}

@@ -1,0 +1,90 @@
+"""Absorption by coefficient divergence (port of `calc_flx_div` from
+`tenstream_tpu/pprts/absorption.py`; reference `src/pprts.F90:5152-5509`).
+
+Every unit of power entering a cell that no (src -> dst) coefficient
+re-emits was absorbed:  abso = sum_src e_src * (1 - sum_dst c[src, dst]).
+Thermal solves subtract the emitted source power; 1-D layers use the
+Beer-Lambert form for the direct part.  The result is per cell volume.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tenstream_tpu_torch.pprts.operators import (
+    diff_dst_sums,
+    gather_diff_src,
+    gather_dir_src,
+)
+from tenstream_tpu_torch.pprts.sun import SunInfo
+from tenstream_tpu_torch.streams import StreamScheme
+
+
+def gather_diff_dst(scheme: StreamScheme, b: torch.Tensor) -> torch.Tensor:
+    """Per-cell view of what each cell deposited at its dst faces (the
+    inverse of `scatter_diff_dst`)."""
+    axis = scheme.diff_axis()
+    inward = scheme.diff_inward()
+    rows = []
+    for d in range(scheme.ndiff):
+        v = b[d]
+        if axis[d] == 0:
+            rows.append(v[1:] if inward[d] else v[:-1])
+        elif inward[d]:
+            rows.append(torch.roll(v[:-1], -1, dims=axis[d]))
+        else:
+            rows.append(v[:-1])
+    return torch.stack(rows, dim=0)
+
+
+def _top_only(scheme_ntop: int, n: int, top: torch.Tensor) -> torch.Tensor:
+    """(n,) + top.shape: `top` on the first scheme_ntop dofs, zero after."""
+    return torch.cat([top[None].expand((scheme_ntop,) + tuple(top.shape)),
+                      top.new_zeros((n - scheme_ntop,) + tuple(top.shape))], dim=0)
+
+
+def calc_flx_div(
+    scheme: StreamScheme,
+    diff2diff,
+    ediff: torch.Tensor,  # [W]
+    volumes: torch.Tensor,  # (Nz, Nx, Ny)
+    l1d: np.ndarray,
+    kabs: torch.Tensor,
+    dz3d: torch.Tensor,
+    a11: torch.Tensor,
+    a12: torch.Tensor,
+    sun: Optional[SunInfo] = None,
+    edir: Optional[torch.Tensor] = None,  # [W]
+    b_thermal: Optional[torch.Tensor] = None,  # [W]
+    cdiv_dir: Optional[torch.Tensor] = None,  # (ndir, Nz, Nx, Ny)
+) -> torch.Tensor:
+    """Absorbed power per cell / volume -> [W/m3].
+
+    `cdiv_dir` is the per-source direct coefficient divergence
+    1 - sum_dst(dir2dir) - sum_dst(dir2diff), reduced before the diffuse
+    solve so the direct coefficient fields can be freed first."""
+    l1d_mask = torch.as_tensor(np.asarray(l1d, bool), device=ediff.device)[None, :, None, None]
+    abso = torch.zeros(tuple(volumes.shape), dtype=ediff.dtype, device=ediff.device)
+
+    if edir is not None and cdiv_dir is not None:
+        src = gather_dir_src(scheme, edir, sun.xinc, sun.yinc)
+        # 1-D layers: Beer-Lambert absorption of the direct beam for the
+        # top streams, side streams carry nothing
+        mu = max(float(sun.mu), 1e-6)
+        bl = -torch.expm1(-kabs * dz3d / mu)
+        cdiv = torch.where(l1d_mask, _top_only(scheme.dirtop.dof, scheme.ndir, bl), cdiv_dir)
+        abso = abso + (src * cdiv).sum(dim=0)
+
+    src = gather_diff_src(scheme, ediff)
+    cdiv = torch.clamp(1.0 - diff_dst_sums(diff2diff), 0.0, 1.0)
+    cdiv_1d_top = torch.clamp(1.0 - a11 - a12, 0.0, 1.0)
+    cdiv = torch.where(l1d_mask, _top_only(scheme.difftop.dof, scheme.ndiff, cdiv_1d_top), cdiv)
+    abso = abso + (src * cdiv).sum(dim=0)
+
+    if b_thermal is not None:
+        abso = abso - gather_diff_dst(scheme, b_thermal).sum(dim=0)
+
+    return abso / volumes

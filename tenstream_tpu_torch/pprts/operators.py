@@ -1,0 +1,215 @@
+"""Matrix-free stream-transport operators (port of
+`tenstream_tpu/pprts/operators.py`).
+
+Stream fields are face-indexed (..., ndof, Nz+1, Nx, Ny), coefficient
+fields cell-indexed (nsrc, ndst, Nz, Nx, Ny) or `OrbitCoeff`.  x and y
+are periodic (`torch.roll`), z has a zero halo.  Every function here
+accepts optional leading batch dims on the stream fields.
+
+This plain path is the twin the CUDA kernels of `cuda_ops.py` are held
+against: `fused_A_dots_plain` and `orbit_contract_plain` are written from
+`diffuse_scatter` / `_orbit_contrib` below.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tenstream_tpu_torch.streams import StreamScheme
+
+
+class OrbitCoeff:
+    """Diffuse (src, dst) coefficient field stored as one channel per
+    orbit of the solver symmetry subgroup {x-mirror, y-mirror, x<->y}
+    (24 channels instead of ndiff^2 = 100 for 3_10).
+
+    `orb` is (norb, Nz, Nx, Ny); `idx[src, dst]` the static orbit id."""
+
+    def __init__(self, orb: torch.Tensor, idx: np.ndarray):
+        self.orb = orb
+        self.idx = np.asarray(idx, np.int64)
+
+    @property
+    def shape(self):
+        nf = self.idx.shape[0]
+        return (nf, nf) + tuple(self.orb.shape[1:])
+
+    def entry(self, s: int, d: int) -> torch.Tensor:
+        """Single (src, dst) coefficient field (Nz, Nx, Ny)."""
+        return self.orb[int(self.idx[s, d])]
+
+    def dst_sums(self) -> torch.Tensor:
+        """Sum over dst per src (the dense field's sum over dst) via a static per-orbit
+        count matrix."""
+        norb = self.orb.shape[0]
+        nf = self.idx.shape[0]
+        R = np.zeros((nf, norb), np.float32)
+        for s in range(nf):
+            for d in range(nf):
+                R[s, self.idx[s, d]] += 1.0
+        R = torch.as_tensor(R, device=self.orb.device, dtype=self.orb.dtype)
+        return torch.einsum("so,o...->s...", R, self.orb)
+
+
+def diff_dst_sums(coeff: OrbitCoeff) -> torch.Tensor:
+    """Sum over dst per src of the diffuse coefficients."""
+    return coeff.dst_sums()
+
+
+def orbit_groups(idx: np.ndarray):
+    """Per dst d: the sorted (orbit, sources) groups of column d of the
+    orbit table.  contrib[d] = sum over groups of orb[o] * sum(src[s])."""
+    nf = idx.shape[0]
+    groups = []
+    for d in range(nf):
+        by_orbit: dict = {}
+        for s in range(nf):
+            by_orbit.setdefault(int(idx[s, d]), []).append(s)
+        groups.append(tuple(sorted((o, tuple(ss)) for o, ss in by_orbit.items())))
+    return tuple(groups)
+
+
+def gather_diff_src(scheme: StreamScheme, x: torch.Tensor) -> torch.Tensor:
+    """Per-cell source values for every diffuse dof:
+    (..., ndiff, Nz+1, Nx, Ny) face-indexed -> (..., ndiff, Nz, Nx, Ny)."""
+    axis = scheme.diff_axis()
+    inward = scheme.diff_inward()
+    rows = []
+    for d in range(scheme.ndiff):
+        v = x[..., d, :, :, :]
+        if axis[d] == 0:
+            rows.append(v[..., :-1, :, :] if inward[d] else v[..., 1:, :, :])
+        elif axis[d] == 1:
+            v0 = v[..., :-1, :, :]
+            rows.append(v0 if inward[d] else torch.roll(v0, -1, dims=-2))
+        else:
+            v0 = v[..., :-1, :, :]
+            rows.append(v0 if inward[d] else torch.roll(v0, -1, dims=-1))
+    return torch.stack(rows, dim=-4)
+
+
+def scatter_diff_dst(scheme: StreamScheme, contrib: torch.Tensor) -> torch.Tensor:
+    """Per-cell destination contributions onto face-indexed arrays:
+    (..., ndiff, Nz, Nx, Ny) -> (..., ndiff, Nz+1, Nx, Ny)."""
+    axis = scheme.diff_axis()
+    inward = scheme.diff_inward()
+    zeros_level = torch.zeros_like(contrib[..., 0, :1, :, :])
+    rows = []
+    for d in range(scheme.ndiff):
+        c = contrib[..., d, :, :, :]
+        if axis[d] == 0:
+            parts = [zeros_level, c] if inward[d] else [c, zeros_level]
+        else:
+            c2 = torch.roll(c, 1, dims=-3 + axis[d]) if inward[d] else c
+            parts = [c2, zeros_level]
+        rows.append(torch.cat(parts, dim=-3))
+    return torch.stack(rows, dim=-4)
+
+
+def orbit_contract_groups(groups, orb: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """contrib[..., d] = sum over groups (o, ss) of orb[..., o] * sum_s src[..., s];
+    sources sharing an orbit are summed before the multiply (the order of
+    the TPU contraction kernel)."""
+    rows = []
+    for d in range(len(groups)):
+        acc = None
+        for o, ss in groups[d]:
+            ssum = src[..., ss[0], :, :, :]
+            for s in ss[1:]:
+                ssum = ssum + src[..., s, :, :, :]
+            term = orb[..., o, :, :, :] * ssum
+            acc = term if acc is None else acc + term
+        rows.append(acc)
+    return torch.stack(rows, dim=-4)
+
+
+def _orbit_contrib(coeff: OrbitCoeff, src: torch.Tensor) -> torch.Tensor:
+    """contrib[d] = sum_s orb[idx[s, d]] * src[s] without expanding the
+    dense field."""
+    return orbit_contract_groups(orbit_groups(coeff.idx), coeff.orb.to(src.dtype), src)
+
+
+def diffuse_scatter(
+    scheme: StreamScheme,
+    coeff: OrbitCoeff,
+    x: torch.Tensor,
+    albedo2d: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """S(x): one application of the diffuse transport scatter (with the
+    surface reflection closure when `albedo2d` is given)."""
+    out = scatter_diff_dst(scheme, _orbit_contrib(coeff, gather_diff_src(scheme, x)))
+    if albedo2d is not None:
+        out = add_surface_reflection(scheme, out, x, albedo2d)
+    return out
+
+
+def surface_closure_rows(scheme: StreamScheme):
+    """(down-top dofs, [(up-top dof, hemisphere weight)]) of the
+    Lambertian surface closure."""
+    inward = scheme.diff_inward()
+    ntop = scheme.difftop.dof
+    wtop = scheme.difftop_weights()
+    dn = [d for d in range(ntop) if inward[d]]
+    up = [(d, float(wtop[d])) for d in range(ntop) if not inward[d]]
+    return dn, up
+
+
+def add_surface_reflection(scheme: StreamScheme, out, x, albedo2d):
+    """Lambertian surface closure (Eup_sfc += albedo * Edn_sfc), split
+    over the upward bins by hemisphere fraction.  `albedo2d` broadcasts
+    against the (..., Nx, Ny) surface face."""
+    dn, up = surface_closure_rows(scheme)
+    edn_sfc = sum(x[..., d, -1, :, :] for d in dn)
+    out = out.clone()
+    for d, w in up:
+        out[..., d, -1, :, :] += albedo2d * edn_sfc * w
+    return out
+
+
+def gather_dir_src(scheme: StreamScheme, e: torch.Tensor, xinc: int, yinc: int) -> torch.Tensor:
+    """Per-cell source values for every direct dof (upwind faces)."""
+    axis = scheme.dir_axis()
+    rows = []
+    for s in range(scheme.ndir):
+        v = e[s, :-1]
+        if axis[s] == 0:
+            rows.append(v)
+        elif axis[s] == 1:
+            rows.append(v if xinc == 1 else torch.roll(v, -1, dims=1))
+        else:
+            rows.append(v if yinc == 1 else torch.roll(v, -1, dims=2))
+    return torch.stack(rows, dim=0)
+
+
+def dir2diff_source(
+    scheme: StreamScheme,
+    dir2diff: torch.Tensor,
+    edir: torch.Tensor,
+    xinc: int,
+    yinc: int,
+) -> torch.Tensor:
+    """Diffuse source [W] from scattered direct radiation:
+    dir2diff (ndir, ndiff, Nz, Nx, Ny), edir (ndir, Nz+1, Nx, Ny)."""
+    src = gather_dir_src(scheme, edir, xinc, yinc)
+    contrib = None
+    for s in range(scheme.ndir):
+        t = dir2diff[s] * src[s][None]
+        contrib = t if contrib is None else contrib + t
+    return scatter_diff_dst(scheme, contrib)
+
+
+def direct_surface_reflection(
+    scheme: StreamScheme, edir: torch.Tensor, albedo2d: torch.Tensor
+) -> torch.Tensor:
+    """b contribution: ground albedo reflecting the direct beam into the
+    upward diffuse dofs."""
+    edir_sfc = edir[: scheme.dirtop.dof, -1].sum(dim=0)
+    b = torch.zeros((scheme.ndiff,) + tuple(edir.shape[1:]), dtype=edir.dtype,
+                    device=edir.device)
+    _, up = surface_closure_rows(scheme)
+    for d, w in up:
+        b[d, -1] += edir_sfc * albedo2d * w
+    return b

@@ -1,0 +1,81 @@
+"""The CUDA kernels K1 (`fused_A_dots`) and K2 (`orbit_contract`) against
+their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU (marker `cuda`) and skip without one.  The
+file imports neither JAX nor the JAX package, so it also runs on a GPU
+machine that has only PyTorch; there, skip `tests/conftest.py` (which sets
+JAX up for the CPU tests):
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Tolerances: fields are sums of at most ~24 float32 products in another
+order (atol 3e-6 on O(1) values); the dots sum ~1e5 terms (rtol 2e-5)."""
+
+import numpy as np
+import pytest
+import torch
+
+from tenstream_tpu_torch.optprop.facade import diff_pair_orbits
+from tenstream_tpu_torch.pprts import cuda_ops
+from tenstream_tpu_torch.streams import get_scheme
+
+FIELD_ATOL = 3e-6
+DOT_RTOL = 2e-5
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda is unavailable)")
+    return torch.device("cuda")
+
+
+def _inputs(name, B, nz, nx, ny, seed):
+    scheme = get_scheme(name)
+    nd = scheme.ndiff
+    if name == "3_10":
+        idx, norb = diff_pair_orbits(scheme, with_mz=False)
+        idx = np.asarray(idx, np.int64)
+    else:
+        norb = max(4, nd)
+        idx = np.random.default_rng(1).integers(0, norb, (nd, nd))
+    rng = np.random.default_rng(seed)
+    orb = (rng.random((B, norb, nz, nx, ny)) * 0.1).astype(np.float32)
+    u = rng.random((B, nd, nz + 1, nx, ny)).astype(np.float32)
+    w = rng.random((B, nd, nz + 1, nx, ny)).astype(np.float32)
+    alb = (rng.random((B, nx, ny)) * 0.8).astype(np.float32)
+    src = rng.random((B, nd, nz, nx, ny)).astype(np.float32)
+    return scheme, idx, orb, u, w, alb, src
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,nz,nx,ny", [("3_10", 2, 5, 6, 10), ("3_10", 1, 39, 64, 64),
+                                             ("3_10", 1, 4, 3, 33)])
+def test_cuda_kernels_match_plain(cuda_device, name, B, nz, nx, ny):
+    ts, idx, orb, u, w, alb, src = _inputs(name, B, nz, nx, ny, seed=2)
+    dev = lambda a: torch.as_tensor(a, device=cuda_device)
+    cuda_ops.reset_launch_counts()
+    Au, dots = cuda_ops.fused_A_dots(ts, idx, dev(orb), dev(u), dev(w), dev(alb))
+    out = cuda_ops.orbit_contract(ts, idx, dev(orb), dev(src))
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES == {"fused_A_dots": 1, "orbit_contract": 1}
+    Au_p, dots_p = cuda_ops.fused_A_dots_plain(ts, idx, dev(orb), dev(u), dev(w), dev(alb))
+    out_p = cuda_ops.orbit_contract_plain(idx, dev(orb), dev(src))
+    np.testing.assert_allclose(Au.cpu().numpy(), Au_p.cpu().numpy(), atol=FIELD_ATOL)
+    np.testing.assert_allclose(dots.cpu().numpy(), dots_p.cpu().numpy(), rtol=DOT_RTOL)
+    np.testing.assert_allclose(out.cpu().numpy(), out_p.cpu().numpy(), atol=FIELD_ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_bad_inputs(cuda_device):
+    ts, idx, orb, u, w, alb, _ = _inputs("3_10", 1, 2, 3, 4, seed=0)
+    dev = lambda a: torch.as_tensor(a, device=cuda_device)
+    with pytest.raises(ValueError):
+        cuda_ops.fused_A_dots(ts, idx, dev(orb), torch.as_tensor(u), dev(w), dev(alb))
+    with pytest.raises(RuntimeError):
+        cuda_ops.fused_A_dots(ts, idx, dev(orb), dev(u).double(), dev(w), dev(alb))
+    with pytest.raises(RuntimeError):
+        cuda_ops.fused_A_dots(ts, idx, dev(orb), dev(u)[..., ::2], dev(w)[..., ::2], dev(alb))
+    ts6, idx6, orb6, _, _, _, src6 = _inputs("3_6", 1, 2, 3, 4, seed=0)
+    with pytest.raises(ValueError, match="3_10"):  # the kernels are built for 3_10 only
+        cuda_ops.orbit_contract(ts6, idx6, dev(orb6), dev(src6))

@@ -1,0 +1,167 @@
+"""Kernels K1 (`fused_A_dots`) and K2 (`orbit_contract`) of the port.
+
+On the CPU the wrappers run their plain PyTorch versions; those are held
+against the JAX Pallas kernels in interpret mode and against the JAX XLA
+path (`diffuse_scatter` plus `jnp.vdot`), on odd and wrapping shapes and
+with a batch of B > 1.  The tables the CUDA kernels index by are checked
+by a numpy emulation of the kernels' indexing.  The CUDA kernels
+themselves are compared with the plain versions in `test_torch_cuda.py`.
+
+Tolerances: fields are sums of at most ~24 float32 products in another
+order (atol 3e-6 on O(1) values); the dots sum ~1e4 terms (rtol 2e-5)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tenstream_tpu.optprop.facade import _diff_pair_orbits
+from tenstream_tpu.pprts import operators as jops
+from tenstream_tpu.pprts import pallas_ops
+from tenstream_tpu.streams import get_scheme as jget
+from tenstream_tpu_torch.pprts import cuda_ops
+from tenstream_tpu_torch.streams import get_scheme as tget
+
+FIELD_ATOL = 3e-6
+DOT_RTOL = 2e-5
+
+
+def _orbit_idx(name):
+    if name == "3_10":
+        idx, norb = _diff_pair_orbits(jget(name), with_mz=False)
+        return np.asarray(idx, np.int64), norb
+    nd = jget(name).ndiff
+    norb = max(4, nd)
+    return np.random.default_rng(1).integers(0, norb, (nd, nd)), norb
+
+
+def _inputs(name, B, nz, nx, ny, seed=0):
+    nd = jget(name).ndiff
+    idx, norb = _orbit_idx(name)
+    rng = np.random.default_rng(seed)
+    orb = (rng.random((B, norb, nz, nx, ny)) * 0.1).astype(np.float32)
+    u = rng.random((B, nd, nz + 1, nx, ny)).astype(np.float32)
+    w = rng.random((B, nd, nz + 1, nx, ny)).astype(np.float32)
+    alb = (rng.random((B, nx, ny)) * 0.8).astype(np.float32)
+    src = rng.random((B, nd, nz, nx, ny)).astype(np.float32)
+    return idx, orb, u, w, alb, src
+
+
+# ---------------------------------------------------------------------------
+# plain versions against JAX
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,B,nz,nx,ny", [
+    ("3_10", 1, 6, 8, 16), ("3_10", 2, 5, 6, 10), ("3_10", 1, 1, 1, 3), ("3_6", 2, 3, 4, 5),
+    ("1_2", 1, 4, 3, 2)])
+def test_fused_A_dots_plain_vs_xla(name, B, nz, nx, ny):
+    js, ts = jget(name), tget(name)
+    idx, orb, u, w, alb, _ = _inputs(name, B, nz, nx, ny)
+    Au, dots = cuda_ops.fused_A_dots(ts, idx, *(torch.as_tensor(a) for a in (orb, u, w, alb)))
+    assert Au.shape == u.shape and dots.shape == (B, 2)
+    for b in range(B):
+        ref = u[b] - np.asarray(jops.diffuse_scatter(
+            js, jops.OrbitCoeff(jnp.asarray(orb[b]), idx), jnp.asarray(u[b]), jnp.asarray(alb[b])))
+        np.testing.assert_allclose(Au[b].numpy(), ref, atol=FIELD_ATOL)
+        np.testing.assert_allclose(dots[b, 0].item(), float(jnp.vdot(w[b], ref)), rtol=DOT_RTOL)
+        np.testing.assert_allclose(dots[b, 1].item(), float(jnp.vdot(ref, ref)), rtol=DOT_RTOL)
+
+
+@pytest.mark.parametrize("name,nz,nx,ny", [("3_10", 5, 6, 10), ("1_2", 3, 4, 8)])
+def test_fused_A_dots_plain_vs_pallas_interpret(name, nz, nx, ny):
+    idx, orb, u, w, alb, _ = _inputs(name, 1, nz, nx, ny, seed=3)
+    Au_j, p1, p2 = pallas_ops.fused_A_dots(
+        jget(name), idx.tobytes(), pallas_ops.prepare_orbit_fused(jnp.asarray(orb[0])),
+        jnp.asarray(u[0]), jnp.asarray(w[0]), jnp.asarray(alb[0]), interpret=True)
+    Au, dots = cuda_ops.fused_A_dots_plain(tget(name), idx,
+                                           *(torch.as_tensor(a) for a in (orb, u, w, alb)))
+    np.testing.assert_allclose(Au[0].numpy(), np.asarray(Au_j), atol=FIELD_ATOL)
+    np.testing.assert_allclose(dots[0].numpy(), [float(p1), float(p2)], rtol=DOT_RTOL)
+
+
+@pytest.mark.parametrize("name,B,nz,nx,ny", [("3_10", 2, 5, 8, 16), ("3_10", 1, 3, 1, 7),
+                                             ("3_6", 1, 4, 6, 6)])
+def test_orbit_contract_plain_vs_pallas_and_xla(name, B, nz, nx, ny):
+    js, ts = jget(name), tget(name)
+    idx, orb, u, _, alb, src = _inputs(name, B, nz, nx, ny, seed=5)
+    out = cuda_ops.orbit_contract(ts, idx, torch.as_tensor(orb), torch.as_tensor(src))
+    for b in range(B):
+        ref = jops._orbit_contrib(jops.OrbitCoeff(jnp.asarray(orb[b]), idx), jnp.asarray(src[b]))
+        np.testing.assert_allclose(out[b].numpy(), np.asarray(ref), atol=FIELD_ATOL)
+        pal = pallas_ops.orbit_contract_pallas(idx.tobytes(), jnp.asarray(orb[b]),
+                                               jnp.asarray(src[b]), interpret=True)
+        np.testing.assert_allclose(out[b].numpy(), np.asarray(pal), atol=FIELD_ATOL)
+    # S(x) = gather -> K2 -> scatter + closure, against the XLA operator
+    S = cuda_ops.diffuse_apply_orbit(ts, idx, torch.as_tensor(orb[0]), torch.as_tensor(u[0]),
+                                     torch.as_tensor(alb[0]))
+    ref = jops.diffuse_scatter(js, jops.OrbitCoeff(jnp.asarray(orb[0]), idx), jnp.asarray(u[0]),
+                               jnp.asarray(alb[0]))
+    np.testing.assert_allclose(S.numpy(), np.asarray(ref), atol=FIELD_ATOL)
+
+
+def test_cpu_wrappers_count_no_launch():
+    ts = tget("3_10")
+    idx, orb, u, w, alb, src = _inputs("3_10", 1, 2, 3, 4)
+    cuda_ops.reset_launch_counts()
+    cuda_ops.fused_A_dots(ts, idx, *(torch.as_tensor(a) for a in (orb, u, w, alb)))
+    cuda_ops.orbit_contract(ts, idx, torch.as_tensor(orb), torch.as_tensor(src))
+    assert cuda_ops.LAUNCHES == {"fused_A_dots": 0, "orbit_contract": 0}
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' tables, emulated in numpy
+# ---------------------------------------------------------------------------
+
+def _emulate_fused_A(itab, walb, u, w, orb, alb):
+    """numpy replica of orbit_ops.cu::fused_A_kernel's indexing."""
+    D, C = cuda_ops._TS_MAXD, cuda_ops._TS_MAXC
+    it = iter(itab)
+    take = lambda n: [next(it) for _ in range(n)]
+    nd, norb, ncls = take(3)
+    ngroups = take(D)
+    gorb = np.array(take(D * D)).reshape(D, D)
+    gmask = np.array(take(D * D)).reshape(D, D)
+    gz, gx, gy = take(D), take(D), take(D)
+    ccz, ccx, ccy, cmask = take(C), take(C), take(C), take(C)
+    (dn_mask,) = take(1)
+    B, _, nz1, nx, ny = u.shape
+    nz = nz1 - 1
+    S = np.zeros_like(u)
+    k, i, j = np.meshgrid(np.arange(nz1), np.arange(nx), np.arange(ny), indexing="ij")
+    for cl in range(ncls):
+        kc = k + ccz[cl]
+        valid = (kc >= 0) & (kc < nz)
+        kcc = np.clip(kc, 0, nz - 1)
+        ic, jc = (i + ccx[cl]) % nx, (j + ccy[cl]) % ny
+        sv = [u[:, s, np.clip(kcc + gz[s], 0, nz), (ic + gx[s]) % nx, (jc + gy[s]) % ny]
+              for s in range(nd)]
+        for d in range(nd):
+            if not (cmask[cl] >> d) & 1:
+                continue
+            acc = 0.0
+            for gi in range(ngroups[d]):
+                ssum = sum(sv[s] for s in range(nd) if (gmask[d, gi] >> s) & 1)
+                acc = acc + orb[:, gorb[d, gi], kcc, ic, jc] * ssum
+            S[:, d] += np.where(valid, acc, 0.0)
+    edn = sum(u[:, s, nz] for s in range(nd) if (dn_mask >> s) & 1)
+    for d in range(nd):
+        S[:, d, nz] += alb * edn * walb[d]
+    Au = u - S
+    return Au, np.stack([(w * Au).sum(axis=(1, 2, 3, 4)), (Au * Au).sum(axis=(1, 2, 3, 4))], 1)
+
+
+@pytest.mark.parametrize("name", ["3_10", "3_6", "1_2"])
+def test_kernel_tables_emulated(name):
+    ts = tget(name)
+    idx, orb, u, w, alb, _ = _inputs(name, 2, 3, 5, 4, seed=8)
+    if name != "3_10":  # the kernels are built for 3_10 only; its plain twins take any scheme
+        with pytest.raises(ValueError, match="3_10"):
+            cuda_ops._tables(ts, idx, orb.shape[1])
+        return
+    itab, walb = cuda_ops._tables(ts, idx, orb.shape[1])
+    assert len(itab) == 3 + 10 + 2 * 100 + 30 + 4 * 5 + 1 and len(walb) == 10
+    Au_e, dots_e = _emulate_fused_A(itab, walb, u.astype(np.float64), w.astype(np.float64),
+                                    orb.astype(np.float64), alb.astype(np.float64))
+    Au, dots = cuda_ops.fused_A_dots_plain(ts, idx, *(torch.as_tensor(a) for a in (orb, u, w, alb)))
+    np.testing.assert_allclose(Au.numpy(), Au_e, atol=FIELD_ATOL)
+    np.testing.assert_allclose(dots.numpy(), dots_e, rtol=DOT_RTOL)
