@@ -7,20 +7,36 @@ Phases, each printing its lines; any failure raises (non-zero exit):
 
   1. device   -- requires CUDA; prints the card's name and power limit.
   2. build    -- builds the diffuse-solve kernels (csrc/) and times it.
-  3. kernels  -- K1 fused_A_dots and K2 orbit_contract against their plain
-                 PyTorch versions on the card, at the main path's shapes and
-                 at an odd batched shape; times both versions.
-  4. main     -- the 3_10 PprtsSolver on a 100 m LES column (bench.py's
-                 vertical structure, nz = 39) at 256 x 256 columns with the
+  3. kernels  -- K1 fused_A_dots, K2 orbit_contract and K3
+                 diffuse_apply_dense (float32 and bfloat16 coefficients)
+                 against their plain PyTorch versions on the card, at their
+                 paths' shapes and at an odd batched shape; times both
+                 versions, and beside K3 the one einsum that computes the
+                 contraction it contains.
+  4. main     -- the cloud path (orbit coefficients, K1 and K2): the 3_10
+                 PprtsSolver on a 100 m LES column (bench.py's vertical
+                 structure, nz = 39) at 256 x 256 columns with the
                  production LUT: a cold solar+thermal solve, then a warm
                  re-solve of the cloud field rolled by one cell.  Checks
                  finite results, res <= 1.5 tol, and that both kernels ran.
   5. parity   -- the same scene at 64 x 64 through the kernels and through
                  the plain versions on the card: fluxes within 0.1 W/m2,
                  absorption within 1e-4 W/m3.
-  6. profile  -- the warm re-solve again: host time per solver stage, then
-                 under torch.profiler the device busy share and the kernels
-                 with the most device time.
+  6. urban    -- the urban path (buildings force dense coefficients, K3):
+                 256 x 256 columns of 20 m, 40 layers of 10 m, clear air, a
+                 street grid of building blocks made from --seed, solar +
+                 thermal cold, then warm with the sun moved by a few
+                 degrees.  Checks finite results, res <= 1.5 tol, shadows
+                 under the buildings, the face fluxes, and that K3 ran and
+                 K1/K2 did not.
+  7. urban parity -- the urban scene at 64 x 64 through K3 and through its
+                 plain version, same gates and the same iteration counts.
+  8. dense vs orbit -- the 64 x 64 cloud scene with
+                 pprts_orbit_coeffs=False (K3's path) against the orbit
+                 solve (K1/K2's path), same gates.
+  9. profile  -- the warm re-solve of each path again: host time per
+                 solver stage, then under torch.profiler the device busy
+                 share and the kernels with the most device time.
 
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -46,11 +62,19 @@ FIELD_ATOL = 5e-6  # O(1) random fields: sums of <= 24 float32 products
 DOT_RTOL = 2e-5  # dots over up to 2.6e7 terms, block partials vs torch's sum
 FLUX_ATOL = 0.1  # W/m2, the golden regression gate
 ABSO_ATOL = 1e-4  # W/m3
-NX = NY = 256  # BASELINE.md's LES width: the main path's columns
-NZ = 39  # bench.py's vertical structure
+NX = NY = 256  # BASELINE.md's LES width: both paths' columns
+NZ = 39  # bench.py's vertical structure (the cloud path)
+URBAN_NZ, URBAN_DZ, URBAN_DX = 40, 10.0, 20.0  # the urban path: aspect 0.5, all layers 3-D
+URBAN_ALBEDO, BUILDING_ALBEDO, BUILDING_T = 0.15, 0.4, 300.0
+SUN = (250.0, 35.0)  # phi, theta [deg]
+SUN_MOVED = (253.0, 37.0)  # the urban warm solve's sun
+CSRC = "tenstream_tpu_torch/csrc/"
+# wrapper name -> (tag, CUDA source, line of the kernel in it, TPU kernel it replaces)
 KERNELS = {
-    "fused_A_dots": ("K1", "tenstream_tpu/pprts/pallas_ops.py:264"),
-    "orbit_contract": ("K2", "tenstream_tpu/pprts/pallas_ops.py:100"),
+    "fused_A_dots": ("K1", CSRC + "orbit_ops.cu", 95, "tenstream_tpu/pprts/pallas_ops.py:264"),
+    "orbit_contract": ("K2", CSRC + "orbit_ops.cu", 39, "tenstream_tpu/pprts/pallas_ops.py:100"),
+    "diffuse_apply_dense": ("K3", CSRC + "dense_ops.cu", 54,
+                            "tenstream_tpu/pprts/pallas_ops.py:64"),
 }
 
 
@@ -72,7 +96,7 @@ def cuda_ms(fn, n: int) -> float:
 
 
 # ---------------------------------------------------------------------------
-# scene
+# scenes
 # ---------------------------------------------------------------------------
 
 def build_scene(nx: int, ny: int, seed: int):
@@ -110,6 +134,36 @@ def build_scene(nx: int, ny: int, seed: int):
     return dz, kabs, ksca, g, planck
 
 
+def build_urban_scene(nx: int, ny: int, seed: int):
+    """An urban LES box: 40 layers of 10 m over columns of 20 m, clear air
+    (kabs 5e-6, ksca 1.5e-5 /m), and a street grid of buildings: every lot
+    of 8 x 8 columns holds one block 2..6 columns wide each way and 1..12
+    cells high at a random place inside the lot, about a quarter of the
+    ground in all.  Faces emit at 300 K.  z index 0 is the top layer."""
+    nz = URBAN_NZ
+    rng = np.random.default_rng(seed)
+    dz = np.full(nz, URBAN_DZ, np.float32)
+    kabs = np.full((nz, nx, ny), 5e-6, np.float32)
+    ksca = np.full((nz, nx, ny), 1.5e-5, np.float32)
+    g = np.zeros((nz, nx, ny), np.float32)
+    solid = np.zeros((nz, nx, ny), bool)
+    lot = 8
+    for i0 in range(0, nx - lot + 1, lot):
+        for j0 in range(0, ny - lot + 1, lot):
+            wx, wy = rng.integers(2, 7, 2)
+            h = rng.integers(1, 13)
+            i = i0 + rng.integers(0, lot - wx + 1)
+            j = j0 + rng.integers(0, lot - wy + 1)
+            solid[nz - h:, i:i + wx, j:j + wy] = True
+    zlev = URBAN_DZ * np.arange(nz, -1, -1)
+    sigma = 5.670374419e-8
+    T = 293.15 - 6.5e-3 * zlev
+    planck = (sigma * T ** 4 / np.pi).astype(np.float32)[:, None, None] * np.ones(
+        (nx, ny), np.float32)
+    bplanck = np.where(solid, sigma * BUILDING_T ** 4 / np.pi, 0.0).astype(np.float32)
+    return dz, (kabs, ksca, g, planck), solid, bplanck
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -142,7 +196,7 @@ def _k_inputs(B, nz, nx, ny, norb, seed):
 
 
 def _kernel_cost(cuda_ops, scheme, idx, B, nz, nx, ny, norb):
-    """(bytes, flops) each kernel needs: inputs read once, outputs written once."""
+    """(bytes, flops) each orbit kernel needs: inputs read once, outputs written once."""
     groups = cuda_ops.orbit_groups(idx)
     per_cell = sum(len(ss) + 1 for gd in groups for _, ss in gd)
     nxy, nd = nx * ny, scheme.ndiff
@@ -153,7 +207,19 @@ def _kernel_cost(cuda_ops, scheme, idx, B, nz, nx, ny, norb):
     return {"fused_A_dots": (k1_bytes, k1_flops), "orbit_contract": (k2_bytes, k2_flops)}
 
 
+def _report_entry(name, err, ms, plain_ms, nbytes, flops, library_ms=None):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    bound = max(tb, tf)
+    by = "bytes" if tb >= tf else "operations"
+    lib = "" if library_ms is None else f", one einsum {library_ms:.4f} ms"
+    log(f"kernels timing {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms{lib}, bound {bound:.4f} ms "
+        f"by {by}, {nbytes / 1e9:.3f} GB, {100 * bound / ms:.1f}% of the bound's rate)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=library_ms)
+
+
 def phase_kernels(cuda_ops, scheme, idx, nz, nx, ny):
+    """K1 and K2 against their plain versions, at the cloud path's shape."""
     norb = int(idx.max()) + 1
     report = {}
     for (B, z, x, y, tag) in ((2, 5, 6, 10, "odd"), (1, nz, nx, ny, "main")):
@@ -182,25 +248,66 @@ def phase_kernels(cuda_ops, scheme, idx, nz, nx, ny):
                                    cuda_ms(lambda: cuda_ops.orbit_contract_plain(idx, orb, src), 5)),
             }
             for name, err in (("fused_A_dots", e1), ("orbit_contract", e2)):
-                nbytes, flops = cost[name]
-                tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
-                ms, plain_ms = times[name]
-                report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                    bound_ms=max(tb, tf),
-                                    bound_by="bytes" if tb >= tf else "operations",
-                                    bytes=nbytes, flops=flops)
-                log(f"kernels timing {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-                    f"{max(tb, tf):.4f} ms by {report[name]['bound_by']}, {nbytes / 1e9:.3f} GB)")
+                report[name] = _report_entry(name, err, *times[name], *cost[name])
         del orb, u, w, alb, src, Au, Au_p, c, c_p
-    log('kernels: ["K1 fused_A_dots", "K2 orbit_contract"]')
     return report
 
 
-def make_solver(nx, ny, seed, opp, Grid, PprtsSolver, sundir):
+def phase_kernel_dense(cuda_ops, scheme, nz, nx, ny):
+    """K3 against its plain version, with float32 and bfloat16 coefficients,
+    at the urban path's shape and at an odd batched shape.  The bound counts
+    the coefficient field, x and the result once each.  Beside it the one
+    PyTorch call that computes the contraction K3 contains, on sources
+    gathered beforehand and without the scatter: the einsum (float32
+    coefficients only; it is used nowhere in the package)."""
+    nd = scheme.ndiff
+    entry = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for (B, z, x_, y) in ((2, 5, 6, 10), (1, nz, nx, ny)):
+            g = torch.Generator(device="cuda").manual_seed(z + x_)
+            c = (torch.rand((B, nd, nd, z, x_, y), device="cuda", generator=g) * 0.1).to(dtype)
+            x = torch.rand((B, nd, z + 1, x_, y), device="cuda", generator=g)
+            out = cuda_ops.diffuse_apply_dense(scheme, c, x)
+            ref = cuda_ops.diffuse_apply_dense_plain(scheme, c, x)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            log(f"kernels K3 {tag} B={B} nz={z} nx={x_} ny={y}: max abs {err:.3e}")
+            if not err <= FIELD_ATOL:
+                raise AssertionError(f"K3 ({tag}) disagrees with its plain version "
+                                     f"(field atol {FIELD_ATOL})")
+            if x_ == nx:
+                ms = cuda_ms(lambda: cuda_ops.diffuse_apply_dense(scheme, c, x), 20)
+                plain_ms = cuda_ms(lambda: cuda_ops.diffuse_apply_dense_plain(scheme, c, x), 3)
+                lib_ms = None
+                if dtype == torch.float32:
+                    src = cuda_ops.gather_diff_src(scheme, x)[0].contiguous()
+                    lib_ms = cuda_ms(lambda: torch.einsum("sdzxy,szxy->dzxy", c[0], src), 3)
+                    del src
+                ncell, nface = z * x_ * y, (z + 1) * x_ * y
+                nbytes = B * (nd * nd * ncell * c.element_size() + 2 * nd * nface * 4)
+                flops = B * 2 * nd * nd * ncell
+                entry[tag] = _report_entry(f"diffuse_apply_dense ({tag} coefficients)", err, ms,
+                                           plain_ms, nbytes, flops, lib_ms)
+            del c, x, out, ref
+    report = dict(entry["f32"])
+    report.update({f"{k}_bf16": v for k, v in entry["bf16"].items() if k != "library_ms"})
+    return report
+
+
+def make_solver(nx, ny, seed, opp, Grid, PprtsSolver, sundir, options=None):
     dz, kabs, ksca, g, planck = build_scene(nx, ny, seed)
-    solver = PprtsSolver(Grid.create(dz.size, nx, ny, 100.0, 100.0, dz, device="cuda"), opp)
+    solver = PprtsSolver(Grid.create(dz.size, nx, ny, 100.0, 100.0, dz, device="cuda"), opp,
+                         options=options)
     solver.set_angles(sundir)
     return solver, (kabs, ksca, g, planck)
+
+
+def make_urban_solver(nx, ny, seed, opp, Grid, PprtsSolver, Buildings, sundir):
+    dz, fields, solid, bplanck = build_urban_scene(nx, ny, seed)
+    solver = PprtsSolver(Grid.create(dz.size, nx, ny, URBAN_DX, URBAN_DX, dz, device="cuda"), opp)
+    solver.set_angles(sundir)
+    solver.set_buildings(Buildings(solid=solid, albedo=BUILDING_ALBEDO, planck=bplanck))
+    return solver, fields, solid
 
 
 def solve_and_report(solver, fields, cuda_ops, label, albedo=0.15, edir_toa=1000.0):
@@ -232,61 +339,129 @@ def solve_and_report(solver, fields, cuda_ops, label, albedo=0.15, edir_toa=1000
         if not np.isfinite(s.diff_res) or s.diff_res > 1.5 * s.diff_tol:
             raise AssertionError(f"{label} {kind}: residual {s.diff_res:.4e} > 1.5 x tol "
                                  f"{s.diff_tol:.4e}")
-        log(f"main {label} {kind}: bicgstab {s.niter_bicgstab} + polish {s.niter_polish} "
+        log(f"{label} {kind}: bicgstab {s.niter_bicgstab} + polish {s.niter_polish} "
             f"iterations, res/tol {s.diff_res / s.diff_tol:.4f}, host syncs {s.host_syncs}, "
             f"wall {ms:.1f} ms, launches K1 {launches['fused_A_dots']} "
-            f"K2 {launches['orbit_contract']}")
+            f"K2 {launches['orbit_contract']} K3 {launches['diffuse_apply_dense']}")
     for name, a in (("edir", edir), ("edn", edn), ("eup", eup), ("abso", abso)):
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"{label}: non-finite {name}")
-    log(f"main {label} fluxes [W/m2]: TOA edir {edir[0].mean().item():.3f} edn "
+    log(f"{label} fluxes [W/m2]: TOA edir {edir[0].mean().item():.3f} edn "
         f"{edn[0].mean().item():.3f} eup {eup[0].mean().item():.3f}; surface edir "
         f"{edir[-1].mean().item():.3f} edn {edn[-1].mean().item():.3f} eup "
         f"{eup[-1].mean().item():.3f}; abso mean {abso.mean().item():.4e} W/m3")
-    return edir, edn, eup, abso
+    iters = (sol.niter_bicgstab, sol.niter_polish, sol.thermal.niter_bicgstab,
+             sol.thermal.niter_polish)
+    return (edir, edn, eup, abso), iters
+
+
+def _compare_solves(label, outs):
+    errs = [(a - b).abs().max().item() for a, b in zip(*outs)]
+    log(f"{label}: max abs edir {errs[0]:.3e} edn {errs[1]:.3e} eup {errs[2]:.3e} W/m2, "
+        f"abso {errs[3]:.3e} W/m3")
+    if max(errs[:3]) > FLUX_ATOL or errs[3] > ABSO_ATOL:
+        raise AssertionError(f"{label}: the solves differ (flux atol {FLUX_ATOL}, abso atol "
+                             f"{ABSO_ATOL})")
 
 
 def phase_main(cuda_ops, opp, Grid, PprtsSolver, sundir, seed):
     solver, fields = make_solver(NX, NY, seed, opp, Grid, PprtsSolver, sundir)
+    torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launch_counts()
     t0 = time.time()
-    solve_and_report(solver, fields, cuda_ops, "cold")
+    solve_and_report(solver, fields, cuda_ops, "main cold")
     kabs, ksca, g, planck = fields
     rolled = tuple(np.roll(a, 1, axis=1) for a in (kabs, ksca, g)) + (planck,)
-    solve_and_report(solver, rolled, cuda_ops, "warm")
+    solve_and_report(solver, rolled, cuda_ops, "main warm")
     launches = dict(cuda_ops.LAUNCHES)
     log(f"main: cold + warm at {NX}x{NY}x{NZ} in {time.time() - t0:.1f} s wall; "
         f"launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("fused_A_dots", "orbit_contract"):
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     return launches
 
 
-def phase_profile(opp, Grid, PprtsSolver, sundir, seed, top=12):
-    """Where the time of a warm re-solve goes.  As in phase 4 the cloud
-    field is rolled by one cell and re-solved from the cached solution:
-    once with each solver stage timed on the host around a synchronise,
-    then (rolled back) under torch.profiler, whose kernel durations give
-    the device busy time and the kernels with the most device time."""
+def check_urban(solver, solid, outs, label):
+    """Shadows under the buildings, sun in the open, and the face fluxes."""
+    edir = outs[0]
+    cols = torch.as_tensor(solid.any(axis=0), device=edir.device)
+    under = edir[-1][cols].max().item()
+    clear = edir[0].mean().item()
+    lit = edir[-1][~cols].max().item()
+    log(f"{label}: {100 * solid.any(axis=0).mean():.1f}% of the columns hold a building; surface "
+        f"edir under them at most {under:.3e} W/m2, in the open up to {lit:.1f} of {clear:.1f} "
+        "W/m2 at the top")
+    if not under < 1.0:
+        raise AssertionError(f"{label}: direct irradiance {under} W/m2 under a solid column")
+    if not lit > 0.9 * clear:
+        raise AssertionError(f"{label}: no open column sees 90% of the clear direct irradiance")
+    from tenstream_tpu_torch.pprts.buildings import face_masks
+
+    b = solver._buildings
+    fl = solver.get_building_fluxes()
+    for kind, m in face_masks(b).items():
+        f = fl[kind]
+        for q in ("edir", "incoming", "outgoing"):
+            if not bool(torch.isfinite(f[q]).all()):
+                raise AssertionError(f"{label}: non-finite {q} on {kind} faces")
+        want = torch.where(m, b.albedo * f["incoming"] + (1.0 - b.albedo) * np.pi * b.planck,
+                           torch.zeros_like(f["incoming"]))
+        err = (f["outgoing"] - want).abs().max().item()
+        if err > 1e-3 * max(1.0, want.abs().max().item()):
+            raise AssertionError(f"{label}: outgoing != albedo incoming + (1 - albedo) pi B on "
+                                 f"{kind} faces (max abs {err})")
+    roof, wall = fl["roof"], fl["wall_x_low"]
+    nroof = int(face_masks(b)["roof"].sum())
+    log(f"{label} face fluxes [W/m2]: {nroof} roof faces, mean incoming "
+        f"{roof['incoming'].sum().item() / nroof:.1f} (direct {roof['edir'].sum().item() / nroof:.1f}"
+        f"), mean outgoing {roof['outgoing'].sum().item() / nroof:.1f}; x-low walls incoming up to "
+        f"{wall['incoming'].max().item():.1f}")
+
+
+def phase_urban(cuda_ops, opp, Grid, PprtsSolver, Buildings, sundir_from_angles, seed):
+    solver, fields, solid = make_urban_solver(NX, NY, seed, opp, Grid, PprtsSolver, Buildings,
+                                              sundir_from_angles(*SUN))
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launch_counts()
+    t0 = time.time()
+    outs, _ = solve_and_report(solver, fields, cuda_ops, "urban cold", albedo=URBAN_ALBEDO)
+    check_urban(solver, solid, outs, "urban cold")
+    solver.set_angles(sundir_from_angles(*SUN_MOVED))
+    outs, _ = solve_and_report(solver, fields, cuda_ops, "urban warm", albedo=URBAN_ALBEDO)
+    check_urban(solver, solid, outs, "urban warm")
+    launches = dict(cuda_ops.LAUNCHES)
+    log(f"urban: cold + warm at {NX}x{NY}x{URBAN_NZ} in {time.time() - t0:.1f} s wall; "
+        f"launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if launches["diffuse_apply_dense"] == 0:
+        raise AssertionError("kernel diffuse_apply_dense was not launched on the urban path")
+    if launches["fused_A_dots"] or launches["orbit_contract"]:
+        raise AssertionError("the urban path launched an orbit kernel")
+    return launches
+
+
+def phase_profile(solver, resolve, label, top=12):
+    """Where the time of a warm re-solve goes.  `resolve(i)` changes the
+    scene a little (i odd) or back (i even) and re-solves from the cached
+    solution: once with each solver stage timed on the host around a
+    synchronise, then (changed back) under torch.profiler, whose kernel
+    durations give the device busy time and the kernels with the most
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import tenstream_tpu_torch.pprts.solver as solver_mod
 
-    solver, (kabs, ksca, g, planck) = make_solver(NX, NY, seed, opp, Grid, PprtsSolver, sundir)
-
-    def resolve(shift):
-        solver.set_optical_properties(
-            0.15, *(np.roll(a, shift, axis=1) for a in (kabs, ksca, g)), planck=planck)
+    def timed_resolve(i):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sol = solver.solve(lthermal=True, lsolar=True, edirTOA=1000.0)
+        sol = resolve(i)
         torch.cuda.synchronize()
         return sol, (time.perf_counter() - t0) * 1e3
 
-    resolve(0)
+    timed_resolve(0)
     stages = {}
 
     def timed(name, fn):
@@ -299,23 +474,23 @@ def phase_profile(opp, Grid, PprtsSolver, sundir, seed, top=12):
             return out
         return run
 
-    names = ("assemble_coeffs", "solve_edir", "thermal_source", "solve_bicgstab",
-             "solve_richardson", "calc_flx_div")
+    names = ("assemble_coeffs", "mask_coeffs", "solve_edir", "building_sources",
+             "thermal_source", "solve_bicgstab", "solve_richardson", "calc_flx_div")
     saved = {n: getattr(solver_mod, n) for n in names}
     for n in names:
         setattr(solver_mod, n, timed(n, saved[n]))
     try:
-        sol, wall_ms = resolve(1)
+        sol, wall_ms = timed_resolve(1)
     finally:
         for n in names:
             setattr(solver_mod, n, saved[n])
     other = wall_ms - sum(stages.values())
-    log(f"profile stages of the warm {NX}x{NY}x{NZ} solar+thermal re-solve (wall {wall_ms:.1f} ms, "
+    log(f"profile {label}: stages of the warm solar+thermal re-solve (wall {wall_ms:.1f} ms, "
         f"bicgstab {sol.niter_bicgstab}+{sol.thermal.niter_bicgstab} iterations): "
         + ", ".join(f"{n} {ms:.1f} ms" for n, ms in stages.items()) + f", other {other:.1f} ms")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sol_p, wall_prof_ms = resolve(0)
+        sol_p, wall_prof_ms = timed_resolve(2)
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -323,18 +498,46 @@ def phase_profile(opp, Grid, PprtsSolver, sundir, seed, top=12):
             by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
     busy_ms = sum(t for t, _ in by_name.values())
     if busy_ms == 0:
-        log("profile: the profiler recorded no device time; device busy share not measured")
+        log(f"profile {label}: the profiler recorded no device time; device busy share not "
+            "measured")
         return
-    log(f"profile device: busy {busy_ms:.1f} ms in {sum(n for _, n in by_name.values())} kernels "
+    log(f"profile {label} device: busy {busy_ms:.1f} ms in "
+        f"{sum(n for _, n in by_name.values())} kernels "
         f"= {100 * busy_ms / wall_ms:.1f}% of the unprofiled wall {wall_ms:.1f} ms "
         f"(profiled wall {wall_prof_ms:.1f} ms; bicgstab "
         f"{sol_p.niter_bicgstab}+{sol_p.thermal.niter_bicgstab} iterations)")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
-        log(f"profile   {t:9.2f} ms {n:6d} launches  {name[:100]}")
+        log(f"profile {label}   {t:9.2f} ms {n:6d} launches  {name[:100]}")
+
+
+def profile_main(opp, Grid, PprtsSolver, sundir, seed):
+    """As in phase 4, the cloud field is rolled by one cell and back."""
+    solver, (kabs, ksca, g, planck) = make_solver(NX, NY, seed, opp, Grid, PprtsSolver, sundir)
+
+    def resolve(i):
+        solver.set_optical_properties(
+            0.15, *(np.roll(a, i % 2, axis=1) for a in (kabs, ksca, g)), planck=planck)
+        return solver.solve(lthermal=True, lsolar=True, edirTOA=1000.0)
+
+    phase_profile(solver, resolve, f"main {NX}x{NY}x{NZ}")
+
+
+def profile_urban(opp, Grid, PprtsSolver, Buildings, sundir_from_angles, seed):
+    """As in phase 6, the sun moves by a few degrees and back."""
+    solver, fields, _ = make_urban_solver(NX, NY, seed, opp, Grid, PprtsSolver, Buildings,
+                                          sundir_from_angles(*SUN))
+    kabs, ksca, g, planck = fields
+    solver.set_optical_properties(URBAN_ALBEDO, kabs, ksca, g, planck=planck)
+
+    def resolve(i):
+        solver.set_angles(sundir_from_angles(*(SUN_MOVED if i % 2 else SUN)))
+        return solver.solve(lthermal=True, lsolar=True, edirTOA=1000.0)
+
+    phase_profile(solver, resolve, f"urban {NX}x{NY}x{URBAN_NZ}")
 
 
 def phase_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, sundir, seed):
-    """64x64 scene through the kernels, then through the plain versions."""
+    """64x64 cloud scene through K1/K2, then through their plain versions."""
     outs = []
     for plain in (False, True):
         solver, fields = make_solver(64, 64, seed, opp, Grid, PprtsSolver, sundir)
@@ -346,15 +549,44 @@ def phase_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, sundir, seed):
                                        cuda_ops.orbit_contract_plain(idx, orb, src))
         try:
             outs.append(solve_and_report(solver, fields, cuda_ops,
-                                         "parity-plain" if plain else "parity-kernels"))
+                                         "parity plain" if plain else "parity kernels")[0])
         finally:
             ediff.fused_A_dots, cuda_ops.orbit_contract = saved
-    errs = [(a - b).abs().max().item() for a, b in zip(*outs)]
-    log(f"parity 64x64x39 kernels vs plain: max abs edir {errs[0]:.3e} edn {errs[1]:.3e} "
-        f"eup {errs[2]:.3e} W/m2, abso {errs[3]:.3e} W/m3")
-    if max(errs[:3]) > FLUX_ATOL or errs[3] > ABSO_ATOL:
-        raise AssertionError(f"kernel and plain solves differ (flux atol {FLUX_ATOL}, "
-                             f"abso atol {ABSO_ATOL})")
+    _compare_solves(f"parity 64x64x{NZ} kernels vs plain", outs)
+
+
+def phase_urban_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, Buildings, sundir, seed):
+    """64x64 urban scene through K3, then through its plain version."""
+    outs, iters = [], []
+    for plain in (False, True):
+        solver, fields, _ = make_urban_solver(64, 64, seed, opp, Grid, PprtsSolver, Buildings,
+                                              sundir)
+        saved = ediff.diffuse_apply_dense
+        if plain:
+            ediff.diffuse_apply_dense = cuda_ops.diffuse_apply_dense_plain
+        try:
+            o, it = solve_and_report(solver, fields, cuda_ops,
+                                     "urban parity plain" if plain else "urban parity kernel",
+                                     albedo=URBAN_ALBEDO)
+        finally:
+            ediff.diffuse_apply_dense = saved
+        outs.append(o)
+        iters.append(it)
+    _compare_solves(f"urban parity 64x64x{URBAN_NZ} K3 vs plain", outs)
+    if iters[0] != iters[1]:
+        raise AssertionError(f"urban parity: iteration counts differ, {iters[0]} vs {iters[1]}")
+
+
+def phase_dense_vs_orbit(cuda_ops, opp, Grid, PprtsSolver, Options, sundir, seed):
+    """64x64 cloud scene on dense coefficients (K3) and on orbit
+    coefficients (K1/K2): the two kernel families against each other."""
+    outs = []
+    for dense in (True, False):
+        opts = Options({"pprts_orbit_coeffs": False}, read_env=False) if dense else None
+        solver, fields = make_solver(64, 64, seed, opp, Grid, PprtsSolver, sundir, options=opts)
+        outs.append(solve_and_report(solver, fields, cuda_ops,
+                                     "dense-vs-orbit " + ("dense" if dense else "orbit"))[0])
+    _compare_solves(f"dense vs orbit 64x64x{NZ}", outs)
 
 
 def main():
@@ -363,9 +595,11 @@ def main():
     args = ap.parse_args()
 
     name, smi = phase_device()
+    from tenstream_tpu_torch.core.config import Options
     from tenstream_tpu_torch.optprop.facade import OptProp
     from tenstream_tpu_torch.optprop.lut import LUT
     from tenstream_tpu_torch.pprts import cuda_ops, ediff
+    from tenstream_tpu_torch.pprts.buildings import Buildings
     from tenstream_tpu_torch.pprts.grid import Grid
     from tenstream_tpu_torch.pprts.solver import PprtsSolver
     from tenstream_tpu_torch.pprts.sun import sundir_from_angles
@@ -374,19 +608,22 @@ def main():
     opp = OptProp(LUT.load(LUT_PATH, device="cuda"), device="cuda")
     idx = opp._solver_orbit_idx
     report = phase_kernels(cuda_ops, opp.scheme, idx, NZ, NX, NY)
-    sundir = sundir_from_angles(250.0, 35.0)
+    report["diffuse_apply_dense"] = phase_kernel_dense(cuda_ops, opp.scheme, URBAN_NZ, NX, NY)
+    sundir = sundir_from_angles(*SUN)
     launches = phase_main(cuda_ops, opp, Grid, PprtsSolver, sundir, args.seed)
     phase_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, sundir, args.seed)
-    phase_profile(opp, Grid, PprtsSolver, sundir, args.seed)
+    urban = phase_urban(cuda_ops, opp, Grid, PprtsSolver, Buildings, sundir_from_angles, args.seed)
+    launches["diffuse_apply_dense"] = urban["diffuse_apply_dense"]
+    phase_urban_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, Buildings, sundir, args.seed)
+    phase_dense_vs_orbit(cuda_ops, opp, Grid, PprtsSolver, Options, sundir, args.seed)
+    profile_main(opp, Grid, PprtsSolver, sundir, args.seed)
+    profile_urban(opp, Grid, PprtsSolver, Buildings, sundir_from_angles, args.seed)
 
     kernels = []
-    for kname, (tag, replaces) in KERNELS.items():
-        r = report[kname]
-        kernels.append(dict(name=f"{tag} {kname}", route="cuda",
-                            source="tenstream_tpu_torch/csrc/orbit_ops.cu", replaces=replaces,
-                            launches=launches[kname], max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                            bound_by=r["bound_by"], library_ms=None))
+    for kname, (tag, source, line, replaces) in KERNELS.items():
+        kernels.append(dict(name=f"{tag} {kname}", route="cuda", source=source,
+                            kernel=f"{source}:{line}", replaces=replaces,
+                            launches=launches[kname], **report[kname]))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,10 +1,14 @@
-"""Carry the JAX package's tables into the port.
+"""Carry the JAX package's state into the port.
 
 The port's "weights" are the LUT tables.  `lut_from_arrays` takes any
 object with the JAX `LUT`'s attributes (`scheme`, `dir_axes`,
 `diff_axes`, `dir2dir`, `dir2diff`, `diff2diff`; arrays convertible with
 numpy) and returns the port's `LUT` on `device`, so both packages can
-solve with identical tables.
+solve with identical tables; the tables pass through unchanged, a
+diff2diff table that is not symmetrized included (the port's `OptProp`
+then keeps the dense coefficient form, as the JAX one does).
+`buildings_from_arrays` does the same for the fields of a JAX
+`Buildings`.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 from tenstream_tpu_torch.optprop.lut import LUT, LUTAxes
+from tenstream_tpu_torch.pprts.buildings import Buildings
 
 
 def _axes(a, direct: bool) -> LUTAxes:
@@ -32,3 +37,11 @@ def lut_from_arrays(obj, device="cuda") -> LUT:
         dir2diff=t(obj.dir2diff),
         diff2diff=t(obj.diff2diff),
     )
+
+
+def buildings_from_arrays(solid, albedo, planck=None, temp=None, device="cuda") -> Buildings:
+    """The port's `Buildings` on `device` from array-likes (the fields of
+    a JAX `Buildings` converted with numpy)."""
+    f = lambda v: None if v is None else torch.as_tensor(np.array(v, np.float32), device=device)
+    return Buildings(torch.as_tensor(np.array(solid, bool), device=device), float(albedo),
+                     f(planck), f(temp))

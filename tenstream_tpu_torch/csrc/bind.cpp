@@ -1,5 +1,5 @@
-// PyTorch binding of the diffuse-operator kernels in orbit_ops.cu.  The
-// only source that includes PyTorch's headers: it checks the tensors,
+// PyTorch binding of the diffuse-operator kernels in orbit_ops.cu and
+// dense_ops.cu.  The only source that includes PyTorch's headers: it checks the tensors,
 // allocates the outputs, launches on the current stream and checks the
 // launch.
 #include <torch/extension.h>
@@ -10,6 +10,7 @@
 
 #include <vector>
 
+#include "dense_ops.h"
 #include "orbit_tables.h"
 
 namespace {
@@ -115,9 +116,57 @@ std::vector<torch::Tensor> fused_A_dots(torch::Tensor u, torch::Tensor w, torch:
   return {Au, dots};
 }
 
+// itab layout (see tenstream_tpu_torch/pprts/cuda_ops.py::_dense_tables):
+// nd, gz[D], gx[D], gy[D], cz[D], cx[D], cy[D]
+DenseTables make_dense_tables(const std::vector<int64_t>& itab) {
+  const size_t D = TS_DENSE_MAXD;
+  TORCH_CHECK(itab.size() == 1 + 6 * D, "dense tables: expected ", 1 + 6 * D, " ints, got ",
+              itab.size());
+  DenseTables t;
+  size_t q = 0;
+  t.nd = (int)itab[q++];
+  for (int* row : {t.gz, t.gx, t.gy, t.cz, t.cx, t.cy})
+    for (size_t s = 0; s < D; ++s) {
+      row[s] = (int)itab[q++];
+      TORCH_CHECK(row[s] >= -1 && row[s] <= 1, "dense tables: shift ", row[s], " out of range");
+    }
+  TORCH_CHECK(t.nd == TS_DENSE_MAXD,
+              "the kernel is built for the 3_10 scheme (nd = 10), got nd = ", t.nd);
+  return t;
+}
+
+torch::Tensor diffuse_apply_dense(torch::Tensor x, torch::Tensor c, std::vector<int64_t> itab) {
+  const DenseTables t = make_dense_tables(itab);
+  check_f32(x, "x", 5);
+  TORCH_CHECK(c.is_cuda(), "c must be a CUDA tensor");
+  const bool bf16 = c.scalar_type() == torch::kBFloat16;
+  TORCH_CHECK(bf16 || c.scalar_type() == torch::kFloat32, "c must be float32 or bfloat16");
+  TORCH_CHECK(c.dim() == 6, "c must have 6 dims, got ", c.dim());
+  TORCH_CHECK(c.is_contiguous(), "c must be contiguous");
+  const int64_t B = x.size(0), nz = x.size(2) - 1, nx = x.size(3), ny = x.size(4);
+  TORCH_CHECK(x.size(1) == t.nd, "x dof dim ", x.size(1), " != ", t.nd);
+  TORCH_CHECK(nz >= 1, "x needs at least two face levels");
+  TORCH_CHECK(c.size(0) == B && c.size(1) == t.nd && c.size(2) == t.nd && c.size(3) == nz &&
+                  c.size(4) == nx && c.size(5) == ny,
+              "c must be (B, nd, nd, nz, nx, ny)");
+  TORCH_CHECK(c.device() == x.device(), "x and c on different devices");
+  TORCH_CHECK((nz + 1) * nx * ny < (int64_t)1 << 31, "field too large for int indexing");
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto out = torch::empty_like(x);
+  if (B == 0 || nx == 0 || ny == 0) return out;
+  cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  C10_CUDA_CHECK(launch_diffuse_apply_dense(x.data_ptr<float>(), c.data_ptr(), bf16 ? 1 : 0,
+                                            out.data_ptr<float>(), &t, (int)B, (int)nz, (int)nx,
+                                            (int)ny, stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("orbit_contract", &orbit_contract, "K2: per-cell orbit contraction (CUDA)");
   m.def("fused_A_dots", &fused_A_dots, "K1: A(u) = u - S(u) plus two dots (CUDA)");
+  m.def("diffuse_apply_dense", &diffuse_apply_dense,
+        "K3: S(x) on dense [src, dst] coefficients, float32 or bfloat16 (CUDA)");
 }

@@ -1,0 +1,32 @@
+// Static shift tables of the dense diffuse-operator kernel (dense_ops.cu)
+// and its binding (bind.cpp).  Plain C: no PyTorch headers, so the CUDA
+// source compiles in seconds.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define TS_DENSE_MAXD 10  // diffuse dofs per cell (3_10)
+
+// One diffuse scheme's face<->cell shifts (z, x, y), passed to the kernel
+// by value.
+typedef struct {
+  int nd;                                                       // diffuse dofs
+  int gz[TS_DENSE_MAXD], gx[TS_DENSE_MAXD], gy[TS_DENSE_MAXD];  // src s read at cell + g*[s]
+  int cz[TS_DENSE_MAXD], cx[TS_DENSE_MAXD], cy[TS_DENSE_MAXD];  // dst d made by cell face + c*[d]
+} DenseTables;
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+// out[b, d, face] = sum_s c[b, s, d, cell] * x[b, s, cell + g(s)] with
+// cell = face + c(d); periodic in x and y, zero beyond z.
+// x, out: (B, nd, nz+1, nx, ny) float32; c: (B, nd, nd, nz, nx, ny)
+// [src, dst], float32 or (c_is_bf16 != 0) bfloat16.
+cudaError_t launch_diffuse_apply_dense(const float* x, const void* c, int c_is_bf16,
+                                       float* out, const DenseTables* t, int batch, int nz,
+                                       int nx, int ny, cudaStream_t stream);
+
+#ifdef __cplusplus
+}
+#endif

@@ -86,6 +86,7 @@ class OptProp:
         # orbit-compressed diffuse channels; the consistency gate keeps
         # unsymmetrized tables off the orbit path
         self._solver_orbit_idx = None
+        self._diff_orbit_idx = None  # (ndiff^2,) cube-group orbit of each (src, dst) pair
         orbit, norb = diff_pair_orbits(self.scheme)
         t = lut.diff2diff.detach().cpu().numpy().astype(np.float32)
         flat = t.reshape(t.shape[:4] + (-1,))
@@ -97,6 +98,7 @@ class OptProp:
         mean = (acc / cnt).astype(np.float32)
         if np.abs(flat - mean[..., oflat]).max() <= 1e-5:
             self._diff2diff_orb = torch.as_tensor(mean, device=dev)
+            self._diff_orbit_idx = torch.as_tensor(oflat, device=dev)
             osub, nsub = diff_pair_orbits(self.scheme, with_mz=False)
             sub2full = np.zeros(nsub, np.int64)
             nf = self.scheme.ndiff
@@ -167,6 +169,19 @@ class OptProp:
             c_dd = c_dd[p][:, p]
             c_df = c_df[p][:, q]
         return c_dd, c_df
+
+    def diff_coeffs(self, tauz, w0, g, aspect) -> torch.Tensor:
+        """diff2diff in dense form: (ndiff, ndiff) + B [src, dst].  A
+        symmetrized table interpolates one channel per orbit and expands
+        with a static take; an unsymmetrized one interpolates all
+        ndiff^2 channels."""
+        fr = self._fracs(self._diff_grids, tauz, w0, aspect, g)
+        nd = self.scheme.ndiff
+        if self._diff_orbit_idx is not None:
+            c = self._interp(self._diff2diff_orb, fr)[self._diff_orbit_idx]
+        else:
+            c = self._interp(self._diff2diff.reshape(self._diff2diff.shape[:4] + (nd * nd,)), fr)
+        return c.reshape((nd, nd) + tuple(c.shape[1:]))
 
     def diff_coeffs_orbit(self, tauz, w0, g, aspect) -> torch.Tensor:
         """diff2diff in solver-orbit channel form: (norb,) + B."""

@@ -1,6 +1,6 @@
 """Per-cell transfer-coefficient field assembly (port of
-`tenstream_tpu/pprts/coeffs.py`: `assemble_coeffs` in orbit form,
-`determine_1d_layers`, `_onedee_blocks`, `_onedee_diff_orbit`).
+`tenstream_tpu/pprts/coeffs.py`: `assemble_coeffs` in orbit and dense
+form, `determine_1d_layers`, `_onedee_blocks`, `_onedee_diff_orbit`).
 
 3-D layers interpolate the LUT; layers flagged 1-D (aspect >=
 twostr_ratio) get analytic delta-Eddington blocks, so the solvers have
@@ -16,7 +16,7 @@ import torch
 
 from tenstream_tpu_torch.core.types import TINY, ireals
 from tenstream_tpu_torch.ops.eddington import eddington_coeff_ec
-from tenstream_tpu_torch.pprts.operators import OrbitCoeff
+from tenstream_tpu_torch.pprts.operators import DiffCoeff, OrbitCoeff
 from tenstream_tpu_torch.pprts.sun import SunInfo
 from tenstream_tpu_torch.streams import StreamScheme
 
@@ -24,7 +24,7 @@ from tenstream_tpu_torch.streams import StreamScheme
 class CoeffFields(NamedTuple):
     dir2dir: Optional[torch.Tensor]  # (ndir, ndir, Nz, Nx, Ny)
     dir2diff: Optional[torch.Tensor]  # (ndir, ndiff, Nz, Nx, Ny)
-    diff2diff: OrbitCoeff
+    diff2diff: DiffCoeff  # OrbitCoeff or (ndiff, ndiff, Nz, Nx, Ny)
 
 
 def optical_state(kabs, ksca, dz3d, dx: float):
@@ -36,24 +36,29 @@ def optical_state(kabs, ksca, dz3d, dx: float):
     return tauz, w0, aspect
 
 
-def _onedee_blocks(scheme: StreamScheme, a11, a12, a13, a23, a33):
-    """Analytic (dir2dir, dir2diff, diff2diff) blocks of 1-D layers."""
+def _onedee_blocks(scheme: StreamScheme, a11, a12, a13, a23, a33,
+                   want_dir: bool = True, want_diff: bool = True):
+    """Analytic (dir2dir, dir2diff, diff2diff) blocks of 1-D layers; the
+    direct pair or the dense diffuse block is None when not wanted."""
     shp = tuple(a11.shape)
     nd, nf = scheme.ndir, scheme.ndiff
     inward = scheme.diff_inward()
     inv = scheme.diff_inv_dof()
     wtop = scheme.difftop_weights()
     z = lambda *lead: torch.zeros(lead + shp, dtype=a11.dtype, device=a11.device)
-    dir2dir = z(nd, nd)
-    dir2diff = z(nd, nf)
-    diff2diff = z(nf, nf)
-    for t in range(scheme.dirtop.dof):
-        dir2dir[t, t] = a33
+    dir2dir = dir2diff = diff2diff = None
+    if want_dir:
+        dir2dir = z(nd, nd)
+        dir2diff = z(nd, nf)
+        for t in range(scheme.dirtop.dof):
+            dir2dir[t, t] = a33
+            for d in range(scheme.difftop.dof):
+                dir2diff[t, d] = (a23 if inward[d] else a13) * float(wtop[d])
+    if want_diff:
+        diff2diff = z(nf, nf)
         for d in range(scheme.difftop.dof):
-            dir2diff[t, d] = (a23 if inward[d] else a13) * float(wtop[d])
-    for d in range(scheme.difftop.dof):
-        diff2diff[d, d] = a11
-        diff2diff[int(inv[d]), d] = a12
+            diff2diff[d, d] = a11
+            diff2diff[int(inv[d]), d] = a12
     return dir2dir, dir2diff, diff2diff
 
 
@@ -78,14 +83,15 @@ def assemble_coeffs(
     l1d: np.ndarray,  # (Nz,) bool, host
     sun: Optional[SunInfo],
     need_dir: bool,
+    orbit: bool = False,
 ) -> Tuple[CoeffFields, Tuple[torch.Tensor, ...]]:
-    """Coefficient fields (diffuse in orbit form) and the eddington set
-    (a11, a12, a13, a23, a33).  dz3d may be (Nz, 1, 1) (per-layer
-    thickness, which lets the lookup take the one-hot path) or full."""
-    if getattr(opp, "_solver_orbit_idx", None) is None:
-        raise NotImplementedError(
-            "dense diffuse coefficients (pprts_orbit_coeffs=False, unsymmetrized "
-            "LUTs) are not ported (ROADMAP K3)")
+    """Coefficient fields and the eddington set (a11, a12, a13, a23,
+    a33).  orbit=True stores diff2diff as `OrbitCoeff` (needs a
+    symmetrized LUT), else as the dense (ndiff, ndiff, Nz, Nx, Ny) tensor.
+    dz3d may be (Nz, 1, 1) (per-layer thickness, which lets the lookup
+    take the one-hot path) or full."""
+    if orbit and getattr(opp, "_solver_orbit_idx", None) is None:
+        raise ValueError("orbit coefficient storage needs a symmetrized LUT")
     tauz, w0, aspect = optical_state(kabs, ksca, dz3d, dx)
     mu = sun.mu if (sun is not None and need_dir) else 1.0
     a11, a12, a13, a23, a33 = eddington_coeff_ec(
@@ -94,23 +100,25 @@ def assemble_coeffs(
 
     l1d = np.asarray(l1d, bool)
     idx3d = np.nonzero(~l1d)[0]
-    oidx = opp._solver_orbit_idx
-    norb = int(oidx.max()) + 1
 
-    ff = _onedee_diff_orbit(scheme, oidx, norb, a11, a12)
-    dd = df = None
-    if want_dir:
-        dd, df, _ = _onedee_blocks(scheme, a11, a12, a13, a23, a33)
+    dd, df, ff = _onedee_blocks(scheme, a11, a12, a13, a23, a33, want_dir=want_dir,
+                                want_diff=not orbit)
+    if orbit:
+        oidx = opp._solver_orbit_idx
+        ff = _onedee_diff_orbit(scheme, oidx, int(oidx.max()) + 1, a11, a12)
     if idx3d.size:
         sel = torch.as_tensor(idx3d, device=tauz.device)
         tz_r, w0_r, g_r, asp_r = (x[sel] for x in (tauz, w0, g, aspect))
-        ff[:, sel] = opp.diff_coeffs_orbit(tz_r, w0_r, g_r, asp_r)
+        if orbit:
+            ff[:, sel] = opp.diff_coeffs_orbit(tz_r, w0_r, g_r, asp_r)
+        else:
+            ff[:, :, sel] = opp.diff_coeffs(tz_r, w0_r, g_r, asp_r)
         if want_dir:
             c_dd, c_df = opp.dir_coeffs(tz_r, w0_r, g_r, asp_r, sun.symmetry_phi, sun.theta,
                                         switch_x=sun.switch_x, switch_y=sun.switch_y)
             dd[:, :, sel] = c_dd
             df[:, :, sel] = c_df
-    return CoeffFields(dd, df, OrbitCoeff(ff, oidx)), (a11, a12, a13, a23, a33)
+    return CoeffFields(dd, df, OrbitCoeff(ff, oidx) if orbit else ff), (a11, a12, a13, a23, a33)
 
 
 def determine_1d_layers(dz3d: torch.Tensor, dx: float, twostr_ratio: float) -> np.ndarray:

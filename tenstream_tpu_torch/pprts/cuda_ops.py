@@ -1,5 +1,5 @@
-"""The diffuse-solve kernels K1 and K2, hand-written in CUDA for Hopper,
-with their plain PyTorch versions beside them (port of
+"""The diffuse-solve kernels K1, K2 and K3, hand-written in CUDA for
+Hopper, with their plain PyTorch versions beside them (port of
 `tenstream_tpu/pprts/pallas_ops.py`).
 
 K1 `fused_A_dots` replaces `pallas_ops.py::_fused_A_kernel`: A(u) =
@@ -12,15 +12,22 @@ per-cell orbit contraction contrib[d] = sum over orbit groups of
 orb[o] * sum(src[s in group]).  Placed between `gather_diff_src` and
 `scatter_diff_dst` it forms S(x) for the Richardson polish.
 
-Both take a leading batch dim B and return per-batch dots, and are built
+K3 `diffuse_apply_dense` replaces `pallas_ops.py::_kernel`
+(`diffuse_apply_pallas`): S(x) without the surface closure on the dense
+(src, dst) coefficient field, which buildings and
+`pprts_orbit_coeffs=False` force; the coefficients may be bfloat16,
+products and sums are float32.  BiCGStab and Richardson both apply it on
+dense coefficients.
+
+All take a leading batch dim B (K1 returns per-batch dots), and are built
 for the 3_10 scheme's 10 diffuse dofs (the plain versions take any
 scheme).  A wrapper
 runs the plain version only because its tensors lie on the CPU; on a CUDA
 tensor it launches the kernel (or raises) -- there is no fallback.  Each
 launch adds one to `LAUNCHES[name]`.
 
-The CUDA sources are `tenstream_tpu_torch/csrc/{orbit_ops.cu, bind.cpp}`,
-built at first use with `torch.utils.cpp_extension.load` into
+The CUDA sources are `tenstream_tpu_torch/csrc/{orbit_ops.cu,
+dense_ops.cu, bind.cpp}`, built at first use with `torch.utils.cpp_extension.load` into
 `tenstream_tpu_torch/_build/` (sm_90a).
 """
 
@@ -45,11 +52,11 @@ from tenstream_tpu_torch.streams import StreamScheme
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("orbit_ops.cu", "bind.cpp")
+SOURCES = ("orbit_ops.cu", "dense_ops.cu", "bind.cpp")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
 
 # kernel name -> launches since the last reset (see reset_launch_counts)
-LAUNCHES: Dict[str, int] = {"fused_A_dots": 0, "orbit_contract": 0}
+LAUNCHES: Dict[str, int] = {"fused_A_dots": 0, "orbit_contract": 0, "diffuse_apply_dense": 0}
 
 _TS_MAXD = 10
 _TS_MAXC = 5
@@ -211,3 +218,42 @@ def fused_A_dots(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
     Au, dots = load_extension().fused_A_dots(u, w, orb, albedo, itab, ftab)
     LAUNCHES["fused_A_dots"] += 1
     return Au, dots
+
+
+# ---------------------------------------------------------------------------
+# K3: S(x) on dense coefficients
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_tables(scheme: StreamScheme):
+    """[nd] + gz + gx + gy + cz + cx + cy: src s is read at cell + g*[s],
+    dst d is produced by the cell face + c*[d]."""
+    nd = scheme.ndiff
+    if nd != _TS_MAXD:
+        raise ValueError(f"the kernels are built for the 3_10 scheme ({_TS_MAXD} diffuse "
+                         f"dofs); scheme {scheme.name} has {nd}")
+    cshift, gshift = _shift_tables(scheme)
+    return [nd] + [sh[a][q] for sh in (gshift, cshift) for q in range(3) for a in range(nd)]
+
+
+def diffuse_apply_dense_plain(scheme: StreamScheme, coeff: torch.Tensor,
+                              x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K3: coeff (B, nd, nd, Nz, Nx, Ny) [src, dst] in
+    float32 or bfloat16, x (B, nd, Nz+1, Nx, Ny) -> S(x) without the
+    surface closure, float32."""
+    contrib = torch.einsum("bsdkij,bskij->bdkij", coeff.float(), gather_diff_src(scheme, x))
+    return scatter_diff_dst(scheme, contrib)
+
+
+def diffuse_apply_dense(scheme: StreamScheme, coeff: torch.Tensor,
+                        x: torch.Tensor) -> torch.Tensor:
+    """K3: S(x) without the surface closure, for dst d at a face
+    sum_s coeff[s, d, cell] * x[s, cell + gshift[s]], cell = face +
+    cshift[d]; periodic in x and y, zero beyond z."""
+    if coeff.device.type == "cpu" and x.device.type == "cpu":
+        return diffuse_apply_dense_plain(scheme, coeff, x)
+    _require_cuda(coeff, x)
+    out = load_extension().diffuse_apply_dense(x, coeff, _dense_tables(scheme))
+    LAUNCHES["diffuse_apply_dense"] += 1
+    return out

@@ -2,14 +2,20 @@
 `tenstream_tpu/pprts/ediff.py`).
 
   * `solve_bicgstab` -- right-preconditioned BiCGStab on A(x) = x - S(x).
-    Every operator apply is the fused kernel K1 (`cuda_ops.fused_A_dots`):
-    A(u) plus the two Krylov dots the iteration needs next.
+    On orbit coefficients every operator apply is the fused kernel K1
+    (`cuda_ops.fused_A_dots`): A(u) plus the two Krylov dots the
+    iteration needs next.  On dense coefficients A(u) = u - (K3(u) +
+    surface closure) and the dots are torch's.
   * `solve_richardson` -- adaptive-omega preconditioned Richardson,
     x <- x + omega M^-1 (b + S x - x); S(x) runs through kernel K2
-    (`cuda_ops.orbit_contract`).  The solver runs it as the
-    convergence-guaranteed polish after BiCGStab.
+    (`cuda_ops.orbit_contract`) on orbit coefficients and through K3
+    (`cuda_ops.diffuse_apply_dense`) on dense ones.  The solver runs it
+    as the convergence-guaranteed polish after BiCGStab, or alone with
+    `diff_solver="richardson"`.
 
 On CUDA tensors the kernels run; on CPU tensors their plain versions.
+A dense coefficient field may be stored in bfloat16: the kernels and the
+preconditioners read it as float32.
 
 JAX keeps the iteration in a `lax.while_loop` on the device.  Here the
 loop is a Python loop, and each iteration synchronises with the host
@@ -28,17 +34,14 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from tenstream_tpu_torch.core.types import TINY
-from tenstream_tpu_torch.pprts.cuda_ops import diffuse_apply_orbit, fused_A_dots
+from tenstream_tpu_torch.pprts.cuda_ops import (
+    diffuse_apply_dense,
+    diffuse_apply_orbit,
+    fused_A_dots,
+)
 from tenstream_tpu_torch.pprts.edir import affine_scan
-from tenstream_tpu_torch.pprts.operators import OrbitCoeff
+from tenstream_tpu_torch.pprts.operators import OrbitCoeff, add_surface_reflection
 from tenstream_tpu_torch.streams import StreamScheme
-
-
-def _require_orbit(coeff) -> OrbitCoeff:
-    if not isinstance(coeff, OrbitCoeff):
-        raise NotImplementedError(
-            "the dense diffuse coefficient path (kernel K3) is not ported (ROADMAP K3)")
-    return coeff
 
 
 def _make_pc(scheme: StreamScheme, coeff, albedo2d, precond) -> Callable:
@@ -67,17 +70,23 @@ def _make_pc(scheme: StreamScheme, coeff, albedo2d, precond) -> Callable:
 
 
 def _make_apply(scheme: StreamScheme, coeff, albedo2d) -> Callable:
-    """S(x) with the surface closure: gather -> K2 -> scatter."""
-    coeff = _require_orbit(coeff)
-    return lambda x: diffuse_apply_orbit(scheme, coeff.idx, coeff.orb, x, albedo2d)
+    """S(x) with the surface closure: gather -> K2 -> scatter on orbit
+    coefficients, K3 on dense ones."""
+    if isinstance(coeff, OrbitCoeff):
+        return lambda x: diffuse_apply_orbit(scheme, coeff.idx, coeff.orb, x, albedo2d)
+    cb = coeff[None]
+    return lambda x: add_surface_reflection(
+        scheme, diffuse_apply_dense(scheme, cb, x[None])[0], x, albedo2d)
 
 
 def _line_blocks(scheme: StreamScheme, coeff):
     inward = scheme.diff_inward()
     d_up = 0 if not inward[0] else 1
     d_dn = 1 - d_up
-    coeff = _require_orbit(coeff)
-    e = lambda s, d: coeff.entry(s, d).float()
+    if isinstance(coeff, OrbitCoeff):
+        e = lambda s, d: coeff.entry(s, d).float()
+    else:
+        e = lambda s, d: coeff[s, d].float()
     # (Nz, Nx, Ny): src Edn -> dst Edn, src Eup -> dst Edn, ...
     return d_up, d_dn, e(d_dn, d_dn), e(d_up, d_dn), e(d_up, d_up), e(d_dn, d_up)
 
@@ -245,16 +254,22 @@ def solve_bicgstab(
     and on a rho breakdown; a non-finite update freezes the iterate and
     counts as a stall; 30 non-improving iterations end the solve (the
     Richardson polish that follows guarantees the final accuracy)."""
-    coeff = _require_orbit(coeff)
-    orb = coeff.orb[None]
-    alb = albedo2d.expand(b.shape[-2:]).contiguous()[None]
+    dot = lambda u, v: torch.dot(u.reshape(-1), v.reshape(-1))
+    if isinstance(coeff, OrbitCoeff):
+        orb = coeff.orb[None]
+        alb = albedo2d.expand(b.shape[-2:]).contiguous()[None]
 
-    def fused_AD(u, w):
-        Au, dots = fused_A_dots(scheme, coeff.idx, orb, u[None], w[None], alb)
-        return Au[0], dots[0, 0], dots[0, 1]
+        def fused_AD(u, w):
+            Au, dots = fused_A_dots(scheme, coeff.idx, orb, u[None], w[None], alb)
+            return Au[0], dots[0, 0], dots[0, 1]
+    else:
+        S_apply = _make_apply(scheme, coeff, albedo2d)
+
+        def fused_AD(u, w):
+            Au = u - S_apply(u)
+            return Au, dot(w, Au), dot(Au, Au)
 
     M = _make_pc(scheme, coeff, albedo2d, precond)
-    dot = lambda u, v: torch.dot(u.reshape(-1), v.reshape(-1))
     eps = TINY * 1e4
     stall_limit = 30
     restart_every = 10

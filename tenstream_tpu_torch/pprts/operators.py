@@ -7,13 +7,14 @@ are periodic (`torch.roll`), z has a zero halo.  Every function here
 accepts optional leading batch dims on the stream fields.
 
 This plain path is the twin the CUDA kernels of `cuda_ops.py` are held
-against: `fused_A_dots_plain` and `orbit_contract_plain` are written from
-`diffuse_scatter` / `_orbit_contrib` below.
+against: `fused_A_dots_plain`, `orbit_contract_plain` and
+`diffuse_apply_dense_plain` are written from `diffuse_scatter` /
+`_orbit_contrib` below.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -37,26 +38,48 @@ class OrbitCoeff:
         nf = self.idx.shape[0]
         return (nf, nf) + tuple(self.orb.shape[1:])
 
+    def astype(self, dt) -> "OrbitCoeff":
+        return OrbitCoeff(self.orb.to(dt), self.idx)
+
+    def full(self) -> torch.Tensor:
+        """Expanded (ndiff, ndiff, Nz, Nx, Ny) field (a materialised copy)."""
+        nf = self.idx.shape[0]
+        sel = torch.as_tensor(self.idx.ravel(), device=self.orb.device)
+        return self.orb[sel].reshape((nf, nf) + tuple(self.orb.shape[1:]))
+
     def entry(self, s: int, d: int) -> torch.Tensor:
         """Single (src, dst) coefficient field (Nz, Nx, Ny)."""
         return self.orb[int(self.idx[s, d])]
 
     def dst_sums(self) -> torch.Tensor:
-        """Sum over dst per src (the dense field's sum over dst) via a static per-orbit
-        count matrix."""
+        """Sum over dst per src (the dense field's sum over dst) in
+        float32, via a static per-orbit count matrix."""
         norb = self.orb.shape[0]
         nf = self.idx.shape[0]
         R = np.zeros((nf, norb), np.float32)
         for s in range(nf):
             for d in range(nf):
                 R[s, self.idx[s, d]] += 1.0
-        R = torch.as_tensor(R, device=self.orb.device, dtype=self.orb.dtype)
-        return torch.einsum("so,o...->s...", R, self.orb)
+        R = torch.as_tensor(R, device=self.orb.device)
+        return torch.einsum("so,o...->s...", R, self.orb.float())
 
 
-def diff_dst_sums(coeff: OrbitCoeff) -> torch.Tensor:
-    """Sum over dst per src of the diffuse coefficients."""
-    return coeff.dst_sums()
+# a diffuse coefficient field in either storage form: orbit channels or
+# the dense (ndiff, ndiff, Nz, Nx, Ny) [src, dst] tensor
+DiffCoeff = Union[OrbitCoeff, torch.Tensor]
+
+
+def diff_coeff_full(coeff: DiffCoeff) -> torch.Tensor:
+    """Expanded (ndiff, ndiff, ...) tensor for either storage form."""
+    return coeff.full() if isinstance(coeff, OrbitCoeff) else coeff
+
+
+def diff_dst_sums(coeff: DiffCoeff) -> torch.Tensor:
+    """Sum over dst per src of the diffuse coefficients, in float32, for
+    either storage form."""
+    if isinstance(coeff, OrbitCoeff):
+        return coeff.dst_sums()
+    return coeff.sum(dim=1, dtype=torch.float32)
 
 
 def orbit_groups(idx: np.ndarray):
@@ -134,13 +157,20 @@ def _orbit_contrib(coeff: OrbitCoeff, src: torch.Tensor) -> torch.Tensor:
 
 def diffuse_scatter(
     scheme: StreamScheme,
-    coeff: OrbitCoeff,
+    coeff: DiffCoeff,
     x: torch.Tensor,
     albedo2d: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """S(x): one application of the diffuse transport scatter (with the
-    surface reflection closure when `albedo2d` is given)."""
-    out = scatter_diff_dst(scheme, _orbit_contrib(coeff, gather_diff_src(scheme, x)))
+    surface reflection closure when `albedo2d` is given).  coeff:
+    `OrbitCoeff` or dense (..., ndiff, ndiff, Nz, Nx, Ny) [src, dst], which
+    may be stored in bfloat16 (products and sums run in x's dtype)."""
+    src = gather_diff_src(scheme, x)
+    if isinstance(coeff, OrbitCoeff):
+        contrib = _orbit_contrib(coeff, src)
+    else:
+        contrib = torch.einsum("...sdkij,...skij->...dkij", coeff.to(x.dtype), src)
+    out = scatter_diff_dst(scheme, contrib)
     if albedo2d is not None:
         out = add_surface_reflection(scheme, out, x, albedo2d)
     return out

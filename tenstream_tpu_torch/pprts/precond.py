@@ -83,8 +83,11 @@ def auto_coarse_factor(nx: int, ny: int, target: int = 32) -> int:
     return cf
 
 
-def _mean_coeff(coeff: OrbitCoeff) -> torch.Tensor:
-    """Layer-mean (ndiff, ndiff, Nz) of the diffuse coefficient field."""
+def _mean_coeff(coeff) -> torch.Tensor:
+    """Layer-mean (ndiff, ndiff, Nz) of the diffuse coefficient field
+    (`OrbitCoeff` or dense), in float32."""
+    if not isinstance(coeff, OrbitCoeff):
+        return coeff.mean(dim=(-2, -1), dtype=torch.float32)
     m = coeff.orb.float().mean(dim=(-2, -1))  # (norb, Nz)
     nf = coeff.idx.shape[0]
     sel = torch.as_tensor(coeff.idx.ravel(), device=m.device)
@@ -156,12 +159,12 @@ def _pad_blocks(L1: int) -> int:
     return Lp
 
 
-def build_coarse_factors(scheme: StreamScheme, coeff: OrbitCoeff, albedo2d: torch.Tensor,
+def build_coarse_factors(scheme: StreamScheme, coeff, albedo2d: torch.Tensor,
                          cf: int, ncx: int, ncy: int) -> CoarseFactors:
     """Assemble and factorise the per-mode coarse block-tridiagonal
     systems (I - S_hom) from the layer-mean coefficients."""
     nf = scheme.ndiff
-    dev = coeff.orb.device
+    dev = albedo2d.device
     cbar = _mean_coeff(coeff)  # (s, d, Nz)
     nz = cbar.shape[-1]
     L1 = nz + 1
@@ -291,7 +294,7 @@ def unpool2d(rc: torch.Tensor, cf: int) -> torch.Tensor:
     return torch.repeat_interleave(torch.repeat_interleave(rc, cf, dim=-2), cf, dim=-1)
 
 
-def make_two_level_pc(scheme: StreamScheme, coeff: OrbitCoeff, albedo2d: torch.Tensor,
+def make_two_level_pc(scheme: StreamScheme, coeff, albedo2d: torch.Tensor,
                       cf: int = 0, coarse_target: int = 32):
     """M(r), the additive two-level preconditioner; the coarse and line
     factorisations run here, once per solve."""

@@ -1,11 +1,14 @@
 """The pprts solver driver: init / set optical properties / solve / result
-(port of `tenstream_tpu/pprts/solver.py`, restricted to the 3-D solve on
-orbit-compressed coefficients).
+(port of `tenstream_tpu/pprts/solver.py`, restricted to the 3-D solve).
 
 One solve runs: coefficient assembly -> direct z-scan -> sources ->
 BiCGStab with the two-level preconditioner -> Richardson polish ->
-absorption.  The diffuse solve goes through the CUDA kernels K1 and K2
-whenever the solver's tensors are on the card (`pprts/cuda_ops.py`).
+absorption.  The diffuse coefficients are stored per symmetry orbit
+(`OrbitCoeff`) unless buildings are attached, `pprts_orbit_coeffs` is off
+or the LUT is not symmetrized; then they are the dense (src, dst) field.
+Whenever the solver's tensors are on the card the diffuse solve goes
+through the CUDA kernels of `pprts/cuda_ops.py`: K1 and K2 on orbit
+coefficients, K3 on dense ones.
 
 Units: the solve works in [W] per stream dof (face-area scaled power);
 `get_result` converts to [W/m2], with the TOA tilt factor sun.mu on solar
@@ -25,10 +28,18 @@ import numpy as np
 import torch
 
 from tenstream_tpu_torch.core.config import Options
-from tenstream_tpu_torch.core.types import ireals
+from tenstream_tpu_torch.core.types import PI, TINY, ireals
 from tenstream_tpu_torch.ops.delta_scale import delta_scale
+from tenstream_tpu_torch.ops.twostream import delta_eddington_twostream
 from tenstream_tpu_torch.optprop.facade import OptProp
 from tenstream_tpu_torch.pprts.absorption import calc_flx_div
+from tenstream_tpu_torch.pprts.buildings import (
+    Buildings,
+    building_incoming_from_fields,
+    building_sources,
+    face_masks,
+    mask_coeffs,
+)
 from tenstream_tpu_torch.pprts.coeffs import assemble_coeffs, determine_1d_layers
 from tenstream_tpu_torch.pprts.ediff import solve_bicgstab, solve_richardson
 from tenstream_tpu_torch.pprts.edir import inner_iter_policy, solve_edir
@@ -40,10 +51,45 @@ from tenstream_tpu_torch.pprts.sun import SunInfo, suninfo_from_sundir
 # option -> ROADMAP item that ports it
 _UNPORTED_BOOL_OPTIONS = {
     "pprts_geometric_coeffs": "M13",
-    "diff_guess_2str": "M9",
-    "pprts_coeff_bf16": "M9",
-    "pprts_compress_solutions": "M9",
 }
+
+
+def _twostream_guess(scheme, grid, kabs, ksca, g, albedo2d, mu0, incSolar,
+                     planck=None, planck_srfc=None) -> torch.Tensor:
+    """Cold-start guess for the diffuse solve from the exact two-stream
+    column solution, in the solve's [W] units.
+
+    Top stream dofs carry the per-column Edn/Eup split by hemisphere-bin
+    weight; for "zsplit" side groups the (dn, up) halves carry the
+    hemisphere flux of the matching vertical stream, other side styles the
+    isotropic estimate."""
+    kext = torch.clamp(kabs + ksca, min=TINY)
+    _, Edn, Eup = delta_eddington_twostream(
+        kext * grid.dz3d, ksca / kext, g, mu0, incSolar, albedo2d,
+        planck=planck, planck_srfc=planck_srfc)  # (nz+1, nx, ny) [W/m2], untilted
+    s = scheme
+    inward = s.diff_inward()
+    wtop = s.difftop_weights()
+    wside = s.diffside_weights()
+    nt, ns = s.difftop.dof, s.diffside.dof
+    iso = 0.25 * (Edn[:-1] + Eup[:-1] + Edn[1:] + Eup[1:])
+    dn_lay = 0.5 * (Edn[:-1] + Edn[1:])
+    up_lay = 0.5 * (Eup[:-1] + Eup[1:])
+    zsplit = s._side_style() == "zsplit"
+    zeros_lvl = torch.zeros((1, grid.nx, grid.ny), dtype=ireals, device=kabs.device)
+    rows = []
+    for d in range(s.ndiff):
+        if d < nt:
+            rows.append((Edn if inward[d] else Eup) * (grid.az * float(wtop[d])))
+        else:
+            a = grid.dy if d < nt + ns else grid.dx
+            j = (d - nt) % ns
+            area = a * grid.dz3d / s.diffside.area_divider
+            # zsplit bins [o_dn, i_dn, o_up, i_up]: the first half tracks
+            # Eup, the second Edn
+            F = (up_lay if j < ns // 2 else dn_lay) if zsplit else iso
+            rows.append(torch.cat([F * area * float(wside[j]), zeros_lvl], dim=0))
+    return torch.stack(rows, dim=0)
 
 
 class Solution(NamedTuple):
@@ -95,18 +141,19 @@ class PprtsSolver:
             if self.options.get_bool(key, False):
                 raise NotImplementedError(f"option {key} is not ported (ROADMAP {item})")
         if self.options.get_int("atm_collapse", 0) > 1:
-            raise NotImplementedError("atm_collapse is not ported (ROADMAP M10)")
-        if self.options.get("diff_solver", "bicgstab") != "bicgstab":
-            raise NotImplementedError("diff_solver other than bicgstab is not ported (ROADMAP M9)")
-        if not self.options.get_bool("pprts_orbit_coeffs", True):
             raise NotImplementedError(
-                "dense diffuse coefficients (pprts_orbit_coeffs=False) need kernel K3 (ROADMAP K3)")
+                "atm_collapse is not ported (ROADMAP M10); it cannot combine with buildings or "
+                "diff_guess_2str")
+        if self.options.get("diff_solver", "bicgstab") not in ("bicgstab", "richardson"):
+            raise ValueError("diff_solver must be 'bicgstab' or 'richardson', got "
+                             f"{self.options.get('diff_solver')!r}")
         self.sun: Optional[SunInfo] = None
         self.solutions: Dict[Any, Solution] = {}
         self._pending_convergence: Dict[Any, Tuple[int, float, float]] = {}
         self._atm: Dict[str, Any] = {}
         self._l1d = determine_1d_layers(grid.dz3d, grid.dx,
                                         self.options.get_float("twostr_ratio", 2.0))
+        self._buildings: Optional[Buildings] = None
 
     # ------------------------------------------------------------------
     def set_angles(self, sundir) -> None:
@@ -115,8 +162,16 @@ class PprtsSolver:
     def set_mesh(self, mesh) -> None:
         raise NotImplementedError("multi-device solves are not ported (ROADMAP M19)")
 
-    def set_buildings(self, buildings) -> None:
-        raise NotImplementedError("buildings are not ported (ROADMAP M13, needs K3)")
+    def set_buildings(self, buildings: Optional[Buildings]) -> None:
+        """Attach `pprts.buildings.Buildings` (None detaches); its tensors
+        move to the solver's device.  Buildings force the dense
+        coefficient form."""
+        if buildings is not None:
+            if tuple(buildings.solid.shape) != (self.grid.nz, self.grid.nx, self.grid.ny):
+                raise ValueError(f"buildings.solid {tuple(buildings.solid.shape)} != grid "
+                                 f"{(self.grid.nz, self.grid.nx, self.grid.ny)}")
+            buildings = buildings.to(self.device)
+        self._buildings = buildings
 
     def set_optical_properties(self, albedo: float, kabs, ksca, g, planck=None,
                                planck_srfc=None, albedo_2d=None,
@@ -158,17 +213,36 @@ class PprtsSolver:
             edir_aitken = opts.get_bool("edir_aitken", False)
             edir_cleanup = opts.get_bool("edir_cleanup", True)
 
+        guess_2str = opts.get_bool("diff_guess_2str", False)
+        buildings = self._buildings
+        # buildings mask single cells, which breaks the orbit symmetry
+        orbit_coeffs = (opts.get_bool("pprts_orbit_coeffs", True) and buildings is None
+                        and getattr(self.opp, "_solver_orbit_idx", None) is not None)
+        # bf16 iteration coefficients: near-conservative transmissions lose
+        # their last bits, and the error compounds over deep stacks of thin
+        # 1-D layers, so it is off by default
+        compress_coeffs = opts.get_bool("pprts_coeff_bf16", False)
+        if compress_coeffs and orbit_coeffs:
+            raise NotImplementedError(
+                "pprts_coeff_bf16 on orbit coefficients is not ported: kernels K1 and K2 read "
+                "float32 (ROADMAP K1/K2 bf16); it runs on dense coefficients "
+                "(pprts_orbit_coeffs=False or buildings)")
+
         # per-layer (Nz, 1, 1) thickness keeps the aspect ratio per layer,
         # which lets the LUT lookup take the one-hot path
         dz3d = grid.dz[:, None, None] if grid.dz.dim() == 1 else grid.dz3d
         dz_full = dz3d.expand(grid.nz, grid.nx, grid.ny)
         coeffs, (a11, a12, _, _, _) = assemble_coeffs(
-            scheme, self.opp, kabs, ksca, g, dz3d, grid.dx, l1d, sun, need_dir=lsolar)
+            scheme, self.opp, kabs, ksca, g, dz3d, grid.dx, l1d, sun, need_dir=lsolar,
+            orbit=orbit_coeffs)
+        if buildings is not None:
+            coeffs = mask_coeffs(coeffs, buildings)
 
         edir = cdiv_dir = None
         b = torch.zeros((scheme.ndiff, grid.nz + 1, grid.nx, grid.ny), dtype=ireals,
                         device=self.device)
-        if lsolar and sun is not None and sun.sun_up:
+        sun_on = bool(lsolar and sun is not None and sun.sun_up)
+        if sun_on:
             fac = edirTOA * grid.az / scheme.dirtop.area_divider
             inc = torch.full((scheme.dirtop.dof, grid.nx, grid.ny), fac, dtype=ireals,
                              device=self.device)
@@ -180,26 +254,58 @@ class PprtsSolver:
             # before the diffuse solve
             cdiv_dir = torch.clamp(1.0 - coeffs.dir2dir.sum(dim=1) - coeffs.dir2diff.sum(dim=1),
                                    0.0, 1.0)
-        diff2diff = coeffs.diff2diff
+        # sources and emissivities read the float32 blocks even when the
+        # iteration's coefficients are compressed
+        diff2diff_f32 = coeffs.diff2diff
         del coeffs
+        diff2diff = diff2diff_f32.to(torch.bfloat16) if compress_coeffs else diff2diff_f32
+
+        if buildings is not None:
+            # emission is on with a static face Planck, or (thermal) with a
+            # face temperature, whose per-band Planck the spectral
+            # integration supplies; a mono solve has none and emits zero
+            emit = buildings.planck is not None or (lthermal and buildings.temp is not None)
+            planck_bldg = buildings.planck if buildings.planck is not None else (
+                torch.zeros_like(dz_full) if emit else None)
+            with_sun = sun is not None and lsolar
+            b = b + building_sources(
+                scheme, buildings, edir, grid.az, dz3d=grid.dz3d, dx=grid.dx, dy=grid.dy,
+                xinc=sun.xinc if with_sun else 1, yinc=sun.yinc if with_sun else 1,
+                planck=planck_bldg)
 
         b_th = None
         if lthermal and planck is not None:
-            b_th = thermal_source(scheme, diff2diff, planck, kabs, dz_full, grid.dx, grid.dy,
+            b_th = thermal_source(scheme, diff2diff_f32, planck, kabs, dz_full, grid.dx, grid.dy,
                                   albedo2d, l1d, planck_srfc=atm["planck_srfc"])
             b = b + b_th
+        del diff2diff_f32
+
+        if guess_2str and x0 is None:
+            thermal = lthermal and planck is not None
+            x0 = _twostream_guess(
+                scheme, grid, kabs, ksca, g, albedo2d, sun.mu if sun_on else 0.5,
+                edirTOA if sun_on else 0.0, planck=planck if thermal else None,
+                planck_srfc=atm["planck_srfc"] if thermal else None)
 
         tol = max(rtol * float(torch.linalg.vector_norm(b)), atol)
-        ediff, niter_b, res, s = solve_bicgstab(
-            scheme, diff2diff, b, albedo2d, x0=x0, rtol=rtol, atol=atol,
-            maxiter=max_iter, precond=precond)
-        # convergence-guaranteed polish: exits after one step when
-        # BiCGStab already converged
-        ediff, niter_p, omega, res_p, s2 = solve_richardson(
-            scheme, diff2diff, b, albedo2d, x0=ediff, omega0=omega0, rtol=rtol,
-            atol=atol, max_iter=max_iter, precond=precond, tol=tol)
-        res = min(res, res_p)
-        syncs = 1 + s + s2
+        syncs = 1
+        if opts.get("diff_solver", "bicgstab") == "bicgstab":
+            ediff, niter_b, res, s = solve_bicgstab(
+                scheme, diff2diff, b, albedo2d, x0=x0, rtol=rtol, atol=atol,
+                maxiter=max_iter, precond=precond)
+            # convergence-guaranteed polish: exits after one step when
+            # BiCGStab already converged
+            ediff, niter_p, omega, res_p, s2 = solve_richardson(
+                scheme, diff2diff, b, albedo2d, x0=ediff, omega0=omega0, rtol=rtol,
+                atol=atol, max_iter=max_iter, precond=precond, tol=tol)
+            res = min(res, res_p)
+            syncs += s + s2
+        else:
+            niter_b = 0
+            ediff, niter_p, omega, res, s = solve_richardson(
+                scheme, diff2diff, b, albedo2d, x0=x0, omega0=omega0, rtol=rtol,
+                atol=atol, max_iter=max_iter, precond=precond)
+            syncs += s
 
         abso = calc_flx_div(scheme, diff2diff, ediff, grid.volumes(), l1d, kabs, dz_full,
                             a11, a12, sun=sun, edir=edir, b_thermal=b_th, cdiv_dir=cdiv_dir)
@@ -225,12 +331,20 @@ class PprtsSolver:
 
     def _solve_mono(self, lthermal, lsolar, edirTOA, uid) -> Solution:
         prev = self.solutions.get(uid)
-        x0 = prev.ediff if prev is not None else None
+        x0 = prev.ediff.to(ireals) if prev is not None else None
         omega0 = prev.diff_omega if prev is not None else 1.0
         sol = self._run(lthermal, lsolar, float(edirTOA), x0, omega0)
         self._pending_convergence[uid] = (sol.niter_diff, sol.diff_res, sol.diff_tol)
-        self.solutions[uid] = sol
+        self.solutions[uid] = self._maybe_compress(sol)
         return sol
+
+    def _maybe_compress(self, sol: Solution) -> Solution:
+        """With `pprts_compress_solutions`, cached solutions are kept in
+        bfloat16; warm starts and `get_result` read them as float32."""
+        if not self.options.get_bool("pprts_compress_solutions", False):
+            return sol
+        cast = lambda a: None if a is None else a.to(torch.bfloat16)
+        return sol._replace(edir=cast(sol.edir), ediff=cast(sol.ediff), abso=cast(sol.abso))
 
     def check_convergence(self, uid=None) -> None:
         """Raise for every pending solve whose residual is above 1.5 x its
@@ -290,14 +404,14 @@ class PprtsSolver:
         s = self.scheme
 
         def extract(part: Solution):
-            ediff_wm2 = part.ediff * self._diff_scale_to_wm2()
+            ediff_wm2 = part.ediff.to(ireals) * self._diff_scale_to_wm2()
             inward = s.diff_inward()
             edn = sum(ediff_wm2[d] for d in range(s.difftop.dof) if inward[d]) / s.difftop.area_divider
             eup = sum(ediff_wm2[d] for d in range(s.difftop.dof) if not inward[d]) / s.difftop.area_divider
-            abso = part.abso
+            abso = part.abso.to(ireals)
             edir = None
             if part.edir is not None:
-                edir_wm2 = part.edir * self._dir_scale_to_wm2()
+                edir_wm2 = part.edir.to(ireals) * self._dir_scale_to_wm2()
                 edir = edir_wm2[: s.dirtop.dof].sum(0) / s.dirtop.area_divider
                 mu = self.sun.mu  # TOA tilt rescale, solar solutions only
                 edir, edn, eup, abso = edir * mu, edn * mu, eup * mu, abso * mu
@@ -308,3 +422,38 @@ class PprtsSolver:
             _, edn_t, eup_t, abso_t = extract(sol.thermal)
             edn, eup, abso = edn + edn_t, eup + eup_t, abso + abso_t
         return edir, edn, eup, abso
+
+    def get_building_fluxes(self, uid: Any = 0) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Per-face radiation on exposed building faces [W/m2]: dicts keyed
+        by face kind ('roof', 'floor', 'wall_x_low', 'wall_x_high',
+        'wall_y_low', 'wall_y_high') of (Nz, Nx, Ny) fields `edir`,
+        `incoming`, `outgoing` that are nonzero on exposed faces of solid
+        cells.  outgoing = albedo * incoming + (1 - albedo) * pi * B_face."""
+        if self._buildings is None:
+            raise RuntimeError("no buildings attached (set_buildings)")
+        b, g, sol = self._buildings, self.grid, self.solutions[uid]
+        masks = face_masks(b)
+        zeros = lambda: torch.zeros((g.nz, g.nx, g.ny), dtype=ireals, device=self.device)
+        edir_f = {k: zeros() for k in masks}
+        incoming = {k: zeros() for k in masks}
+        for part in (sol,) if sol.thermal is None else (sol, sol.thermal):
+            mu = self.sun.mu if part.edir is not None else 1.0
+            ef, inc = building_incoming_from_fields(
+                self.scheme, b, part.ediff.to(ireals) * mu,
+                None if part.edir is None else part.edir.to(ireals) * mu,
+                g.az, g.dx, g.dy, g.dz3d,
+                xinc=self.sun.xinc if self.sun is not None else 1,
+                yinc=self.sun.yinc if self.sun is not None else 1)
+            for k in masks:
+                edir_f[k] = edir_f[k] + ef[k]
+                incoming[k] = incoming[k] + inc[k]
+
+        B_face = b.planck if b.planck is not None else 0.0
+        out = {}
+        for k, m in masks.items():
+            zero = torch.zeros_like(incoming[k])
+            outgoing = b.albedo * incoming[k] + (1.0 - b.albedo) * PI * B_face
+            out[k] = dict(edir=torch.where(m, edir_f[k], zero),
+                          incoming=torch.where(m, incoming[k], zero),
+                          outgoing=torch.where(m, outgoing, zero))
+        return out

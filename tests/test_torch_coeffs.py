@@ -67,7 +67,7 @@ def test_assemble_coeffs_orbit(opps, need_dir):
         jnp.asarray(kabs), jnp.asarray(ksca), jnp.asarray(g), jnp.asarray(dz)[:, None, None])
     tcf, ted = tc.assemble_coeffs(to.scheme, to, torch.as_tensor(kabs), torch.as_tensor(ksca),
                                   torch.as_tensor(g), torch.as_tensor(dz)[:, None, None], 100.0,
-                                  l1d, ts, need_dir)
+                                  l1d, ts, need_dir, orbit=True)
     np.testing.assert_array_equal(tcf.diff2diff.idx, jcf.diff2diff.idx)
     np.testing.assert_allclose(tcf.diff2diff.orb.numpy(), np.asarray(jcf.diff2diff.orb),
                                atol=2e-6)

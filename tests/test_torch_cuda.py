@@ -1,5 +1,5 @@
-"""The CUDA kernels K1 (`fused_A_dots`) and K2 (`orbit_contract`) against
-their plain PyTorch versions, on the card.
+"""The CUDA kernels K1 (`fused_A_dots`), K2 (`orbit_contract`) and K3
+(`diffuse_apply_dense`) against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU (marker `cuda`) and skip without one.  The
 file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -9,7 +9,10 @@ JAX up for the CPU tests):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: fields are sums of at most ~24 float32 products in another
-order (atol 3e-6 on O(1) values); the dots sum ~1e5 terms (rtol 2e-5)."""
+order (atol 3e-6 on O(1) values); the dots sum ~1e5 terms (rtol 2e-5).
+K3 sums 10 float32 products per value in the plain version's order or
+another (atol 3e-6); kernel and plain version read the same bfloat16
+coefficients as float32, so the bound is the same for both types."""
 
 import numpy as np
 import pytest
@@ -58,12 +61,52 @@ def test_cuda_kernels_match_plain(cuda_device, name, B, nz, nx, ny):
     Au, dots = cuda_ops.fused_A_dots(ts, idx, dev(orb), dev(u), dev(w), dev(alb))
     out = cuda_ops.orbit_contract(ts, idx, dev(orb), dev(src))
     torch.cuda.synchronize()
-    assert cuda_ops.LAUNCHES == {"fused_A_dots": 1, "orbit_contract": 1}
+    assert cuda_ops.LAUNCHES == {"fused_A_dots": 1, "orbit_contract": 1,
+                                 "diffuse_apply_dense": 0}
     Au_p, dots_p = cuda_ops.fused_A_dots_plain(ts, idx, dev(orb), dev(u), dev(w), dev(alb))
     out_p = cuda_ops.orbit_contract_plain(idx, dev(orb), dev(src))
     np.testing.assert_allclose(Au.cpu().numpy(), Au_p.cpu().numpy(), atol=FIELD_ATOL)
     np.testing.assert_allclose(dots.cpu().numpy(), dots_p.cpu().numpy(), rtol=DOT_RTOL)
     np.testing.assert_allclose(out.cpu().numpy(), out_p.cpu().numpy(), atol=FIELD_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,nz,nx,ny", [(2, 5, 6, 10), (1, 40, 64, 64), (1, 4, 3, 33),
+                                        (1, 1, 1, 1)])
+def test_cuda_dense_apply_matches_plain(cuda_device, dtype, B, nz, nx, ny):
+    ts = get_scheme("3_10")
+    rng = np.random.default_rng(3)
+    c = torch.as_tensor((rng.random((B, 10, 10, nz, nx, ny)) * 0.1).astype(np.float32),
+                        device=cuda_device).to(dtype)
+    x = torch.as_tensor(rng.random((B, 10, nz + 1, nx, ny)).astype(np.float32),
+                        device=cuda_device)
+    cuda_ops.reset_launch_counts()
+    out = cuda_ops.diffuse_apply_dense(ts, c, x)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["diffuse_apply_dense"] == 1
+    ref = cuda_ops.diffuse_apply_dense_plain(ts, c, x)
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=FIELD_ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_apply_rejects_bad_inputs(cuda_device):
+    ts = get_scheme("3_10")
+    c = torch.zeros((1, 10, 10, 2, 3, 4), device=cuda_device)
+    x = torch.zeros((1, 10, 3, 3, 4), device=cuda_device)
+    with pytest.raises(ValueError):  # mixed devices: no quiet step down to the plain version
+        cuda_ops.diffuse_apply_dense(ts, c.cpu(), x)
+    with pytest.raises(RuntimeError):
+        cuda_ops.diffuse_apply_dense(ts, c.half(), x)
+    with pytest.raises(RuntimeError):
+        cuda_ops.diffuse_apply_dense(ts, c[:, :, :, :1], x)
+    with pytest.raises(RuntimeError):
+        cuda_ops.diffuse_apply_dense(ts, c, x.double())
+    ts6 = get_scheme("3_6")
+    with pytest.raises(ValueError, match="3_10"):  # the kernel is built for 3_10 only
+        cuda_ops.diffuse_apply_dense(ts6, torch.zeros((1, 6, 6, 2, 3, 4), device=cuda_device),
+                                     torch.zeros((1, 6, 3, 3, 4), device=cuda_device))
 
 
 @pytest.mark.cuda

@@ -13,7 +13,12 @@ eager and compiled evaluations of it already move the golden absorption
 by 4.9e-4 W/m3 (ROADMAP, faults found).
 
 The JAX golden solve is compiled once per module (a fixture); its thermal
-sub-solve is the JAX reference of the thermal-only case."""
+sub-solve is the JAX reference of the thermal-only case.
+
+The solver options that ride on the same solve (dense coefficients, bf16
+coefficients on them, Richardson as the primary solver, the two-stream
+cold guess) are held against JAX solves with the same option, thermal
+only with the line preconditioner (which keeps the JAX compile short)."""
 
 import os
 
@@ -23,6 +28,7 @@ import pytest
 import torch
 
 from tenstream_tpu.boxmc import direct_transmission as jdt
+from tenstream_tpu.core.config import Options as JOptions
 from tenstream_tpu.optprop.facade import OptProp as JOptProp
 from tenstream_tpu.optprop.lut import load_or_create_lut, mockup_axes
 from tenstream_tpu.pprts.grid import Grid as JGrid
@@ -74,15 +80,17 @@ def _solve(solver, lthermal=True, lsolar=True):
     return _result(solver)
 
 
-def _port(jl, analytic=None):
+def _port(jl, analytic=None, opts=None):
     return PprtsSolver(Grid.create(NZ, NX, NY, 100.0, 100.0, 100.0, device="cpu"),
                        OptProp(lut_from_arrays(jl, "cpu"), analytic_dir2dir=analytic,
-                               device="cpu"))
+                               device="cpu"),
+                       options=None if opts is None else Options(opts, read_env=False))
 
 
-def _jax(jl, analytic=None):
+def _jax(jl, analytic=None, opts=None):
     return JSolver(JGrid.create(NZ, NX, NY, 100.0, 100.0, 100.0),
-                   JOptProp(jl, analytic_dir2dir=analytic))
+                   JOptProp(jl, analytic_dir2dir=analytic),
+                   options=None if opts is None else JOptions(opts, read_env=False))
 
 
 def _check(res, ref, abso_atol):
@@ -168,15 +176,60 @@ def test_warm_resolve_and_solution_cache(jlut):
         np.testing.assert_allclose(warm[k], cold[k], atol=FLUX_ATOL if k != "abso" else ABSO_ATOL)
 
 
-@pytest.mark.parametrize("opts", [{"atm_collapse": 4}, {"diff_guess_2str": True},
-                                  {"pprts_coeff_bf16": True}, {"pprts_orbit_coeffs": False},
-                                  {"pprts_geometric_coeffs": True},
-                                  {"diff_solver": "richardson"}])
+def test_dense_coefficients_match_orbit_solve(jlut, jax_golden):
+    """Without buildings the dense coefficient form (kernel K3's path) is
+    the same system as the orbit form (K1/K2's path): the port's dense
+    golden solve holds the gates against the JAX orbit solve."""
+    port = _solve(_port(jlut, opts={"pprts_orbit_coeffs": False}))
+    _check(port, jax_golden[0], ABSO_ATOL_CLOSED_FORM)
+    _check(port, dict(np.load(GOLDEN)), ABSO_ATOL_CLOSED_FORM)
+
+
+@pytest.mark.parametrize("opts", [
+    {"pprts_orbit_coeffs": False},
+    {"pprts_orbit_coeffs": False, "pprts_coeff_bf16": True},
+    {"pprts_orbit_coeffs": False, "diff_solver": "richardson"},
+    {"diff_solver": "richardson"},
+    {"diff_guess_2str": True},
+    {"pprts_orbit_coeffs": False, "diff_guess_2str": True, "pprts_compress_solutions": True},
+], ids=["dense", "dense-bf16", "dense-richardson", "richardson", "guess_2str",
+        "dense-guess_2str-compressed"])
+def test_ported_options_match_jax(jlut, opts):
+    """Thermal-only solves of the golden scene with the option set on both
+    sides.  bf16 coefficients: both round the same float32 field.  Cached
+    bfloat16 solutions are read back by `get_result`; one bfloat16 step is
+    0.4% of fluxes up to ~19 W/m2, so the flux gate stays and the
+    absorption (O(1e-2) W/m3) is held at its gate too."""
+    opts = dict(opts, diff_precond="line")
+    jsolver, tsolver = _jax(jlut, opts=opts), _port(jlut, opts=opts)
+    ref = _solve(jsolver, lthermal=True, lsolar=False)
+    port = _solve(tsolver, lthermal=True, lsolar=False)
+    _check(port, ref, ABSO_ATOL)
+    sol = tsolver.solutions[0]
+    assert abs(sol.niter_diff - int(jsolver.solutions[0].niter_diff)) <= 2
+    assert (sol.niter_bicgstab == 0) == (opts.get("diff_solver") == "richardson")
+    if opts.get("pprts_compress_solutions"):
+        assert sol.ediff.dtype == torch.bfloat16
+
+
+def test_coeff_bf16_on_orbit_coefficients_raises(jlut):
+    """Kernels K1 and K2 read float32: bf16 coefficients run on the dense
+    form only, and the refusal names the ROADMAP item."""
+    solver = _port(jlut, opts={"pprts_coeff_bf16": True})
+    ka, ks, g, planck = _scene()
+    solver.set_optical_properties(0.25, ka, ks, g, planck=planck)
+    with pytest.raises(NotImplementedError, match="ROADMAP K1/K2 bf16"):
+        solver.solve(lthermal=True, lsolar=False)
+
+
+@pytest.mark.parametrize("opts", [{"atm_collapse": 4}, {"pprts_geometric_coeffs": True}])
 def test_unported_options_raise(jlut, opts):
     opp = OptProp(lut_from_arrays(jlut, "cpu"), device="cpu")
     grid = Grid.create(NZ, NX, NY, 100.0, 100.0, 100.0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PprtsSolver(grid, opp, options=Options(opts, read_env=False))
+    with pytest.raises(ValueError, match="diff_solver"):
+        PprtsSolver(grid, opp, options=Options({"diff_solver": "gmres"}, read_env=False))
 
 
 def test_unported_entry_points_raise(jlut):
@@ -185,9 +238,8 @@ def test_unported_entry_points_raise(jlut):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PprtsSolver(grid, opp, solver_type="2str")
     solver = PprtsSolver(grid, opp)
-    for call in (lambda: solver.set_mesh(None), lambda: solver.set_buildings(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        solver.set_mesh(None)
     ka, ks, g, _ = _scene()
     with pytest.raises(ValueError):
         solver.set_optical_properties(0.2, -ka, ks, g)

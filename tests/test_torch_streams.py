@@ -1,7 +1,9 @@
 """The port's stream-scheme tables equal the JAX package's, for every
 scheme; the port package and `chip_smoke.py` import neither JAX nor the
-JAX package; `Options` keeps its scoping and strict parsing."""
+JAX package; every entry point that creates tensors defaults to the card;
+`Options` keeps its scoping and strict parsing."""
 
+import inspect
 import os
 import re
 
@@ -60,6 +62,53 @@ def test_port_imports_no_jax():
             for m in bad.finditer(fh.read()):
                 hits.append(f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}")
     assert not hits, hits
+
+
+def test_port_sources_walk_finds_kernels_and_scripts():
+    """The import check above reads the CUDA sources and `chip_smoke.py` too."""
+    rel = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for f in ("tenstream_tpu_torch/pprts/buildings.py", "tenstream_tpu_torch/ops/twostream.py",
+              "tenstream_tpu_torch/csrc/dense_ops.cu", "tenstream_tpu_torch/csrc/dense_ops.h",
+              "tenstream_tpu_torch/csrc/bind.cpp", "chip_smoke.py"):
+        assert f in rel, f
+
+
+def test_chip_smoke_names_its_kernels():
+    """`chip_smoke.py`'s kernel table points at the three kernels: each
+    source exists, the line it names holds the kernel's name, the TPU
+    kernel it replaces is where it says, and each wrapper counts launches."""
+    import importlib.util
+
+    from tenstream_tpu_torch.pprts import cuda_ops
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert sorted(chip_smoke.KERNELS) == sorted(cuda_ops.LAUNCHES)
+    names = {"fused_A_dots": ("fused_A_kernel", "_fused_A_kernel"),
+             "orbit_contract": ("orbit_contract_kernel", "_contract_kernel"),
+             "diffuse_apply_dense": ("diffuse_apply_dense_kernel", "def _kernel")}
+    for wrapper, (tag, source, line, replaces) in chip_smoke.KERNELS.items():
+        assert callable(getattr(cuda_ops, wrapper)) and callable(getattr(cuda_ops, wrapper + "_plain"))
+        with open(os.path.join(REPO, source)) as fh:
+            assert names[wrapper][0] in fh.read().splitlines()[line - 1], (wrapper, line)
+        tpu_file, tpu_line = replaces.split(":")
+        with open(os.path.join(REPO, tpu_file)) as fh:
+            assert names[wrapper][1] in fh.read().splitlines()[int(tpu_line) - 1], wrapper
+
+
+def test_entry_points_default_to_the_card():
+    """Every entry point that creates tensors runs on the card unless the
+    caller asks for the CPU; `Buildings` follows its solver's device
+    (`tests/test_torch_buildings.py`)."""
+    from tenstream_tpu_torch import convert
+    from tenstream_tpu_torch.optprop.facade import OptProp
+    from tenstream_tpu_torch.optprop.lut import LUT
+    from tenstream_tpu_torch.pprts.grid import Grid
+
+    for fn in (Grid.create, LUT.load, OptProp.__init__, convert.lut_from_arrays,
+               convert.buildings_from_arrays):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 
 def test_options_scoping_and_strict_parsing():
