@@ -37,6 +37,24 @@ Phases, each printing its lines; any failure raises (non-zero exit):
   9. profile  -- the warm re-solve of each path again: host time per
                  solver stage, then under torch.profiler the device busy
                  share and the kernels with the most device time.
+ 10. boxmc    -- K4 boxmc_trace, the BoxMC photon tracer: one launch of 4096
+                 entries drawn with --seed from the production diffuse grid
+                 for the orbit-representative sources 0 and 2 and one from
+                 the production direct grid for direct source 0, with the
+                 tau-100 / w0-0.99999 corner swapped into the last 6 rows;
+                 each timed, repeated (bit-identical), checked for row sums
+                 <= 1, and held against its plain version on the same rows
+                 (per tally 6e-4: three photons' weight, mean 1e-5).
+ 11. lut      -- the LUT generation path end to end: create_production_lut
+                 for 3_10 on the production axes with 4 rounds per entry
+                 (the staged first pass of `--max-rounds 4`), timed per
+                 table, with its own energy gate, row sums <= 1 + 1e-3, and
+                 diff2diff against the committed table (99.9% within 5
+                 combined standard errors, mean signed difference <= 1e-3);
+                 then the 64 x 64 cloud scene solved with the generated and
+                 the committed table (edir within 0.1 W/m2); then a resume
+                 on mockup axes from a checkpoint directory, which must
+                 launch K4 zero times.
 
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -49,6 +67,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -75,7 +94,28 @@ KERNELS = {
     "orbit_contract": ("K2", CSRC + "orbit_ops.cu", 39, "tenstream_tpu/pprts/pallas_ops.py:100"),
     "diffuse_apply_dense": ("K3", CSRC + "dense_ops.cu", 54,
                             "tenstream_tpu/pprts/pallas_ops.py:64"),
+    "boxmc_trace": ("K4", CSRC + "boxmc_ops.cu", 118, "tenstream_tpu/boxmc/pallas_tracer.py:118"),
 }
+# K4's float32 operations per photon-step, counted from boxmc_ops.cu.  Every
+# step does the move: three axis distances 15, their minimum 2, the free path
+# 7, travel 1, weight 3, position 6, exit test 1.  A step that does not exit
+# also scatters: Henyey-Greenstein 16, azimuth 1, rotation 46, roulette test 1.
+# A log, an exp, a sin/cos pair and a square root count one operation each and
+# the integer hashes none, so the count is a floor on the work.
+K4_FLOPS_MOVE = 35
+K4_FLOPS_SCATTER = 64
+
+
+def k4_flops(nsteps: int, entries: int) -> int:
+    """A floor on K4's float32 operations for `nsteps` photon-steps over
+    `entries` entries: a photon ends its walk at most once, so at most one
+    step per photon (5120 per entry) skips the scattering."""
+    exits = min(nsteps, entries * 5120)
+    return nsteps * K4_FLOPS_MOVE + (nsteps - exits) * K4_FLOPS_SCATTER
+K4_BYTES_PER_ENTRY = 9 * 4 + 13 * 4 + 8  # params row in; [T | S] row and photon-steps out
+K4_TALLY_ATOL = 6e-4  # three photons' weight (1 / 5120 each): a rare flip of a comparison
+K4_MEAN_ATOL = 1e-5
+LUT_ROUNDS = 4
 
 
 def log(*a):
@@ -589,6 +629,175 @@ def phase_dense_vs_orbit(cuda_ops, opp, Grid, PprtsSolver, Options, sundir, seed
     _compare_solves(f"dense vs orbit 64x64x{NZ}", outs)
 
 
+# ---------------------------------------------------------------------------
+# the LUT generation path (K4)
+# ---------------------------------------------------------------------------
+
+def _k4_sample(L, direct: bool, n: int, rng):
+    grid = L._entry_grid(L.production_axes(direct), direct)
+    return grid[np.sort(rng.choice(len(grid), n, replace=False))]
+
+
+def phase_boxmc(ct, L, seed):
+    """K4 at the LUT path's launch shape (4096 entries, the thick conservative
+    corner swapped into the last rows), against its plain version on the
+    same launch."""
+    rng = np.random.default_rng(seed)
+    corner = np.array([[100.0, 0.99999, a, g] for a in (0.02, 1.0, 7.451) for g in (0.0, 0.85)],
+                      np.float32)
+    runs = (("diffuse src 0", False, 0), ("diffuse src 2", False, 2), ("direct src 0", True, 0))
+    report = {}
+    for label, ldir, src in runs:
+        ent = _k4_sample(L, ldir, 4096, rng)
+        ent[-len(corner):, :4] = corner
+        if ldir:
+            ent[-len(corner):, 4:] = 45.0  # phi, theta
+        rows = ct.entry_rows(ent, "3_10", src, ldir, seed, "cuda")
+        out, steps = ct.boxmc_trace(rows, "3_10", ldir)
+        out2, steps2 = ct.boxmc_trace(rows, "3_10", ldir)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, out2) and torch.equal(steps, steps2)):
+            raise AssertionError(f"boxmc {label}: the same seed gave different tallies")
+        rowsum = out.sum(1).max().item()
+        if not (bool(torch.isfinite(out).all()) and rowsum <= 1.0 + 1e-4):
+            raise AssertionError(f"boxmc {label}: row sum {rowsum} > 1 + 1e-4 or non-finite")
+        ms = cuda_ms(lambda: ct.boxmc_trace(rows, "3_10", ldir), 3)
+        nsteps = int(steps.sum().item())
+        log(f"boxmc {label}: 4096 entries (thick corner in the last {len(corner)} rows) in "
+            f"{ms:.2f} ms per launch, bit-identical on repeat, max row sum {rowsum:.6f}; "
+            f"{4096 * ct.PHOTONS / ms * 1e3:.4e} photons/s, {nsteps:.4e} photon-steps = "
+            f"{nsteps / ms * 1e3:.4e} photon-steps/s (longest entry {int(steps.max().item())})")
+
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        outp, stp = ct.boxmc_trace_plain(rows, "3_10", ldir)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        d = (out - outp).abs()
+        err, mean = d.max().item(), d.mean().item()
+        log(f"boxmc {label} against plain on the same 4096 rows: plain {plain_ms:.1f} ms; "
+            f"max |K4 - plain| {err:.3e}, mean {mean:.3e}, "
+            f"{int((d > 1e-5).sum().item())} of {d.numel()} tallies differ by more than 1e-5; "
+            f"photon-steps {nsteps} vs {int(stp.sum().item())}")
+        if not (err <= K4_TALLY_ATOL and mean <= K4_MEAN_ATOL):
+            raise AssertionError(f"boxmc {label}: K4 disagrees with its plain version (per tally "
+                                 f"{K4_TALLY_ATOL}, mean {K4_MEAN_ATOL})")
+        if label == "diffuse src 0":
+            bound = _report_entry("boxmc_trace (4096 production diffuse entries)", err, ms,
+                                  plain_ms, 4096 * K4_BYTES_PER_ENTRY, k4_flops(nsteps, 4096))
+            report = dict(bound, photons_per_s=4096 * ct.PHOTONS / ms * 1e3,
+                          photon_steps_per_s=nsteps / ms * 1e3)
+    return report
+
+
+def _timed_lut(L, ct, fn):
+    """Run fn() with every K4 launch bracketed by CUDA events and every
+    `_trace_adaptive` call timed on the host: (result, wall s, device ms in
+    K4, host s per table kind)."""
+    events, per_kind = [], {"diffuse": 0.0, "direct": 0.0}
+    trace, adaptive = ct.boxmc_trace, L._trace_adaptive
+
+    def timed_trace(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = trace(*a, **k)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    def timed_adaptive(scheme, entries, src, ldir, *a, **k):
+        t0 = time.time()
+        out = adaptive(scheme, entries, src, ldir, *a, **k)
+        per_kind["direct" if ldir else "diffuse"] += time.time() - t0
+        return out
+
+    ct.boxmc_trace, L._trace_adaptive = timed_trace, timed_adaptive
+    try:
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        ct.boxmc_trace, L._trace_adaptive = trace, adaptive
+    return out, wall, sum(a.elapsed_time(b) for a, b in events), per_kind
+
+
+def _check_rows(lut, label, atol):
+    dsum = (lut.dir2dir.sum(-1) + lut.dir2diff.sum(-1)).max().item()
+    fsum = lut.diff2diff.sum(-1).max().item()
+    if not (dsum <= 1.0 + atol and fsum <= 1.0 + atol):
+        raise AssertionError(f"{label}: row sums dir {dsum} diff {fsum} exceed 1 + {atol}")
+    return dsum, fsum
+
+
+def phase_lut(cuda_ops, ct, L, LUT, OptProp, Grid, PprtsSolver, sundir, seed):
+    """The LUT generation path: a production-density 3_10 table through K4."""
+    dir_axes, diff_axes = L.production_axes(True), L.production_axes(False)
+    cuda_ops.reset_launch_counts()
+    (lut, meta), wall, dev_ms, per_kind = _timed_lut(L, ct, lambda: L.create_production_lut(
+        "3_10", dir_axes, diff_axes, max_rounds=LUT_ROUNDS, dir_max_rounds=LUT_ROUNDS,
+        verbose=False, device="cuda"))
+    launches = cuda_ops.LAUNCHES["boxmc_trace"]
+    photons = meta["diff_photons_total"] + meta["dir_photons_total"]
+    log(f"lut: 3_10 production axes (diffuse {diff_axes.tau.size}x{diff_axes.w0.size}x"
+        f"{diff_axes.aspect.size}x{diff_axes.g.size}, direct {dir_axes.tau.size}x"
+        f"{dir_axes.w0.size}x{dir_axes.aspect.size}x{dir_axes.g.size}x{dir_axes.phi.size}x"
+        f"{dir_axes.theta.size}), {LUT_ROUNDS} rounds: {wall:.1f} s wall (diffuse table "
+        f"{per_kind['diffuse']:.1f} s, direct {per_kind['direct']:.1f} s), {launches} K4 launches "
+        f"busy {dev_ms / 1e3:.1f} s on the device = host share {100 * (1 - dev_ms / 1e3 / wall):.1f}%"
+        f"; {photons:.4e} photons = {photons / wall:.4e} photons/s end to end")
+    log(f"lut meta: {json.dumps(meta)}")
+    if launches == 0:
+        raise AssertionError("K4 was not launched on the LUT path")
+    dsum, fsum = _check_rows(lut, "lut", 1e-3)
+
+    ref = LUT.load(LUT_PATH, device="cuda")
+    zold = np.load(LUT_PATH)
+    mold = json.loads(str(zold["meta_json"]))
+    nent = int(np.prod(lut.diff2diff.shape[:4]))
+    reps = 2  # 3_10's orbit-representative diffuse sources
+    n_new = LUT_ROUNDS * ct.PHOTONS
+    n_old = mold["diff_photons_total"] / (nent * reps)
+    new, old = lut.diff2diff.double(), ref.diff2diff.double()
+    p = torch.clamp(torch.maximum(new, old), min=1.0 / n_new, max=1.0)
+    se = torch.sqrt(p * (1 - p) * (1.0 / n_new + 1.0 / n_old))
+    within = ((new - old).abs() <= 5 * se).double().mean().item()
+    bias = (new - old).mean().item()
+    log(f"lut vs committed {os.path.basename(LUT_PATH)}: row sums dir {dsum:.6f} diff {fsum:.6f}; "
+        f"diff2diff max |diff| {(new - old).abs().max().item():.4e}, {100 * within:.3f}% within 5 "
+        f"combined standard errors ({n_new} vs {n_old:.0f} photons per entry), mean signed "
+        f"difference {bias:.3e}")
+    if not (within >= 0.999 and abs(bias) <= 1e-3):
+        raise AssertionError("lut: the generated diff2diff disagrees with the committed table")
+
+    outs = []
+    for label, table in (("generated", lut), ("committed", ref)):
+        solver, fields = make_solver(64, 64, seed, OptProp(table, device="cuda"), Grid,
+                                     PprtsSolver, sundir)
+        outs.append(solve_and_report(solver, fields, cuda_ops, f"lut solve ({label} table)")[0])
+    errs = [(a - b).abs().max().item() for a, b in zip(*outs)]
+    log(f"lut solve 64x64x{NZ}, generated vs committed table: max abs edir {errs[0]:.3e} edn "
+        f"{errs[1]:.3e} eup {errs[2]:.3e} W/m2, abso {errs[3]:.3e} W/m3")
+    if errs[0] > FLUX_ATOL:
+        raise AssertionError(f"lut solve: edir differs by {errs[0]} W/m2 (> {FLUX_ATOL})")
+
+    with tempfile.TemporaryDirectory() as ck:
+        kw = dict(max_rounds=LUT_ROUNDS, dir_max_rounds=LUT_ROUNDS, verbose=False,
+                  checkpoint_dir=ck, device="cuda")
+        first, _ = L.create_production_lut("3_10", L.mockup_axes(True), L.mockup_axes(False), **kw)
+        cuda_ops.reset_launch_counts()
+        again, _ = L.create_production_lut("3_10", L.mockup_axes(True), L.mockup_axes(False), **kw)
+        relaunched = cuda_ops.LAUNCHES["boxmc_trace"]
+        same = all(torch.equal(getattr(first, k), getattr(again, k))
+                   for k in ("dir2dir", "dir2diff", "diff2diff"))
+    log(f"lut resume on mockup axes from its checkpoints: {relaunched} K4 launches, tables equal "
+        f"{same}")
+    if relaunched or not same:
+        raise AssertionError("lut: resuming a finished pass relaunched K4 or changed the tables")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -604,6 +813,9 @@ def main():
     from tenstream_tpu_torch.pprts.solver import PprtsSolver
     from tenstream_tpu_torch.pprts.sun import sundir_from_angles
 
+    from tenstream_tpu_torch.boxmc import cuda_tracer
+    from tenstream_tpu_torch.optprop import lut as lutgen
+
     phase_build(cuda_ops)
     opp = OptProp(LUT.load(LUT_PATH, device="cuda"), device="cuda")
     idx = opp._solver_orbit_idx
@@ -618,6 +830,9 @@ def main():
     phase_dense_vs_orbit(cuda_ops, opp, Grid, PprtsSolver, Options, sundir, args.seed)
     profile_main(opp, Grid, PprtsSolver, sundir, args.seed)
     profile_urban(opp, Grid, PprtsSolver, Buildings, sundir_from_angles, args.seed)
+    report["boxmc_trace"] = phase_boxmc(cuda_tracer, lutgen, args.seed)
+    launches["boxmc_trace"] = phase_lut(cuda_ops, cuda_tracer, lutgen, LUT, OptProp, Grid,
+                                        PprtsSolver, sundir, args.seed)
 
     kernels = []
     for kname, (tag, source, line, replaces) in KERNELS.items():

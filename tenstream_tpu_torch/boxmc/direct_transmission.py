@@ -1,6 +1,6 @@
 """Closed-form direct->direct transfer coefficients for cube schemes
-(port of `tenstream_tpu/boxmc/direct_transmission.py`: `supports_scheme`
-and `dir2dir_analytic`).
+(port of `tenstream_tpu/boxmc/direct_transmission.py`: `supports_scheme`,
+`dir2dir_analytic` and `dir2dir_table`).
 
 A direct photon leaves the beam at any interaction; for entry on a cube
 face with the sun in the canonical octant (+x, +y, -z) the path to the
@@ -8,31 +8,19 @@ boundary is L = min(C, A, B) with C constant and A ~ U[0, amax],
 B ~ U[0, bmax].  The expectation of exp(-sigma L) per argmin class (the
 exit face) reduces to elementary integrals -- no Monte-Carlo noise.
 
-Only the parts of the JAX package's `boxmc/schemes.py::get_box_scheme`
-that this reads are kept: per scheme, the direct source faces, whether
-the direct exits are classified by face, and the exit-face -> dst map.
+The scheme data (direct source faces, classification, exit-face -> dst
+map) come from `tenstream_tpu_torch.boxmc.schemes`.
 """
 
 from __future__ import annotations
 
-
+import numpy as np
 import torch
 
+from tenstream_tpu_torch.boxmc.schemes import BOT, TOP, XMAX, XMIN, YMAX, YMIN, get_box_scheme
 from tenstream_tpu_torch.core.types import ireals
 
 _BIG = 1e30
-
-TOP, BOT, XMIN, XMAX, YMIN, YMAX = range(6)
-
-# scheme -> (ndir, dir_src_faces, dir_dst_by_face) for the face-classified
-# cube schemes (the quad8-classified 8_* family has no closed form)
-_FACE_SCHEMES = {
-    "3_6": (3, (TOP, XMIN, YMIN), (-1, 0, -1, 1, -1, 2)),
-    "3_10": (3, (TOP, XMIN, YMIN), (-1, 0, -1, 1, -1, 2)),
-    "3_16": (3, (TOP, XMIN, YMIN), (-1, 0, -1, 1, -1, 2)),
-    "3_24": (3, (TOP, XMIN, YMIN), (-1, 0, -1, 1, -1, 2)),
-    "3_30": (3, (TOP, XMIN, YMIN), (-1, 0, -1, 1, -1, 2)),
-}
 
 
 def _i0(sigma, M):
@@ -74,14 +62,15 @@ def _inv(x, lo=1e-7):
                        torch.full_like(x, _BIG))
 
 
-def _dir2dir_3src(tau, aspect, phi_deg: float, theta_deg: float):
+def _dir2dir_3src(tau, aspect, phi_deg, theta_deg):
     """(..., 3 src, 3 class) transmissions for the TOP/XMIN/YMIN layout,
-    class order (C, A, B)."""
+    class order (C, A, B); the angles are floats or tensors that broadcast
+    with tau and aspect."""
     dev = tau.device
     bz = torch.clamp(aspect, min=1e-6)
     sigma = tau / bz
-    phi = torch.deg2rad(torch.tensor(phi_deg, dtype=ireals, device=dev))
-    theta = torch.deg2rad(torch.tensor(theta_deg, dtype=ireals, device=dev))
+    phi = torch.deg2rad(torch.as_tensor(phi_deg, dtype=ireals, device=dev))
+    theta = torch.deg2rad(torch.as_tensor(theta_deg, dtype=ireals, device=dev))
     sx = torch.sin(phi) * torch.sin(theta)
     sy = torch.cos(phi) * torch.sin(theta)
     sz = torch.cos(theta)
@@ -106,23 +95,39 @@ _CLASS_FACE = {
 
 
 def supports_scheme(scheme_name: str) -> bool:
-    """True when the closed form covers the scheme's direct layout."""
-    return scheme_name in _FACE_SCHEMES
+    """True when the closed form covers the scheme's direct layout (3
+    full-face sources TOP/XMIN/YMIN, face-based classification)."""
+    try:
+        box = get_box_scheme(scheme_name)
+    except KeyError:
+        return False
+    return (box.dir_classify is None and box.dir_src_rects is None
+            and tuple(box.dir_src_faces) == (TOP, XMIN, YMIN))
 
 
 def dir2dir_analytic(scheme_name: str, tau: torch.Tensor, aspect: torch.Tensor,
-                     phi_deg: float, theta_deg: float) -> torch.Tensor:
-    """Exact dir2dir block: inputs broadcast; returns (..., ndir, ndir)
-    [src, dst]."""
+                     phi_deg, theta_deg) -> torch.Tensor:
+    """Exact dir2dir block: inputs broadcast (the angles are floats or
+    tensors); returns (..., ndir, ndir) [src, dst]."""
     if not supports_scheme(scheme_name):
         raise ValueError(f"no closed form for scheme {scheme_name}")
-    ndir, _, dst_by_face = _FACE_SCHEMES[scheme_name]
-    probs = _dir2dir_3src(tau, aspect, float(phi_deg), float(theta_deg))
-    out = torch.zeros(probs.shape[:-2] + (ndir, ndir), dtype=probs.dtype,
+    box = get_box_scheme(scheme_name)
+    probs = _dir2dir_3src(tau, aspect, phi_deg, theta_deg)
+    out = torch.zeros(probs.shape[:-2] + (box.ndir, box.ndir), dtype=probs.dtype,
                       device=probs.device)
     for src in range(3):
         for cls, face in enumerate(_CLASS_FACE[src]):
-            dst = dst_by_face[face]
+            dst = box.dir_dst_by_face[face]
             if dst >= 0:
                 out[..., src, dst] += probs[..., src, cls]
     return out
+
+
+def dir2dir_table(scheme_name: str, tau_grid, aspect_grid, phi_grid, theta_grid) -> np.ndarray:
+    """Exact dir2dir LUT block on an axis grid, evaluated on the CPU:
+    (ntau, naspect, nphi, ntheta, ndir, ndir) float32 numpy.  dir2dir does
+    not depend on (w0, g); the caller broadcasts over those axes."""
+    mesh = np.meshgrid(*(np.asarray(a, np.float32)
+                         for a in (tau_grid, aspect_grid, phi_grid, theta_grid)), indexing="ij")
+    t, a, p, th = (torch.from_numpy(m) for m in mesh)
+    return dir2dir_analytic(scheme_name, t, a, p, th).numpy().astype(np.float32)

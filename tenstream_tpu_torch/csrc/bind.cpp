@@ -1,7 +1,10 @@
 // PyTorch binding of the diffuse-operator kernels in orbit_ops.cu and
-// dense_ops.cu.  The only source that includes PyTorch's headers: it checks the tensors,
+// dense_ops.cu and of the BoxMC photon tracer in boxmc_ops.cu.  The only
+// source that includes PyTorch's headers: it checks the tensors,
 // allocates the outputs, launches on the current stream and checks the
-// launch.
+// launch.  Check messages are string literals only: a message that formats
+// a number (c10::str through an ostringstream) crashed the process instead
+// of raising with the CUDA build toolchain the kernels were tested with.
 #include <torch/extension.h>
 
 #include <ATen/cuda/CUDAContext.h>
@@ -10,6 +13,7 @@
 
 #include <vector>
 
+#include "boxmc_ops.h"
 #include "dense_ops.h"
 #include "orbit_tables.h"
 
@@ -21,8 +25,8 @@ namespace {
 OrbitTables make_tables(const std::vector<int64_t>& itab, const std::vector<double>& ftab) {
   const size_t D = TS_MAXD, C = TS_MAXC;
   const size_t want = 3 + D + 2 * D * D + 3 * D + 4 * C + 1;
-  TORCH_CHECK(itab.size() == want, "orbit tables: expected ", want, " ints, got ", itab.size());
-  TORCH_CHECK(ftab.size() == D, "orbit tables: expected ", D, " floats");
+  TORCH_CHECK(itab.size() == want, "orbit tables: wrong number of ints");
+  TORCH_CHECK(ftab.size() == D, "orbit tables: wrong number of floats");
   OrbitTables t;
   size_t q = 0;
   t.nd = (int)itab[q++];
@@ -42,15 +46,15 @@ OrbitTables make_tables(const std::vector<int64_t>& itab, const std::vector<doub
   for (size_t c = 0; c < C; ++c) t.cmask[c] = (int)itab[q++];
   t.dn_mask = (int)itab[q++];
   for (size_t d = 0; d < D; ++d) t.walb[d] = (float)ftab[d];
-  TORCH_CHECK(t.nd == TS_MAXD, "kernels are built for the 3_10 scheme (nd = 10), got nd = ", t.nd);
-  TORCH_CHECK(t.ncls >= 1 && t.ncls <= TS_MAXC, "bad class count ", t.ncls);
+  TORCH_CHECK(t.nd == TS_MAXD, "kernels are built for the 3_10 scheme (nd = 10)");
+  TORCH_CHECK(t.ncls >= 1 && t.ncls <= TS_MAXC, "bad class count");
   return t;
 }
 
 void check_f32(const torch::Tensor& x, const char* name, int64_t dim) {
   TORCH_CHECK(x.is_cuda(), name, " must be a CUDA tensor");
   TORCH_CHECK(x.scalar_type() == torch::kFloat32, name, " must be float32");
-  TORCH_CHECK(x.dim() == dim, name, " must have ", dim, " dims, got ", x.dim());
+  TORCH_CHECK(x.dim() == dim, name, " has the wrong number of dims");
   TORCH_CHECK(x.is_contiguous(), name, " must be contiguous");
 }
 
@@ -60,7 +64,7 @@ torch::Tensor orbit_contract(torch::Tensor src, torch::Tensor orb,
   check_f32(src, "src", 5);
   check_f32(orb, "orb", 5);
   const int64_t B = src.size(0);
-  TORCH_CHECK(src.size(1) == t.nd, "src dof dim ", src.size(1), " != ", t.nd);
+  TORCH_CHECK(src.size(1) == t.nd, "src dof dim != nd");
   TORCH_CHECK(orb.size(0) == B && orb.size(1) == t.norb, "orb must be (B, norb, ...)");
   TORCH_CHECK(orb.size(2) == src.size(2) && orb.size(3) == src.size(3) &&
                   orb.size(4) == src.size(4),
@@ -87,7 +91,7 @@ std::vector<torch::Tensor> fused_A_dots(torch::Tensor u, torch::Tensor w, torch:
   check_f32(orb, "orb", 5);
   check_f32(albedo, "albedo", 3);
   const int64_t B = u.size(0), nz = u.size(2) - 1, nx = u.size(3), ny = u.size(4);
-  TORCH_CHECK(u.size(1) == t.nd, "u dof dim ", u.size(1), " != ", t.nd);
+  TORCH_CHECK(u.size(1) == t.nd, "u dof dim != nd");
   TORCH_CHECK(nz >= 1, "u needs at least two face levels");
   TORCH_CHECK(w.sizes() == u.sizes(), "w must have the shape of u");
   TORCH_CHECK(orb.size(0) == B && orb.size(1) == t.norb && orb.size(2) == nz &&
@@ -120,18 +124,16 @@ std::vector<torch::Tensor> fused_A_dots(torch::Tensor u, torch::Tensor w, torch:
 // nd, gz[D], gx[D], gy[D], cz[D], cx[D], cy[D]
 DenseTables make_dense_tables(const std::vector<int64_t>& itab) {
   const size_t D = TS_DENSE_MAXD;
-  TORCH_CHECK(itab.size() == 1 + 6 * D, "dense tables: expected ", 1 + 6 * D, " ints, got ",
-              itab.size());
+  TORCH_CHECK(itab.size() == 1 + 6 * D, "dense tables: wrong number of ints");
   DenseTables t;
   size_t q = 0;
   t.nd = (int)itab[q++];
   for (int* row : {t.gz, t.gx, t.gy, t.cz, t.cx, t.cy})
     for (size_t s = 0; s < D; ++s) {
       row[s] = (int)itab[q++];
-      TORCH_CHECK(row[s] >= -1 && row[s] <= 1, "dense tables: shift ", row[s], " out of range");
+      TORCH_CHECK(row[s] >= -1 && row[s] <= 1, "dense tables: shift out of range");
     }
-  TORCH_CHECK(t.nd == TS_DENSE_MAXD,
-              "the kernel is built for the 3_10 scheme (nd = 10), got nd = ", t.nd);
+  TORCH_CHECK(t.nd == TS_DENSE_MAXD, "the kernel is built for the 3_10 scheme (nd = 10)");
   return t;
 }
 
@@ -141,10 +143,10 @@ torch::Tensor diffuse_apply_dense(torch::Tensor x, torch::Tensor c, std::vector<
   TORCH_CHECK(c.is_cuda(), "c must be a CUDA tensor");
   const bool bf16 = c.scalar_type() == torch::kBFloat16;
   TORCH_CHECK(bf16 || c.scalar_type() == torch::kFloat32, "c must be float32 or bfloat16");
-  TORCH_CHECK(c.dim() == 6, "c must have 6 dims, got ", c.dim());
+  TORCH_CHECK(c.dim() == 6, "c must have 6 dims");
   TORCH_CHECK(c.is_contiguous(), "c must be contiguous");
   const int64_t B = x.size(0), nz = x.size(2) - 1, nx = x.size(3), ny = x.size(4);
-  TORCH_CHECK(x.size(1) == t.nd, "x dof dim ", x.size(1), " != ", t.nd);
+  TORCH_CHECK(x.size(1) == t.nd, "x dof dim != nd");
   TORCH_CHECK(nz >= 1, "x needs at least two face levels");
   TORCH_CHECK(c.size(0) == B && c.size(1) == t.nd && c.size(2) == t.nd && c.size(3) == nz &&
                   c.size(4) == nx && c.size(5) == ny,
@@ -162,6 +164,37 @@ torch::Tensor diffuse_apply_dense(torch::Tensor x, torch::Tensor c, std::vector<
   return out;
 }
 
+// tables layout (see tenstream_tpu_torch/boxmc/cuda_tracer.py::_tables):
+// dir_code[6], diff_dn[6], diff_up[6]
+std::vector<torch::Tensor> boxmc_trace(torch::Tensor params, int64_t ldir, int64_t ndir,
+                                       int64_t ndiff, std::vector<int64_t> tables,
+                                       int64_t max_iter) {
+  TORCH_CHECK(tables.size() == 18, "boxmc tables: expected 18 ints");
+  BoxTables t;
+  for (int f = 0; f < 6; ++f) {
+    t.dir_code[f] = (int)tables[f];
+    t.diff_dn[f] = (int)tables[6 + f];
+    t.diff_up[f] = (int)tables[12 + f];
+  }
+  for (int64_t c : tables)
+    TORCH_CHECK(c >= -1 && c < ndir + ndiff, "boxmc tables: code out of range");
+  check_f32(params, "params", 2);
+  TORCH_CHECK(params.size(1) == BOXMC_NPARAM, "params must be (B, 9)");
+  TORCH_CHECK(max_iter >= 0 && max_iter <= 400000, "max_iter out of range");
+  const int64_t B = params.size(0);
+  TORCH_CHECK(B < (int64_t)1 << 31, "too many entries");
+  const c10::cuda::CUDAGuard guard(params.device());
+  auto out = torch::empty({B, ndir + ndiff}, params.options());
+  auto steps = torch::empty({B}, params.options().dtype(torch::kInt64));
+  if (B == 0) return {out, steps};
+  cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  C10_CUDA_CHECK(launch_boxmc_trace(params.data_ptr<float>(), out.data_ptr<float>(),
+                                    (long long*)steps.data_ptr<int64_t>(), &t, (int)ldir,
+                                    (int)ndir, (int)ndiff, (int)B, (int)max_iter, stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {out, steps};
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -169,4 +202,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fused_A_dots", &fused_A_dots, "K1: A(u) = u - S(u) plus two dots (CUDA)");
   m.def("diffuse_apply_dense", &diffuse_apply_dense,
         "K3: S(x) on dense [src, dst] coefficients, float32 or bfloat16 (CUDA)");
+  m.def("boxmc_trace", &boxmc_trace,
+        "K4: BoxMC photon tracing, one entry per block, rows [T | S] and photon-steps (CUDA)");
 }

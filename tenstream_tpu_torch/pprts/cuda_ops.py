@@ -27,8 +27,11 @@ tensor it launches the kernel (or raises) -- there is no fallback.  Each
 launch adds one to `LAUNCHES[name]`.
 
 The CUDA sources are `tenstream_tpu_torch/csrc/{orbit_ops.cu,
-dense_ops.cu, bind.cpp}`, built at first use with `torch.utils.cpp_extension.load` into
-`tenstream_tpu_torch/_build/` (sm_90a).
+dense_ops.cu, boxmc_ops.cu, bind.cpp}`, built at first use with
+`torch.utils.cpp_extension.load` into `tenstream_tpu_torch/_build/`
+(sm_90a).  The same extension holds K4, the BoxMC photon tracer, whose
+wrapper is `tenstream_tpu_torch/boxmc/cuda_tracer.py::boxmc_trace`; its
+launches are counted here too.
 """
 
 from __future__ import annotations
@@ -52,11 +55,12 @@ from tenstream_tpu_torch.streams import StreamScheme
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("orbit_ops.cu", "dense_ops.cu", "bind.cpp")
+SOURCES = ("orbit_ops.cu", "dense_ops.cu", "boxmc_ops.cu", "bind.cpp")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
 
 # kernel name -> launches since the last reset (see reset_launch_counts)
-LAUNCHES: Dict[str, int] = {"fused_A_dots": 0, "orbit_contract": 0, "diffuse_apply_dense": 0}
+LAUNCHES: Dict[str, int] = {"fused_A_dots": 0, "orbit_contract": 0, "diffuse_apply_dense": 0,
+                            "boxmc_trace": 0}
 
 _TS_MAXD = 10
 _TS_MAXC = 5

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1 (`fused_A_dots`), K2 (`orbit_contract`) and K3
-(`diffuse_apply_dense`) against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1 (`fused_A_dots`), K2 (`orbit_contract`), K3
+(`diffuse_apply_dense`) and K4 (`boxmc_trace`) against their plain PyTorch
+versions, on the card.
 
 These tests need an NVIDIA GPU (marker `cuda`) and skip without one.  The
 file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -12,12 +13,18 @@ Tolerances: fields are sums of at most ~24 float32 products in another
 order (atol 3e-6 on O(1) values); the dots sum ~1e5 terms (rtol 2e-5).
 K3 sums 10 float32 products per value in the plain version's order or
 another (atol 3e-6); kernel and plain version read the same bfloat16
-coefficients as float32, so the bound is the same for both types."""
+coefficients as float32, so the bound is the same for both types.  K4
+and its plain version do the same IEEE float32 arithmetic per photon (K4
+stops a photon at its exit, the plain version too); a rare flipped
+comparison moves one photon's weight (1/5120), so tallies are held at
+three photons' weight (6e-4), their mean at 1e-5 and the photon-steps at
+0.1%."""
 
 import numpy as np
 import pytest
 import torch
 
+from tenstream_tpu_torch.boxmc import cuda_tracer
 from tenstream_tpu_torch.optprop.facade import diff_pair_orbits
 from tenstream_tpu_torch.pprts import cuda_ops
 from tenstream_tpu_torch.streams import get_scheme
@@ -62,7 +69,7 @@ def test_cuda_kernels_match_plain(cuda_device, name, B, nz, nx, ny):
     out = cuda_ops.orbit_contract(ts, idx, dev(orb), dev(src))
     torch.cuda.synchronize()
     assert cuda_ops.LAUNCHES == {"fused_A_dots": 1, "orbit_contract": 1,
-                                 "diffuse_apply_dense": 0}
+                                 "diffuse_apply_dense": 0, "boxmc_trace": 0}
     Au_p, dots_p = cuda_ops.fused_A_dots_plain(ts, idx, dev(orb), dev(u), dev(w), dev(alb))
     out_p = cuda_ops.orbit_contract_plain(idx, dev(orb), dev(src))
     np.testing.assert_allclose(Au.cpu().numpy(), Au_p.cpu().numpy(), atol=FIELD_ATOL)
@@ -122,3 +129,68 @@ def test_cuda_wrappers_reject_bad_inputs(cuda_device):
     ts6, idx6, orb6, _, _, _, src6 = _inputs("3_6", 1, 2, 3, 4, seed=0)
     with pytest.raises(ValueError, match="3_10"):  # the kernels are built for 3_10 only
         cuda_ops.orbit_contract(ts6, idx6, dev(orb6), dev(src6))
+
+
+_K4_ENTRIES = np.array([[1e-10, 0.5, 1.0, 0.0, 0.0, 0.0], [2.0, 0.0, 1.0, 0.0, 30.0, 40.0],
+                        [1.0, 0.9, 1.0, 0.85, 30.0, 40.0], [20.0, 0.99999, 1.0, 0.85, 30.0, 40.0],
+                        [0.5, 0.9, 0.02, 0.5, 10.0, 85.0], [0.5, 0.9, 7.45, 0.0, 60.0, 20.0],
+                        [100.0, 0.99999, 1.0, 0.85, 45.0, 45.0]], np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,src,ldir", [("3_10", 0, True), ("3_10", 2, True),
+                                             ("3_10", 0, False), ("3_10", 5, False),
+                                             ("3_6", 3, False), ("1_2", 1, False),
+                                             ("8_10", 7, False)])
+def test_cuda_boxmc_matches_plain(cuda_device, scheme, src, ldir):
+    rows = cuda_tracer.entry_rows(_K4_ENTRIES, scheme, src, ldir, 11, cuda_device)
+    cuda_ops.reset_launch_counts()
+    out, steps = cuda_tracer.boxmc_trace(rows, scheme, ldir)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["boxmc_trace"] == 1
+    ref, ref_steps = cuda_tracer.boxmc_trace_plain(rows, scheme, ldir)
+    d = (out - ref).abs()
+    assert d.max().item() <= 6e-4 and d.mean().item() <= 1e-5, (d.max().item(), d.mean().item())
+    np.testing.assert_allclose(steps.cpu().numpy(), ref_steps.cpu().numpy(), rtol=1e-3)
+    assert out.sum(1).max().item() <= 1.0 + 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_boxmc_repeats_bit_for_bit(cuda_device):
+    rows = cuda_tracer.entry_rows(_K4_ENTRIES, "3_10", 1, False, 5, cuda_device)
+    a, sa = cuda_tracer.boxmc_trace(rows, "3_10", False)
+    b, sb = cuda_tracer.boxmc_trace(rows, "3_10", False)
+    assert torch.equal(a, b) and torch.equal(sa, sb)
+    T, S = cuda_tracer.run_boxmc_cuda(_K4_ENTRIES, "3_10", 1, False, seed=5, device=cuda_device)
+    assert T.shape == (7, 3) and S.shape == (7, 10) and bool((T == 0).all())
+    assert torch.equal(S, a[:, 3:])
+
+
+@pytest.mark.cuda
+def test_cuda_boxmc_refuses_schemes_it_cannot_represent(cuda_device):
+    for scheme, ldir in (("3_16", False), ("3_16", True), ("8_16", False), ("8_10", True),
+                         ("3_24", False)):
+        with pytest.raises(ValueError, match="K4 cannot trace"):
+            cuda_tracer.run_boxmc_cuda(_K4_ENTRIES, scheme, 0, ldir, device=cuda_device)
+    rows = cuda_tracer.entry_rows(_K4_ENTRIES, "3_10", 0, False, 0, cuda_device)
+    for bad in (rows[:, :8].contiguous(), rows.double(), rows.t().contiguous().t()):
+        with pytest.raises(ValueError, match="contiguous float32"):
+            cuda_tracer.boxmc_trace(bad, "3_10", False)
+
+
+@pytest.mark.cuda
+def test_cuda_binding_checks_raise(cuda_device):
+    """The binding's own checks raise (their messages are literals: one that
+    formats a number crashed the process with the CUDA build toolchain)."""
+    ext = cuda_ops.load_extension()
+    rows = cuda_tracer.entry_rows(_K4_ENTRIES, "3_10", 0, False, 0, cuda_device)
+    tab = list(cuda_tracer._tables("3_10"))
+    for args in ((rows[:, :8].contiguous(), 0, 3, 10, tab, 100), (rows, 0, 3, 10, tab[:17], 100),
+                 (rows, 0, 3, 10, tab, -1), (rows, 0, 3, 10, [20] * 18, 100)):
+        with pytest.raises(RuntimeError):
+            ext.boxmc_trace(*args)
+    ts, idx, orb, u, w, alb, _ = _inputs("3_10", 1, 2, 3, 4, seed=0)
+    dev = lambda a: torch.as_tensor(a, device=cuda_device)
+    with pytest.raises(RuntimeError):  # 9 dofs where the tables say 10
+        ext.fused_A_dots(dev(u)[:, :9].contiguous(), dev(w)[:, :9].contiguous(), dev(orb),
+                         dev(alb), *cuda_ops._tables(ts, idx, orb.shape[1]))

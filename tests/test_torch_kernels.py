@@ -106,7 +106,7 @@ def test_cpu_wrappers_count_no_launch():
     cuda_ops.fused_A_dots(ts, idx, *(torch.as_tensor(a) for a in (orb, u, w, alb)))
     cuda_ops.orbit_contract(ts, idx, torch.as_tensor(orb), torch.as_tensor(src))
     assert cuda_ops.LAUNCHES == {"fused_A_dots": 0, "orbit_contract": 0,
-                                 "diffuse_apply_dense": 0}
+                                 "diffuse_apply_dense": 0, "boxmc_trace": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -69,16 +69,21 @@ def test_port_sources_walk_finds_kernels_and_scripts():
     rel = {os.path.relpath(p, REPO) for p in _port_sources()}
     for f in ("tenstream_tpu_torch/pprts/buildings.py", "tenstream_tpu_torch/ops/twostream.py",
               "tenstream_tpu_torch/csrc/dense_ops.cu", "tenstream_tpu_torch/csrc/dense_ops.h",
-              "tenstream_tpu_torch/csrc/bind.cpp", "chip_smoke.py"):
+              "tenstream_tpu_torch/csrc/boxmc_ops.cu", "tenstream_tpu_torch/csrc/boxmc_ops.h",
+              "tenstream_tpu_torch/boxmc/schemes.py", "tenstream_tpu_torch/boxmc/tracer.py",
+              "tenstream_tpu_torch/boxmc/cuda_tracer.py", "tenstream_tpu_torch/optprop/lut.py",
+              "tenstream_tpu_torch/tools/create_lut.py", "tenstream_tpu_torch/csrc/bind.cpp",
+              "chip_smoke.py"):
         assert f in rel, f
 
 
 def test_chip_smoke_names_its_kernels():
-    """`chip_smoke.py`'s kernel table points at the three kernels: each
+    """`chip_smoke.py`'s kernel table points at the four kernels: each
     source exists, the line it names holds the kernel's name, the TPU
     kernel it replaces is where it says, and each wrapper counts launches."""
     import importlib.util
 
+    from tenstream_tpu_torch.boxmc import cuda_tracer
     from tenstream_tpu_torch.pprts import cuda_ops
 
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
@@ -87,9 +92,11 @@ def test_chip_smoke_names_its_kernels():
     assert sorted(chip_smoke.KERNELS) == sorted(cuda_ops.LAUNCHES)
     names = {"fused_A_dots": ("fused_A_kernel", "_fused_A_kernel"),
              "orbit_contract": ("orbit_contract_kernel", "_contract_kernel"),
-             "diffuse_apply_dense": ("diffuse_apply_dense_kernel", "def _kernel")}
+             "diffuse_apply_dense": ("diffuse_apply_dense_kernel", "def _kernel"),
+             "boxmc_trace": ("boxmc_trace_kernel", "def kernel")}
     for wrapper, (tag, source, line, replaces) in chip_smoke.KERNELS.items():
-        assert callable(getattr(cuda_ops, wrapper)) and callable(getattr(cuda_ops, wrapper + "_plain"))
+        mod = cuda_tracer if wrapper == "boxmc_trace" else cuda_ops
+        assert callable(getattr(mod, wrapper)) and callable(getattr(mod, wrapper + "_plain"))
         with open(os.path.join(REPO, source)) as fh:
             assert names[wrapper][0] in fh.read().splitlines()[line - 1], (wrapper, line)
         tpu_file, tpu_line = replaces.split(":")
@@ -102,12 +109,14 @@ def test_entry_points_default_to_the_card():
     caller asks for the CPU; `Buildings` follows its solver's device
     (`tests/test_torch_buildings.py`)."""
     from tenstream_tpu_torch import convert
+    from tenstream_tpu_torch.boxmc import cuda_tracer
+    from tenstream_tpu_torch.optprop import lut
     from tenstream_tpu_torch.optprop.facade import OptProp
-    from tenstream_tpu_torch.optprop.lut import LUT
     from tenstream_tpu_torch.pprts.grid import Grid
 
-    for fn in (Grid.create, LUT.load, OptProp.__init__, convert.lut_from_arrays,
-               convert.buildings_from_arrays):
+    for fn in (Grid.create, lut.LUT.load, OptProp.__init__, convert.lut_from_arrays,
+               convert.buildings_from_arrays, lut.create_lut, lut.create_production_lut,
+               lut.compose_production_lut, lut.load_or_create_lut, cuda_tracer.run_boxmc_cuda):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 
