@@ -6,13 +6,16 @@
 Phases, each printing its lines; any failure raises (non-zero exit):
 
   1. device   -- requires CUDA; prints the card's name and power limit.
-  2. build    -- builds the diffuse-solve kernels (csrc/) and times it.
+  2. build    -- builds the kernels (csrc/) and times it; beside the build,
+                 `nvcc -Xptxas -v` on each CUDA source prints every kernel's
+                 registers, shared memory and spills.
   3. kernels  -- K1 fused_A_dots, K2 orbit_contract and K3
                  diffuse_apply_dense (float32 and bfloat16 coefficients)
                  against their plain PyTorch versions on the card, at their
-                 paths' shapes and at an odd batched shape; times both
-                 versions, and beside K3 the one einsum that computes the
-                 contraction it contains.
+                 paths' shapes and at odd and tiny batched shapes, and K1 at
+                 the band chunk's batch of 8; times them, their plain versions
+                 and, beside K2 and K3, the one einsum that computes the
+                 contraction each contains.
   4. main     -- the cloud path (orbit coefficients, K1 and K2): the 3_10
                  PprtsSolver on a 100 m LES column (bench.py's vertical
                  structure, nz = 39) at 256 x 256 columns with the
@@ -42,9 +45,11 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  for the orbit-representative sources 0 and 2 and one from
                  the production direct grid for direct source 0, with the
                  tau-100 / w0-0.99999 corner swapped into the last 6 rows;
-                 each timed, repeated (bit-identical), checked for row sums
-                 <= 1, and held against its plain version on the same rows
-                 (per tally 6e-4: three photons' weight, mean 1e-5).
+                 each timed (with the lanes' utilisation), repeated
+                 (bit-identical), checked for row sums <= 1, and held against
+                 its plain version on the same rows (per tally 6e-4: three
+                 photons' weight, mean 1e-5; the count of tallies that differ
+                 at all is printed).
  11. lut      -- the LUT generation path end to end: create_production_lut
                  for 3_10 on the production axes with 4 rounds per entry
                  (the staged first pass of `--max-rounds 4`), timed per
@@ -56,6 +61,11 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  on mockup axes from a checkpoint directory, which must
                  launch K4 zero times.
 
+With --seed 7 (the default), phases 10 and 11 also hold K4's results (each
+launch's tallies and photon-steps, the generated table) against sha256
+digests recorded from the earlier K4 design: they must be equal bit for
+bit.
+
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -63,8 +73,11 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -90,11 +103,11 @@ SUN_MOVED = (253.0, 37.0)  # the urban warm solve's sun
 CSRC = "tenstream_tpu_torch/csrc/"
 # wrapper name -> (tag, CUDA source, line of the kernel in it, TPU kernel it replaces)
 KERNELS = {
-    "fused_A_dots": ("K1", CSRC + "orbit_ops.cu", 95, "tenstream_tpu/pprts/pallas_ops.py:264"),
-    "orbit_contract": ("K2", CSRC + "orbit_ops.cu", 39, "tenstream_tpu/pprts/pallas_ops.py:100"),
+    "fused_A_dots": ("K1", CSRC + "orbit_ops.cu", 163, "tenstream_tpu/pprts/pallas_ops.py:264"),
+    "orbit_contract": ("K2", CSRC + "orbit_ops.cu", 90, "tenstream_tpu/pprts/pallas_ops.py:100"),
     "diffuse_apply_dense": ("K3", CSRC + "dense_ops.cu", 54,
                             "tenstream_tpu/pprts/pallas_ops.py:64"),
-    "boxmc_trace": ("K4", CSRC + "boxmc_ops.cu", 118, "tenstream_tpu/boxmc/pallas_tracer.py:118"),
+    "boxmc_trace": ("K4", CSRC + "boxmc_ops.cu", 189, "tenstream_tpu/boxmc/pallas_tracer.py:118"),
 }
 # K4's float32 operations per photon-step, counted from boxmc_ops.cu.  Every
 # step does the move: three axis distances 15, their minimum 2, the free path
@@ -116,23 +129,62 @@ K4_BYTES_PER_ENTRY = 9 * 4 + 13 * 4 + 8  # params row in; [T | S] row and photon
 K4_TALLY_ATOL = 6e-4  # three photons' weight (1 / 5120 each): a rare flip of a comparison
 K4_MEAN_ATOL = 1e-5
 LUT_ROUNDS = 4
+# sha256 of K4's results with --seed 7 (the default), recorded from the earlier K4
+# design (one block per entry) before the photon-queue redesign: phase 10's `out` and `steps`
+# per source, phase 11's three tables.  The redesigned K4 must give them bit
+# for bit: only its scheduling changed, not a photon's arithmetic or the
+# order of the sums.
+DIGEST_SEED = 7
+K4_DIGESTS = {
+    "diffuse src 0 out": "59b0df5de40fc72f16ea69e85e2ca7ae3cc3555e7bc8c68052ba6be774baceff",
+    "diffuse src 0 steps": "639426a40ca91abb7008f7e7d7603c76dbc795f0e820c3925f8495254ace14db",
+    "diffuse src 2 out": "9a3089cb017422b7dab6b280bffddab7c2186f2dd530ae2c2b76b252aab200d4",
+    "diffuse src 2 steps": "76f9bb1bd592826efa949e60377d1740162611bcd67b0253e6e7aac3faca5032",
+    "direct src 0 out": "477c083ff67ef1cbed86c61e83c1987b7a39598974c735ac242897f7448e0b69",
+    "direct src 0 steps": "50777eb294ea1d61be3cd45316083af036b7fc58c36f314beb6f322d9cfa98d2",
+}
+LUT_DIGESTS = {
+    "dir2dir": "5ad6d7bc990928c78b089befe7694a8ed83b4249e7f24c71f993ceeface1827f",
+    "dir2diff": "d497d376c61bb167543f7cfbdccb34b5416f0eb184267db202966515f87eefac",
+    "diff2diff": "1b4a534250dbf4408aefc7f3d1775717d4f848bb8233520fc0ddf6c55670d641",
+}
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, n: int) -> float:
-    """Mean device time per call of fn over n calls (after 3 warm-ups)."""
+def sha256(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def check_digests(label: str, got: dict, want: dict, seed: int) -> None:
+    """Hold results against the recorded digests (only for DIGEST_SEED)."""
+    if seed != DIGEST_SEED or not want:
+        log(f"{label} digests (not checked: seed {seed}): {json.dumps(got)}")
+        return
+    bad = [k for k in want if got[k] != want[k]]
+    log(f"{label} digests: {'all equal to the earlier K4' if not bad else 'DIFFER in ' + str(bad)}")
+    if bad:
+        raise AssertionError(f"{label}: results differ from the earlier K4 ({bad}): "
+                             f"{json.dumps(got)}")
+
+
+def cuda_ms(fn, n: int, repeats: int = 3) -> float:
+    """Device time per call of fn: the median over `repeats` runs of n calls
+    each (after 3 warm-ups)."""
     for _ in range(3):
         fn()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(n):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / n
+    times = []
+    for _ in range(repeats):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
+    return sorted(times)[len(times) // 2]
 
 
 # ---------------------------------------------------------------------------
@@ -222,10 +274,52 @@ def phase_device():
     return name, smi
 
 
+def ptxas_report(cuda_ops) -> list:
+    """nvcc -Xptxas -v on each CUDA source: registers, spills and shared
+    memory per kernel.  Each source compiles on its own, beside the build."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
+    out_dir = os.path.join(cuda_ops.BUILD_DIR, "ptxas")
+    os.makedirs(out_dir, exist_ok=True)
+    srcs = [s for s in cuda_ops.SOURCES if s.endswith(".cu")]
+
+    def one(src):
+        cmd = [nvcc, *cuda_ops.CUDA_FLAGS, "-Xptxas", "-v", "-I", cuda_ops.CSRC, "-c",
+               os.path.join(cuda_ops.CSRC, src), "-o", os.path.join(out_dir, src + ".o")]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if r.returncode:
+            raise RuntimeError(f"nvcc failed on {src}:\n{r.stderr[-4000:]}")
+        return src, r.stderr
+
+    lines = []
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as ex:
+        for src, err in ex.map(one, srcs):
+            fn = None
+            for ln in err.splitlines():
+                if "Compiling entry function" in ln:
+                    fn, spill = ln.split("'")[1], ""
+                elif "spill stores" in ln and fn:
+                    spill = ln.split(",", 1)[1].strip()
+                elif "Used" in ln and "registers" in ln and fn:
+                    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", fn)  # <len><name> in the mangling
+                    if m:
+                        end = m.end() + int(m.group(1))
+                        fn = fn[m.end():end] + (fn[end:end + 14] if fn[end:end + 1] == "I" else "")
+                    lines.append(f"{src} {fn}: {ln.split(':', 1)[1].strip()}; {spill}")
+                    fn = None
+    return lines
+
+
 def phase_build(cuda_ops):
     t0 = time.time()
-    cuda_ops.load_extension()
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        ptx = ex.submit(ptxas_report, cuda_ops)
+        cuda_ops.load_extension()
+        lines = ptx.result()
     log(f"build: kernels built and loaded in {time.time() - t0:.1f} s")
+    for ln in lines:
+        log(f"build ptxas {ln}")
 
 
 def _k_inputs(B, nz, nx, ny, norb, seed):
@@ -258,38 +352,75 @@ def _report_entry(name, err, ms, plain_ms, nbytes, flops, library_ms=None):
                 library_ms=library_ms)
 
 
+def _orbit_group_tensor(cuda_ops, idx, norb):
+    """M[d, o, s] = 1 where source s enters dst d through orbit channel o:
+    K2's contraction as one einsum (the yardstick; the port never calls it)."""
+    nd = idx.shape[0]
+    M = torch.zeros((nd, norb, nd), device="cuda")
+    for d, groups in enumerate(cuda_ops.orbit_groups(idx)):
+        for o, ss in groups:
+            M[d, o, list(ss)] = 1.0
+    return M
+
+
 def phase_kernels(cuda_ops, scheme, idx, nz, nx, ny):
-    """K1 and K2 against their plain versions, at the cloud path's shape."""
+    """K1 and K2 against their plain versions, at the cloud path's shape, at
+    odd shapes, and K1 at the band chunk's batch of 8."""
     norb = int(idx.max()) + 1
     report = {}
-    for (B, z, x, y, tag) in ((2, 5, 6, 10, "odd"), (1, nz, nx, ny, "main")):
+    for (B, z, x, y, tag) in ((2, 5, 6, 10, "odd"), (3, 1, 1, 1, "tiny"), (1, 7, 33, 65, "odd"),
+                              (1, nz, nx, ny, "main"), (8, nz, nx, ny, "band")):
         orb, u, w, alb, src = _k_inputs(B, z, x, y, norb, seed=z + x)
         Au, dots = cuda_ops.fused_A_dots(scheme, idx, orb, u, w, alb)
         Au_p, dots_p = cuda_ops.fused_A_dots_plain(scheme, idx, orb, u, w, alb)
-        c = cuda_ops.orbit_contract(scheme, idx, orb, src)
-        c_p = cuda_ops.orbit_contract_plain(idx, orb, src)
         torch.cuda.synchronize()
         e1 = (Au - Au_p).abs().max().item()
         r1 = ((Au - Au_p).abs() / Au_p.abs().clamp(min=1e-6)).max().item()
         d1 = ((dots - dots_p).abs() / dots_p.abs()).max().item()
-        e2 = (c - c_p).abs().max().item()
-        r2 = ((c - c_p).abs() / c_p.abs().clamp(min=1e-6)).max().item()
-        log(f"kernels {tag} B={B} nz={z} nx={x} ny={y}: K1 max abs {e1:.3e} rel {r1:.3e}, "
-            f"dots rel {d1:.3e}; K2 max abs {e2:.3e} rel {r2:.3e}")
+        del Au, Au_p
+        line = (f"kernels {tag} B={B} nz={z} nx={x} ny={y}: K1 max abs {e1:.3e} rel {r1:.3e}, "
+                f"dots rel {d1:.3e}")
+        e2 = 0.0
+        if tag != "band":
+            c = cuda_ops.orbit_contract(scheme, idx, orb, src)
+            c_p = cuda_ops.orbit_contract_plain(idx, orb, src)
+            torch.cuda.synchronize()
+            e2 = (c - c_p).abs().max().item()
+            r2 = ((c - c_p).abs() / c_p.abs().clamp(min=1e-6)).max().item()
+            line += f"; K2 max abs {e2:.3e} rel {r2:.3e}"
+        log(line)
         if not (e1 <= FIELD_ATOL and d1 <= DOT_RTOL and e2 <= FIELD_ATOL):
             raise AssertionError(f"kernel disagrees with its plain version at {tag} shape "
                                  f"(field atol {FIELD_ATOL}, dot rtol {DOT_RTOL})")
+        cost = _kernel_cost(cuda_ops, scheme, idx, B, z, x, y, norb)
+        if tag == "band":
+            ms = cuda_ms(lambda: cuda_ops.fused_A_dots(scheme, idx, orb, u, w, alb), 20)
+            nbytes = cost["fused_A_dots"][0]
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"kernels timing fused_A_dots at B={B}: {ms:.4f} ms (bound {bound:.4f} ms by bytes, "
+                f"{nbytes / 1e9:.3f} GB, {100 * bound / ms:.1f}% of the bound's rate)")
+            report["fused_A_dots"]["band_ms"] = ms
+            report["fused_A_dots"]["band_bound_ms"] = bound
         if tag == "main":
-            cost = _kernel_cost(cuda_ops, scheme, idx, B, z, x, y, norb)
-            times = {
-                "fused_A_dots": (cuda_ms(lambda: cuda_ops.fused_A_dots(scheme, idx, orb, u, w, alb), 20),
-                                 cuda_ms(lambda: cuda_ops.fused_A_dots_plain(scheme, idx, orb, u, w, alb), 5)),
-                "orbit_contract": (cuda_ms(lambda: cuda_ops.orbit_contract(scheme, idx, orb, src), 20),
-                                   cuda_ms(lambda: cuda_ops.orbit_contract_plain(idx, orb, src), 5)),
-            }
-            for name, err in (("fused_A_dots", e1), ("orbit_contract", e2)):
-                report[name] = _report_entry(name, err, *times[name], *cost[name])
-        del orb, u, w, alb, src, Au, Au_p, c, c_p
+            M = _orbit_group_tensor(cuda_ops, idx, norb)
+            orb3, src3 = orb.view(B, norb, -1), src.view(B, 10, -1)
+            lib = torch.einsum("dos,boc,bsc->bdc", M, orb3, src3)
+            lib_err = (lib.view_as(c) - c_p).abs().max().item()
+            log(f"kernels K2 yardstick einsum('dos,boc,bsc->bdc') max abs vs plain {lib_err:.3e}")
+            del lib
+            k1_args, k2_args = (scheme, idx, orb, u, w, alb), (scheme, idx, orb, src)
+            report["fused_A_dots"] = _report_entry(
+                "fused_A_dots", e1, cuda_ms(lambda: cuda_ops.fused_A_dots(*k1_args), 20),
+                cuda_ms(lambda: cuda_ops.fused_A_dots_plain(*k1_args), 5), *cost["fused_A_dots"])
+            report["orbit_contract"] = _report_entry(
+                "orbit_contract", e2, cuda_ms(lambda: cuda_ops.orbit_contract(*k2_args), 20),
+                cuda_ms(lambda: cuda_ops.orbit_contract_plain(idx, orb, src), 5),
+                *cost["orbit_contract"],
+                cuda_ms(lambda: torch.einsum("dos,boc,bsc->bdc", M, orb3, src3), 5))
+            del M, orb3, src3
+        if tag != "band":
+            del c, c_p
+        del orb, u, w, alb, src
     return report
 
 
@@ -646,7 +777,7 @@ def phase_boxmc(ct, L, seed):
     corner = np.array([[100.0, 0.99999, a, g] for a in (0.02, 1.0, 7.451) for g in (0.0, 0.85)],
                       np.float32)
     runs = (("diffuse src 0", False, 0), ("diffuse src 2", False, 2), ("direct src 0", True, 0))
-    report = {}
+    report, digests = {}, {}
     for label, ldir, src in runs:
         ent = _k4_sample(L, ldir, 4096, rng)
         ent[-len(corner):, :4] = corner
@@ -658,15 +789,20 @@ def phase_boxmc(ct, L, seed):
         torch.cuda.synchronize()
         if not (torch.equal(out, out2) and torch.equal(steps, steps2)):
             raise AssertionError(f"boxmc {label}: the same seed gave different tallies")
+        digests[f"{label} out"], digests[f"{label} steps"] = sha256(out), sha256(steps)
         rowsum = out.sum(1).max().item()
         if not (bool(torch.isfinite(out).all()) and rowsum <= 1.0 + 1e-4):
             raise AssertionError(f"boxmc {label}: row sum {rowsum} > 1 + 1e-4 or non-finite")
         ms = cuda_ms(lambda: ct.boxmc_trace(rows, "3_10", ldir), 3)
         nsteps = int(steps.sum().item())
+        util = nsteps / (32 * ct.last_warp_trips())
         log(f"boxmc {label}: 4096 entries (thick corner in the last {len(corner)} rows) in "
             f"{ms:.2f} ms per launch, bit-identical on repeat, max row sum {rowsum:.6f}; "
             f"{4096 * ct.PHOTONS / ms * 1e3:.4e} photons/s, {nsteps:.4e} photon-steps = "
-            f"{nsteps / ms * 1e3:.4e} photon-steps/s (longest entry {int(steps.max().item())})")
+            f"{nsteps / ms * 1e3:.4e} photon-steps/s (longest entry {int(steps.max().item())}), "
+            f"lane utilisation {100 * util:.1f}%, "
+            f"{100 * k4_flops(nsteps, 4096) / F32_FLOPS_PER_S * 1e3 / ms:.2f}% of the operations "
+            "floor's rate")
 
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -678,7 +814,8 @@ def phase_boxmc(ct, L, seed):
         err, mean = d.max().item(), d.mean().item()
         log(f"boxmc {label} against plain on the same 4096 rows: plain {plain_ms:.1f} ms; "
             f"max |K4 - plain| {err:.3e}, mean {mean:.3e}, "
-            f"{int((d > 1e-5).sum().item())} of {d.numel()} tallies differ by more than 1e-5; "
+            f"{int((d > 1e-5).sum().item())} of {d.numel()} tallies differ by more than 1e-5, "
+            f"{int((out != outp).sum().item())} differ at all; "
             f"photon-steps {nsteps} vs {int(stp.sum().item())}")
         if not (err <= K4_TALLY_ATOL and mean <= K4_MEAN_ATOL):
             raise AssertionError(f"boxmc {label}: K4 disagrees with its plain version (per tally "
@@ -687,15 +824,16 @@ def phase_boxmc(ct, L, seed):
             bound = _report_entry("boxmc_trace (4096 production diffuse entries)", err, ms,
                                   plain_ms, 4096 * K4_BYTES_PER_ENTRY, k4_flops(nsteps, 4096))
             report = dict(bound, photons_per_s=4096 * ct.PHOTONS / ms * 1e3,
-                          photon_steps_per_s=nsteps / ms * 1e3)
+                          photon_steps_per_s=nsteps / ms * 1e3, lane_utilisation=util)
+    check_digests("boxmc", digests, K4_DIGESTS, seed)
     return report
 
 
 def _timed_lut(L, ct, fn):
     """Run fn() with every K4 launch bracketed by CUDA events and every
     `_trace_adaptive` call timed on the host: (result, wall s, device ms in
-    K4, host s per table kind)."""
-    events, per_kind = [], {"diffuse": 0.0, "direct": 0.0}
+    K4, host s per table kind, photon-steps, warp loop trips)."""
+    events, per_kind, counts = [], {"diffuse": 0.0, "direct": 0.0}, []
     trace, adaptive = ct.boxmc_trace, L._trace_adaptive
 
     def timed_trace(*a, **k):
@@ -704,6 +842,8 @@ def _timed_lut(L, ct, fn):
         out = trace(*a, **k)
         e1.record()
         events.append((e0, e1))
+        # the pass copies each launch's tallies back at once: these reads add no wait
+        counts.append((int(out[1].sum().item()), ct.last_warp_trips()))
         return out
 
     def timed_adaptive(scheme, entries, src, ldir, *a, **k):
@@ -720,7 +860,8 @@ def _timed_lut(L, ct, fn):
         wall = time.time() - t0
     finally:
         ct.boxmc_trace, L._trace_adaptive = trace, adaptive
-    return out, wall, sum(a.elapsed_time(b) for a, b in events), per_kind
+    nsteps, trips = (sum(c) for c in zip(*counts))
+    return out, wall, sum(a.elapsed_time(b) for a, b in events), per_kind, nsteps, trips
 
 
 def _check_rows(lut, label, atol):
@@ -735,9 +876,10 @@ def phase_lut(cuda_ops, ct, L, LUT, OptProp, Grid, PprtsSolver, sundir, seed):
     """The LUT generation path: a production-density 3_10 table through K4."""
     dir_axes, diff_axes = L.production_axes(True), L.production_axes(False)
     cuda_ops.reset_launch_counts()
-    (lut, meta), wall, dev_ms, per_kind = _timed_lut(L, ct, lambda: L.create_production_lut(
-        "3_10", dir_axes, diff_axes, max_rounds=LUT_ROUNDS, dir_max_rounds=LUT_ROUNDS,
-        verbose=False, device="cuda"))
+    (lut, meta), wall, dev_ms, per_kind, nsteps, trips = _timed_lut(
+        L, ct, lambda: L.create_production_lut(
+            "3_10", dir_axes, diff_axes, max_rounds=LUT_ROUNDS, dir_max_rounds=LUT_ROUNDS,
+            verbose=False, device="cuda"))
     launches = cuda_ops.LAUNCHES["boxmc_trace"]
     photons = meta["diff_photons_total"] + meta["dir_photons_total"]
     log(f"lut: 3_10 production axes (diffuse {diff_axes.tau.size}x{diff_axes.w0.size}x"
@@ -746,11 +888,15 @@ def phase_lut(cuda_ops, ct, L, LUT, OptProp, Grid, PprtsSolver, sundir, seed):
         f"{dir_axes.theta.size}), {LUT_ROUNDS} rounds: {wall:.1f} s wall (diffuse table "
         f"{per_kind['diffuse']:.1f} s, direct {per_kind['direct']:.1f} s), {launches} K4 launches "
         f"busy {dev_ms / 1e3:.1f} s on the device = host share {100 * (1 - dev_ms / 1e3 / wall):.1f}%"
-        f"; {photons:.4e} photons = {photons / wall:.4e} photons/s end to end")
+        f"; {photons:.4e} photons = {photons / wall:.4e} photons/s end to end; {nsteps:.4e} "
+        f"photon-steps = {nsteps / dev_ms * 1e3:.4e} per device second, lane utilisation "
+        f"{100 * nsteps / (32 * trips):.1f}%")
     log(f"lut meta: {json.dumps(meta)}")
     if launches == 0:
         raise AssertionError("K4 was not launched on the LUT path")
     dsum, fsum = _check_rows(lut, "lut", 1e-3)
+    check_digests("lut", {k: sha256(getattr(lut, k)) for k in ("dir2dir", "dir2diff", "diff2diff")},
+                  LUT_DIGESTS, seed)
 
     ref = LUT.load(LUT_PATH, device="cuda")
     zold = np.load(LUT_PATH)
@@ -819,9 +965,9 @@ def main():
     phase_build(cuda_ops)
     opp = OptProp(LUT.load(LUT_PATH, device="cuda"), device="cuda")
     idx = opp._solver_orbit_idx
+    sundir = sundir_from_angles(*SUN)
     report = phase_kernels(cuda_ops, opp.scheme, idx, NZ, NX, NY)
     report["diffuse_apply_dense"] = phase_kernel_dense(cuda_ops, opp.scheme, URBAN_NZ, NX, NY)
-    sundir = sundir_from_angles(*SUN)
     launches = phase_main(cuda_ops, opp, Grid, PprtsSolver, sundir, args.seed)
     phase_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, sundir, args.seed)
     urban = phase_urban(cuda_ops, opp, Grid, PprtsSolver, Buildings, sundir_from_angles, args.seed)

@@ -12,7 +12,11 @@ float32; the result row is [T | S] plus the entry's photon-steps (loop
 iterations entered alive, summed over its photons).  The hash's program
 id is the row's index within the launch, so a launch of the same rows
 gives the same tallies in the kernel, in its plain version and in the TPU
-kernel (up to float32 roundoff of the transcendentals).
+kernel (up to float32 roundoff of the transcendentals).  The kernel walks
+the launch's photons from one queue and writes a record per photon (tally
+code and weight); a second kernel sums each entry's records in a fixed
+order, which `reduce_records` repeats, so the plain version gives the
+kernel's tallies bit for bit where its records are the kernel's.
 
 `run_boxmc_cuda` is `run_boxmc_pallas` with the same arguments and (T, S)
 result: it builds the seed, face and zsign columns as
@@ -36,7 +40,8 @@ step), so its cost follows the photon-steps, and like the kernel it stops
 a photon at its exit (the TPU kernel keeps moving exited photons by ~0,
 which changes their weights by ulps).  The wrapper runs it only because
 its tensor lies on the CPU; on a CUDA tensor it launches the kernel or
-raises.  Each launch adds one to `cuda_ops.LAUNCHES["boxmc_trace"]`.
+raises.  Each launch adds one to `cuda_ops.LAUNCHES["boxmc_trace"]`;
+`last_warp_trips` reads the last launch's warp loop trips.
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ from tenstream_tpu_torch.pprts import cuda_ops
 
 PHOTONS = 5120  # photons per entry (the TPU kernel's 8 x 640 batch)
 MAX_BATCH = 4096  # rows per launch (the TPU kernel's fixed grid)
+REDUCE_THREADS = 256  # photons per entry are summed by 256 threads (K4's reduction)
+_LAST_TRIPS = [None]  # warp loop trips of the last kernel launch (a device tensor)
 NPARAM = 9
 _WEIGHT_ROULETTE = 1e-4
 _ROULETTE_SURVIVE = 0.5
@@ -174,7 +181,17 @@ def boxmc_trace_plain(rows: torch.Tensor, scheme_name: str, ldir: bool,
     """Plain PyTorch K4: rows (B, 9) float32 -> (out (B, ndir + ndiff)
     [T | S] float32, photon-steps (B,) int64)."""
     box = _check_scheme(scheme_name, ldir)
-    ndir, nc = box.ndir, box.ndir + box.ndiff
+    code, w, left, nstep = photon_records_plain(rows, scheme_name, ldir, max_iter)
+    out = reduce_records(code, w, left, box.ndir, box.ndir + box.ndiff)
+    return out, nstep.sum(1)
+
+
+def photon_records_plain(rows: torch.Tensor, scheme_name: str, ldir: bool,
+                         max_iter: int = 3000):
+    """Each photon's walk for rows (B, 9): (tally code (B, N) int64, -1 for
+    none; exit weight (B, N); weight still walking at max_iter (B, N), 0 for
+    the others; photon-steps (B, N) int64), N = PHOTONS."""
+    box = _check_scheme(scheme_name, ldir)
     dev, f32, i32 = rows.device, torch.float32, torch.int32
     B, N = rows.shape[0], PHOTONS
     rows = rows.to(f32)
@@ -267,21 +284,63 @@ def boxmc_trace_plain(rows: torch.Tensor, scheme_name: str, ldir: bool,
 
     left = torch.zeros(B * N, dtype=f32, device=dev)
     left[pid] = w  # still walking at max_iter
-    code_out, w_out = code_out.view(B, N), w_out.view(B, N)
+    return code_out.view(B, N), w_out.view(B, N), left.view(B, N), nstep.view(B, N)
+
+
+def reduce_records(code: torch.Tensor, w: torch.Tensor, left: torch.Tensor, ndir: int,
+                   nc: int) -> torch.Tensor:
+    """[T | S] rows from per-photon records, in K4's order of float32 adds.
+
+    code (B, N) is each photon's tally code (outside [0, nc): none), w (B,
+    N) its exit weight, left (B, N) the weight still walking at max_iter
+    (0 for the others).  As in `boxmc_ops.cu::boxmc_reduce_kernel`: thread
+    t of 256 adds the photons t, t + 256, ... in turn into one sum per
+    code and one leftover sum, the 256 partial sums halve in a fixed tree,
+    the diffuse tallies add up in code order to the scattered mass, and
+    the diffuse tallies are scaled by 1 + leftover / mass (truncation
+    redistribution).  Adding 0.0 to the sums of the other codes changes
+    no bit, so these are the kernel's tallies bit for bit when the records
+    are."""
+    B, N = code.shape
+    T = REDUCE_THREADS
+    f32, dev = torch.float32, code.device
+    codes = torch.arange(nc, device=dev).view(1, nc, 1)
+    code, w, left = code.view(B, N // T, T), w.view(B, N // T, T), left.view(B, N // T, T)
+    acc = torch.zeros((B, nc + 1, T), dtype=f32, device=dev)
     zero = torch.zeros((), dtype=f32, device=dev)
-    leftover = left.view(B, N).sum(1)
-    s_mass = torch.where(code_out >= ndir, w_out, zero).sum(1)
+    for k in range(N // T):
+        acc[:, :nc] += torch.where(code[:, k, None, :] == codes, w[:, k, None, :], zero)
+        acc[:, nc] += left[:, k]
+    stride = T // 2
+    while stride:
+        acc[..., :stride] = acc[..., :stride] + acc[..., stride:2 * stride]
+        stride //= 2
+    tally, leftover = acc[:, :nc, 0], acc[:, nc, 0]
+    s_mass = torch.zeros(B, dtype=f32, device=dev)
+    for c in range(ndir, nc):
+        s_mass = s_mass + tally[:, c]
     scale = torch.where(s_mass > 0, 1.0 + leftover / torch.clamp(s_mass, min=1e-30),
                         torch.ones_like(s_mass))
     norm = torch.tensor(1.0 / N, dtype=f32, device=dev)
-    out = torch.stack([torch.where(code_out == c, w_out, zero).sum(1) for c in range(nc)], 1)
-    out = torch.cat([out[:, :ndir] * norm, out[:, ndir:] * scale[:, None] * norm], 1)
-    return out, nstep.view(B, N).sum(1)
+    return torch.cat([tally[:, :ndir] * norm, tally[:, ndir:] * scale[:, None] * norm], 1)
 
 
 # ---------------------------------------------------------------------------
 # the wrapper and the TPU kernel's entry point
 # ---------------------------------------------------------------------------
+
+
+def launch_order(rows: torch.Tensor) -> torch.Tensor:
+    """The order in which K4's photon queue takes the rows: longest expected
+    walks first (int32 (B,), on the rows' device).  A photon scatters about
+    (1 + key)^2 times in a box whose smallest scattering optical size is key
+    = w0 * tauz * min(1, 1 / aspect), and weight roulette ends it after about
+    1 / (1 - w0) steps, whichever comes first.  The order changes no result:
+    it only lets the long walks overlap the short ones."""
+    tau, w0, aspect = rows[:, 0], rows[:, 1], rows[:, 2].clamp(min=1e-6)
+    key = w0 * tau * torch.clamp(1.0 / aspect, max=1.0)
+    cost = torch.minimum((1.0 + key) ** 2, 1.0 / (1.0 - w0 + 1e-7))
+    return torch.argsort(cost, descending=True, stable=True).to(torch.int32)
 
 
 def boxmc_trace(rows: torch.Tensor, scheme_name: str, ldir: bool,
@@ -296,10 +355,18 @@ def boxmc_trace(rows: torch.Tensor, scheme_name: str, ldir: bool,
             or not rows.is_contiguous():
         raise ValueError(f"rows must be contiguous float32 (B, {NPARAM}), got {rows.dtype} "
                          f"{tuple(rows.shape)}")
-    out, steps = cuda_ops.load_extension().boxmc_trace(
-        rows, int(bool(ldir)), box.ndir, box.ndiff, list(_tables(scheme_name)), int(max_iter))
+    out, steps, trips = cuda_ops.load_extension().boxmc_trace(
+        rows, launch_order(rows), int(bool(ldir)), box.ndir, box.ndiff,
+        list(_tables(scheme_name)), int(max_iter))
     cuda_ops.LAUNCHES["boxmc_trace"] += 1
+    _LAST_TRIPS[0] = trips
     return out, steps
+
+
+def last_warp_trips() -> int:
+    """Loop trips of all warps of the last kernel launch (synchronises):
+    that launch's photon-steps / (32 * trips) is its lanes' utilisation."""
+    return int(_LAST_TRIPS[0].item())
 
 
 def entry_rows(params, scheme_name: str, src: int, ldir: bool, seed: int,

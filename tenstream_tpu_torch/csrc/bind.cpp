@@ -1,8 +1,8 @@
 // PyTorch binding of the diffuse-operator kernels in orbit_ops.cu and
 // dense_ops.cu and of the BoxMC photon tracer in boxmc_ops.cu.  The only
 // source that includes PyTorch's headers: it checks the tensors,
-// allocates the outputs, launches on the current stream and checks the
-// launch.  Check messages are string literals only: a message that formats
+// allocates the outputs and scratch, launches on the current stream and
+// checks the launch.  Check messages are string literals only: a message that formats
 // a number (c10::str through an ostringstream) crashed the process instead
 // of raising with the CUDA build toolchain the kernels were tested with.
 #include <torch/extension.h>
@@ -20,34 +20,25 @@
 namespace {
 
 // itab layout (see tenstream_tpu_torch/pprts/cuda_ops.py::_tables):
-// nd, norb, ncls, ngroups[D], gorb[D][D], gmask[D][D], gz[D], gx[D], gy[D],
-// ccz[C], ccx[C], ccy[C], cmask[C], dn_mask; ftab: walb[D]
-OrbitTables make_tables(const std::vector<int64_t>& itab, const std::vector<double>& ftab) {
-  const size_t D = TS_MAXD, C = TS_MAXC;
-  const size_t want = 3 + D + 2 * D * D + 3 * D + 4 * C + 1;
-  TORCH_CHECK(itab.size() == want, "orbit tables: wrong number of ints");
-  TORCH_CHECK(ftab.size() == D, "orbit tables: wrong number of floats");
+// nd, norb, ngroups[D], gorb[D][D], gmask[D][D]
+OrbitTables make_tables(const std::vector<int64_t>& itab) {
+  const size_t D = TS_MAXD;
+  TORCH_CHECK(itab.size() == 2 + D + 2 * D * D, "orbit tables: wrong number of ints");
   OrbitTables t;
   size_t q = 0;
   t.nd = (int)itab[q++];
   t.norb = (int)itab[q++];
-  t.ncls = (int)itab[q++];
   for (size_t d = 0; d < D; ++d) t.ngroups[d] = (int)itab[q++];
   for (size_t d = 0; d < D; ++d)
     for (size_t g = 0; g < D; ++g) t.gorb[d][g] = (int)itab[q++];
   for (size_t d = 0; d < D; ++d)
     for (size_t g = 0; g < D; ++g) t.gmask[d][g] = (int)itab[q++];
-  for (size_t s = 0; s < D; ++s) t.gz[s] = (int)itab[q++];
-  for (size_t s = 0; s < D; ++s) t.gx[s] = (int)itab[q++];
-  for (size_t s = 0; s < D; ++s) t.gy[s] = (int)itab[q++];
-  for (size_t c = 0; c < C; ++c) t.ccz[c] = (int)itab[q++];
-  for (size_t c = 0; c < C; ++c) t.ccx[c] = (int)itab[q++];
-  for (size_t c = 0; c < C; ++c) t.ccy[c] = (int)itab[q++];
-  for (size_t c = 0; c < C; ++c) t.cmask[c] = (int)itab[q++];
-  t.dn_mask = (int)itab[q++];
-  for (size_t d = 0; d < D; ++d) t.walb[d] = (float)ftab[d];
   TORCH_CHECK(t.nd == TS_MAXD, "kernels are built for the 3_10 scheme (nd = 10)");
-  TORCH_CHECK(t.ncls >= 1 && t.ncls <= TS_MAXC, "bad class count");
+  for (size_t d = 0; d < D; ++d) {
+    TORCH_CHECK(t.ngroups[d] >= 0 && t.ngroups[d] <= (int)D, "bad group count");
+    for (int g = 0; g < t.ngroups[d]; ++g)
+      TORCH_CHECK(t.gorb[d][g] >= 0 && t.gorb[d][g] < t.norb, "orbit channel out of range");
+  }
   return t;
 }
 
@@ -58,9 +49,8 @@ void check_f32(const torch::Tensor& x, const char* name, int64_t dim) {
   TORCH_CHECK(x.is_contiguous(), name, " must be contiguous");
 }
 
-torch::Tensor orbit_contract(torch::Tensor src, torch::Tensor orb,
-                             std::vector<int64_t> itab, std::vector<double> ftab) {
-  const OrbitTables t = make_tables(itab, ftab);
+torch::Tensor orbit_contract(torch::Tensor src, torch::Tensor orb, std::vector<int64_t> itab) {
+  const OrbitTables t = make_tables(itab);
   check_f32(src, "src", 5);
   check_f32(orb, "orb", 5);
   const int64_t B = src.size(0);
@@ -82,40 +72,41 @@ torch::Tensor orbit_contract(torch::Tensor src, torch::Tensor orb,
   return out;
 }
 
+// K1 is compiled for the 3_10 tables (orbit_3_10.h): 10 dofs, 24 channels
 std::vector<torch::Tensor> fused_A_dots(torch::Tensor u, torch::Tensor w, torch::Tensor orb,
-                                        torch::Tensor albedo, std::vector<int64_t> itab,
-                                        std::vector<double> ftab) {
-  const OrbitTables t = make_tables(itab, ftab);
+                                        torch::Tensor albedo) {
   check_f32(u, "u", 5);
   check_f32(w, "w", 5);
   check_f32(orb, "orb", 5);
   check_f32(albedo, "albedo", 3);
   const int64_t B = u.size(0), nz = u.size(2) - 1, nx = u.size(3), ny = u.size(4);
-  TORCH_CHECK(u.size(1) == t.nd, "u dof dim != nd");
+  TORCH_CHECK(u.size(1) == 10, "u must have the 10 dofs of 3_10");
   TORCH_CHECK(nz >= 1, "u needs at least two face levels");
+  TORCH_CHECK(nx >= 1 && ny >= 1, "u needs at least one column");
   TORCH_CHECK(w.sizes() == u.sizes(), "w must have the shape of u");
-  TORCH_CHECK(orb.size(0) == B && orb.size(1) == t.norb && orb.size(2) == nz &&
+  TORCH_CHECK(orb.size(0) == B && orb.size(1) == 24 && orb.size(2) == nz &&
                   orb.size(3) == nx && orb.size(4) == ny,
-              "orb must be (B, norb, nz, nx, ny)");
+              "orb must be (B, 24, nz, nx, ny)");
   TORCH_CHECK(albedo.size(0) == B && albedo.size(1) == nx && albedo.size(2) == ny,
               "albedo must be (B, nx, ny)");
   TORCH_CHECK(w.device() == u.device() && orb.device() == u.device() &&
                   albedo.device() == u.device(),
               "tensors on different devices");
-  TORCH_CHECK(nz * nx * ny * t.norb < (int64_t)1 << 31 && (nz + 1) * nx * ny * t.nd < (int64_t)1 << 31,
+  TORCH_CHECK(nz * nx * ny * 24 < (int64_t)1 << 31 && (nz + 1) * nx * ny * 10 < (int64_t)1 << 31,
               "field too large for int indexing");
+  TORCH_CHECK(B < 65536, "batch too large for the grid");
   const c10::cuda::CUDAGuard guard(u.device());
   auto Au = torch::empty_like(u);
   auto dots = torch::empty({B, 2}, u.options());
-  const int nblk = fused_A_dots_blocks((int)nz, (int)nx, (int)ny);
-  auto partials = torch::empty({B, nblk, 2}, u.options());
   if (B == 0) return {Au, dots};
+  const int nblk = fused_A_dots_blocks((int)B, (int)nz, (int)nx, (int)ny);
+  auto partials = torch::empty({B, nblk, 2}, u.options());
   cudaStream_t stream = at::cuda::getCurrentCUDAStream();
   C10_CUDA_CHECK(launch_fused_A_dots(u.data_ptr<float>(), w.data_ptr<float>(),
                                      orb.data_ptr<float>(), albedo.data_ptr<float>(),
                                      Au.data_ptr<float>(), partials.data_ptr<float>(),
-                                     dots.data_ptr<float>(), &t, (int)B, (int)nz, (int)nx,
-                                     (int)ny, stream));
+                                     dots.data_ptr<float>(), (int)B, (int)nz, (int)nx, (int)ny,
+                                     stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {Au, dots};
 }
@@ -166,7 +157,8 @@ torch::Tensor diffuse_apply_dense(torch::Tensor x, torch::Tensor c, std::vector<
 
 // tables layout (see tenstream_tpu_torch/boxmc/cuda_tracer.py::_tables):
 // dir_code[6], diff_dn[6], diff_up[6]
-std::vector<torch::Tensor> boxmc_trace(torch::Tensor params, int64_t ldir, int64_t ndir,
+std::vector<torch::Tensor> boxmc_trace(torch::Tensor params, torch::Tensor order, int64_t ldir,
+                                       int64_t ndir,
                                        int64_t ndiff, std::vector<int64_t> tables,
                                        int64_t max_iter) {
   TORCH_CHECK(tables.size() == 18, "boxmc tables: expected 18 ints");
@@ -181,18 +173,38 @@ std::vector<torch::Tensor> boxmc_trace(torch::Tensor params, int64_t ldir, int64
   check_f32(params, "params", 2);
   TORCH_CHECK(params.size(1) == BOXMC_NPARAM, "params must be (B, 9)");
   TORCH_CHECK(max_iter >= 0 && max_iter <= 400000, "max_iter out of range");
+  TORCH_CHECK(boxmc_layout_ok((int)ndir, (int)ndiff), "boxmc: no kernel for this layout");
   const int64_t B = params.size(0);
-  TORCH_CHECK(B < (int64_t)1 << 31, "too many entries");
+  TORCH_CHECK(B <= 400000, "too many entries for one launch");
+  TORCH_CHECK(order.is_cuda() && order.scalar_type() == torch::kInt32 && order.dim() == 1 &&
+                  order.size(0) == B && order.is_contiguous() && order.device() == params.device(),
+              "order must be a contiguous int32 (B,) tensor beside params");
   const c10::cuda::CUDAGuard guard(params.device());
   auto out = torch::empty({B, ndir + ndiff}, params.options());
-  auto steps = torch::empty({B}, params.options().dtype(torch::kInt64));
-  if (B == 0) return {out, steps};
+  auto counts = torch::zeros({B + 2}, params.options().dtype(torch::kInt64));
+  auto steps = counts.narrow(0, 0, B);
+  auto trips = counts.narrow(0, B, 1);
+  if (B == 0) return {out, steps, trips};
+  auto rec_code = torch::empty({B * BOXMC_PHOTONS}, params.options().dtype(torch::kUInt8));
+  auto rec_w = torch::empty({B * BOXMC_PHOTONS}, params.options());
+  auto entry_scratch =
+      torch::empty({B * boxmc_entry_scratch_bytes()}, params.options().dtype(torch::kUInt8));
+  BoxmcLaunch a;
+  a.params = params.data_ptr<float>();
+  a.order = order.data_ptr<int>();
+  a.out = out.data_ptr<float>();
+  a.steps = (long long*)steps.data_ptr<int64_t>();
+  a.trips = (long long*)trips.data_ptr<int64_t>();
+  a.queue = (unsigned int*)(counts.data_ptr<int64_t>() + B + 1);
+  a.rec_code = rec_code.data_ptr<uint8_t>();
+  a.rec_w = rec_w.data_ptr<float>();
+  a.entry_scratch = entry_scratch.data_ptr();
+  a.tables = &t;
+  a.batch = (int)B;
   cudaStream_t stream = at::cuda::getCurrentCUDAStream();
-  C10_CUDA_CHECK(launch_boxmc_trace(params.data_ptr<float>(), out.data_ptr<float>(),
-                                    (long long*)steps.data_ptr<int64_t>(), &t, (int)ldir,
-                                    (int)ndir, (int)ndiff, (int)B, (int)max_iter, stream));
+  C10_CUDA_CHECK(launch_boxmc_trace(&a, (int)ldir, (int)ndir, (int)ndiff, (int)max_iter, stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return {out, steps};
+  return {out, steps, trips};
 }
 
 }  // namespace
@@ -203,5 +215,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("diffuse_apply_dense", &diffuse_apply_dense,
         "K3: S(x) on dense [src, dst] coefficients, float32 or bfloat16 (CUDA)");
   m.def("boxmc_trace", &boxmc_trace,
-        "K4: BoxMC photon tracing, one entry per block, rows [T | S] and photon-steps (CUDA)");
+        "K4: BoxMC photon tracing, a photon queue over the launch and a fixed-order reduction per "
+        "entry; rows [T | S], photon-steps and warp loop trips (CUDA)");
 }

@@ -3,10 +3,10 @@
 // K4 boxmc_trace replaces the TPU kernel
 //   tenstream_tpu/boxmc/pallas_tracer.py::_make_kernel.<kernel> (run_boxmc_pallas)
 //
-// One (entry, source) per block: BOXMC_PHOTONS photons enter the box
-// through the source face (direct: the sun's direction; diffuse:
-// Lambertian about the inward normal, optionally restricted to one z
-// hemisphere), walk with scattering-only free paths and implicit
+// Each launch row is one (entry, source) with BOXMC_PHOTONS photons that
+// enter the box through the source face (direct: the sun's direction;
+// diffuse: Lambertian about the inward normal, optionally restricted to one
+// z hemisphere), walk with scattering-only free paths and implicit
 // absorption (weight *= exp(-kabs * path)), scatter by Henyey-Greenstein,
 // die by weight roulette (below 1e-4, survive with p 0.5 at twice the
 // weight), and are tallied by exit face into T (ndir) / S (ndiff).  Weight
@@ -18,20 +18,42 @@
 // What bounds it on an H100: operations.  An entry reads 36 bytes and
 // writes 4 * (ndir + ndiff); each photon-step does about 90 float32
 // operations (a log, an exp, a sin/cos pair and three square roots among
-// them) and four hashes, so bytes never matter.
+// them) and four hashes.  Walks differ in length by three orders of
+// magnitude (a transparent box: one step; tau 100 and w0 0.99999: up to
+// max_iter = 3000), so what wastes the card is idle lanes: a warp that
+// waits for its slowest photon, a block that waits for its slowest entry,
+// and a launch that waits for its slowest block.
 //
-// Design: one block of 256 threads per entry, each thread walks photons
-// lane = tid, tid + 256, ... to their end in registers, and adds each
-// photon's weight to a per-thread tally as it exits.  The TPU kernel kept
-// all 5120 photons in lockstep in VMEM and reduced exit codes after its
-// loop; a per-photon walk needs no alive masks and stops at the exit (the
-// lockstep version keeps "moving" an exited photon by ~0 each step, which
-// changes its weight by ulps).  The block reduces its tallies, leftover
-// weight and photon-steps in shared memory by a fixed tree, with no float
-// atomics, so a seed gives bit-identical rows every run.  A warp runs until
-// its slowest photon dies: thick conservative entries walk to max_iter
-// (divergence and imbalance are this design's cost).
-//
+// Design: photons, not entries, are the unit of work.  A launch runs three
+// kernels.
+//  1. boxmc_entry_kernel: each entry's starting constants (extinction,
+//     hash seed, source face, the sun's direction), once per entry.
+//  2. boxmc_trace_kernel: a persistent grid (as many blocks as fit on the
+//     card) walks the launch's B * BOXMC_PHOTONS photons from one queue in
+//     (entry, lane) order, the entries in the wrapper's order: longest
+//     expected walks first, so that they overlap the many short ones instead
+//     of ending the launch alone (the order changes no result).  A lane
+//     holds one photon and does one step of it per loop trip; when its
+//     photon exits, dies or reaches max_iter, the lane writes the photon's
+//     record (a code byte and a weight) and takes the next photon from its
+//     warp's pool (__ballot_sync / __popc give each idle lane its place).
+//     A warp claims kChunk queue positions with one integer atomicAdd, a
+//     chunk ahead of need, so that neither the atomic's latency nor one
+//     counter shared by every warp on the card sets the pace.  A thick
+//     entry's photons spread over the whole card.  Photon-steps add up per
+//     entry in int64 atomics (exact in any order), and each warp adds its
+//     loop trips to one counter once: photon-steps / (32 * trips) is the
+//     lanes' utilisation.
+//  3. boxmc_reduce_kernel: one block of 256 threads per entry sums the
+//     records in a fixed order (thread t adds photons t, t + 256, ... in
+//     turn, then a fixed tree, then the scattered mass in code order), so a
+//     seed gives bit-identical rows every run, whatever order the photons
+//     were walked in.  It is the order of the former one-block-per-entry
+//     kernel, whose tallies these are bit for bit.
+// What is left: a warp's lanes diverge between a step that exits (short)
+// and one that scatters (long), and a launch lasts at least as long as its
+// longest walk (up to max_iter steps on one lane).
+
 // Arithmetic follows the JAX expressions term by term in IEEE float32:
 // no fast math, logf/expf/sinf/cosf/sqrtf and IEEE division, and every
 // product that feeds a sum is __fmul_rn, which the compiler never fuses
@@ -39,11 +61,19 @@
 
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
+
 #include "boxmc_ops.h"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // both kernels; the reduction order depends on it
+constexpr int kTraceBlocksPerSM = 4;  // 64 registers a thread: 32 warps an SM
+constexpr int kChunk = 256;  // queue positions a warp claims at once (eight photons a lane)
+constexpr int kMaxDevices = 64;  // device ordinals whose launch size is cached
+constexpr int kCodeNone = 255;  // record: died in the roulette, or an exit tallied nowhere
+constexpr int kCodeLeft = 254;  // record: still walking at max_iter
 constexpr float kBig = 1e30f;
 constexpr float kRoulette = 1e-4f;
 constexpr float kSurvive = 0.5f;
@@ -113,71 +143,158 @@ __device__ __forceinline__ float face_select(int f, float v0, float v1, float v2
   return f == 0 ? v0 : f == 1 ? v1 : f == 2 ? v2 : f == 3 ? v3 : f == 4 ? v4 : v5;
 }
 
-template <bool LDIR, int NDIR, int NDIFF>
+// What a photon of an entry starts from, computed once per entry by
+// boxmc_entry_kernel with the same expressions (and so the same bits) as if
+// each photon computed them itself.
+struct __align__(16) EntryConsts {
+  float bz, ksca, kabs, g;
+  float sdx, sdy, sdz, zsign;  // the sun's direction (direct sources)
+  uint32_t base;               // the hash's seed and row
+  int face;
+  int pad[2];
+};
+
+template <bool LDIR>
 __global__ void __launch_bounds__(kThreads)
-boxmc_trace_kernel(const float* __restrict__ params, float* __restrict__ out,
-                   long long* __restrict__ steps, const BoxTables t, int max_iter) {
-  constexpr int NC = NDIR + NDIFF;
-  __shared__ float s_acc[NC + 1][kThreads];  // tallies per code, then the leftover
-  __shared__ long long s_steps[kThreads];
-
-  const int b = blockIdx.x;
-  const float* p = params + (size_t)b * BOXMC_NPARAM;
-  const float tauz = p[0], w0 = p[1], aspect = p[2], g = p[3];
-  const float face_f = p[7], zsign = p[8];
-  const int face = face_f < 0.5f ? 0 : face_f < 1.5f ? 1 : face_f < 2.5f ? 2
-                 : face_f < 3.5f ? 3 : face_f < 4.5f ? 4 : 5;
+boxmc_entry_kernel(const float* __restrict__ params, EntryConsts* __restrict__ ec, int batch) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= batch) return;
+  const float* pr = params + (size_t)b * BOXMC_NPARAM;
+  const float tauz = pr[0], w0 = pr[1], aspect = pr[2];
+  const float face_f = pr[7];
+  EntryConsts e;
+  e.face = face_f < 0.5f ? 0 : face_f < 1.5f ? 1 : face_f < 2.5f ? 2
+         : face_f < 3.5f ? 3 : face_f < 4.5f ? 4 : 5;
   // the launch row is the hash's program id, as in the TPU kernel's grid
-  const uint32_t base = ((uint32_t)(int)p[6] * 747796405u + (uint32_t)b) | 1u;
+  e.base = ((uint32_t)(int)pr[6] * 747796405u + (uint32_t)b) | 1u;
+  e.g = pr[3];
+  e.bz = fmaxf(aspect, 1e-6f);
+  const float kext = tauz / e.bz;
+  e.ksca = w0 * kext;
+  e.kabs = (1.f - w0) * kext;
+  e.zsign = pr[8];
+  e.sdx = e.sdy = e.sdz = 0.f;
+  if (LDIR) {
+    const float phi = pr[4] * kDeg2Rad, theta = pr[5] * kDeg2Rad;
+    e.sdx = sinf(phi) * sinf(theta);
+    e.sdy = cosf(phi) * sinf(theta);
+    e.sdz = -cosf(theta);
+  }
+  e.pad[0] = e.pad[1] = 0;
+  ec[b] = e;
+}
 
-  const float bz = fmaxf(aspect, 1e-6f);
-  const float kext = tauz / bz;
-  const float ksca = w0 * kext;
-  const float kabs = (1.f - w0) * kext;
+template <bool LDIR>
+__global__ void __launch_bounds__(kThreads, kTraceBlocksPerSM)
+boxmc_trace_kernel(const EntryConsts* __restrict__ ec, const int* __restrict__ order,
+                   uint8_t* __restrict__ rec_code,
+                   float* __restrict__ rec_w, unsigned long long* __restrict__ steps,
+                   unsigned int* __restrict__ queue, unsigned long long* __restrict__ trips_out,
+                   const BoxTables t, int max_iter, unsigned int total) {
+  __shared__ int s_tab[18];  // dir_code, diff_dn, diff_up
+  if (threadIdx.x < 6) {
+    s_tab[threadIdx.x] = t.dir_code[threadIdx.x];
+    s_tab[6 + threadIdx.x] = t.diff_dn[threadIdx.x];
+    s_tab[12 + threadIdx.x] = t.diff_up[threadIdx.x];
+  }
+  __syncthreads();
+
+  const unsigned lane_id = threadIdx.x & 31u;
+  const unsigned lt_mask = (1u << lane_id) - 1u;
   const float eps = 1e-6f;
 
-  float sdx = 0.f, sdy = 0.f, sdz = 0.f;  // the sun's direction
-  if (LDIR) {
-    const float phi = p[4] * kDeg2Rad, theta = p[5] * kDeg2Rad;
-    sdx = sinf(phi) * sinf(theta);
-    sdy = cosf(phi) * sinf(theta);
-    sdz = -cosf(theta);
-  }
+  // the photon this lane holds
+  bool have = false;
+  unsigned int pid = 0;
+  int b = -1;
+  uint32_t ln = 0, base = 0;
+  float bz = 0.f, ksca = 0.f, kabs = 0.f, g = 0.f;
+  float px = 0.f, py = 0.f, pz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f, w = 0.f;
+  bool scattered = false;
+  int i = 0;
+  // photon-steps of entry acc_b not yet added to steps[acc_b]
+  int acc_b = -1;
+  unsigned long long acc_steps = 0;
+  // the warp's claimed queue positions [pool, pool_end), and the start of
+  // the next chunk, claimed ahead (in lane 0 only, so that the atomic's
+  // latency hides behind the steps until the pool runs short); the queue is
+  // empty once a chunk starts at or beyond total
+  unsigned pool = 0, pool_end = 0;
+  unsigned next_chunk = lane_id == 0 ? atomicAdd(queue, (unsigned)kChunk) : 0u;
+  bool exhausted = false;
+  unsigned long long trips = 0;
 
-  float acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) acc[c] = 0.f;
-  float left = 0.f;
-  long long nstep = 0;
+  while (true) {
+    // idle lanes take the next photons: from the warp's pool, and when that
+    // runs short from a new chunk of the queue (one atomicAdd per kChunk)
+    const unsigned need = __ballot_sync(0xffffffffu, !have);
+    if (need != 0u && (pool < pool_end || !exhausted)) {
+      const unsigned n = (unsigned)__popc(need);
+      const unsigned rank = (unsigned)__popc(need & lt_mask);
+      const unsigned avail = pool_end - pool;
+      unsigned q = pool + rank;
+      if (avail >= n) {
+        pool += n;
+      } else {
+        unsigned start = total;
+        if (!exhausted) {
+          start = __shfl_sync(0xffffffffu, next_chunk, 0);
+          exhausted = start + kChunk >= total;
+          if (!exhausted && lane_id == 0) next_chunk = atomicAdd(queue, (unsigned)kChunk);
+        }
+        if (rank >= avail) q = start + (rank - avail);
+        pool = start + (n - avail);
+        pool_end = start >= total ? start : min(start + (unsigned)kChunk, total);
+        if (pool > pool_end) pool = pool_end;
+      }
+      if (!have && q < total && (rank < avail || q < pool_end)) {
+        const unsigned j = q / BOXMC_PHOTONS;  // the queue takes entries in the given order
+        b = order[j];
+        ln = q - j * BOXMC_PHOTONS;
+        pid = (unsigned)b * BOXMC_PHOTONS + ln;
+        const EntryConsts e = ec[b];
+        const int face = e.face;
+        base = e.base;
+        g = e.g;
+        bz = e.bz;
+        ksca = e.ksca;
+        kabs = e.kabs;
 
-  for (int lane = threadIdx.x; lane < BOXMC_PHOTONS; lane += kThreads) {
-    const uint32_t ln = (uint32_t)lane;
-    const float u1 = hash_uniform(ln, base, 0u, 0u);
-    const float u2 = hash_uniform(ln, base, 0u, 1u);
-    float px = face_select(face, u1, u1, eps, 1.f - eps, u1, u1);
-    float py = face_select(face, u2, u2, u2, u2, eps, 1.f - eps);
-    float pz = face_select(face, bz * (1.f - eps), bz * eps, u1 * bz, u1 * bz, u2 * bz, u2 * bz);
-    float dx, dy, dz;
-    if (LDIR) {
-      dx = sdx;
-      dy = sdy;
-      dz = sdz;
-    } else {
-      const float mu = sqrtf(hash_uniform(ln, base, 0u, 2u));
-      const float sphi = hash_uniform(ln, base, 0u, 3u) * kTwoPi;
-      const float st = sqrtf(fmaxf(0.f, 1.f - __fmul_rn(mu, mu)));
-      const float a = st * cosf(sphi);
-      const float bb = st * sinf(sphi);
-      dx = face_select(face, a, a, mu, -mu, a, a);
-      dy = face_select(face, bb, bb, a, a, mu, -mu);
-      dz = face_select(face, -mu, mu, bb, bb, bb, bb);
-      dz = zsign > 0.5f ? fabsf(dz) : (zsign < -0.5f ? -fabsf(dz) : dz);
+        const float u1 = hash_uniform(ln, base, 0u, 0u);
+        const float u2 = hash_uniform(ln, base, 0u, 1u);
+        px = face_select(face, u1, u1, eps, 1.f - eps, u1, u1);
+        py = face_select(face, u2, u2, u2, u2, eps, 1.f - eps);
+        pz = face_select(face, bz * (1.f - eps), bz * eps, u1 * bz, u1 * bz, u2 * bz, u2 * bz);
+        if (LDIR) {
+          dx = e.sdx;
+          dy = e.sdy;
+          dz = e.sdz;
+        } else {
+          const float mu = sqrtf(hash_uniform(ln, base, 0u, 2u));
+          const float sphi = hash_uniform(ln, base, 0u, 3u) * kTwoPi;
+          const float st = sqrtf(fmaxf(0.f, 1.f - __fmul_rn(mu, mu)));
+          const float a = st * cosf(sphi);
+          const float bb = st * sinf(sphi);
+          const float zsign = e.zsign;
+          dx = face_select(face, a, a, mu, -mu, a, a);
+          dy = face_select(face, bb, bb, a, a, mu, -mu);
+          dz = face_select(face, -mu, mu, bb, bb, bb, bb);
+          dz = zsign > 0.5f ? fabsf(dz) : (zsign < -0.5f ? -fabsf(dz) : dz);
+        }
+        w = 1.f;
+        scattered = false;
+        i = 0;
+        have = true;
+      }
     }
-    float w = 1.f;
-    bool scattered = false;
-    bool dead = false;
-    int i = 0;
-    for (; i < max_iter; ++i) {
+    if (!__any_sync(0xffffffffu, have)) break;
+    ++trips;
+    if (!have) continue;
+
+    // one step of the photon this lane holds
+    int code = -2;  // -2: still walking
+    unsigned nst = 0;
+    if (i < max_iter) {
       const uint32_t ctr = (uint32_t)(i + 1);
       const float tx = axis_t(px, dx, 1.f);
       const float ty = axis_t(py, dy, 1.f);
@@ -193,40 +310,75 @@ boxmc_trace_kernel(const float* __restrict__ params, float* __restrict__ out,
       if (s_free >= dmax) {  // exits through the face it reached
         const int f = dmax == tz ? (dz > 0.f ? 0 : 1)
                     : dmax == tx ? (dx > 0.f ? 3 : 2) : (dy > 0.f ? 5 : 4);
-        const int diffcode = dz > 0.f ? t.diff_up[f] : t.diff_dn[f];
-        const int code = (LDIR && !scattered) ? t.dir_code[f] : diffcode;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[c] += c == code ? w : 0.f;
-        dead = true;
-        break;
-      }
-      rotate_about(dx, dy, dz, hg_costheta(hash_uniform(ln, base, ctr, 1u), g),
-                   hash_uniform(ln, base, ctr, 2u) * kTwoPi);
-      scattered = true;
-      if (w < kRoulette) {
-        if (hash_uniform(ln, base, ctr, 3u) < kSurvive) {
-          w = w / kSurvive;
-        } else {
-          dead = true;
-          break;
+        const int diffcode = dz > 0.f ? s_tab[12 + f] : s_tab[6 + f];
+        const int c = (LDIR && !scattered) ? s_tab[f] : diffcode;
+        code = c < 0 ? kCodeNone : c;
+        nst = (unsigned)i + 1u;
+      } else {
+        rotate_about(dx, dy, dz, hg_costheta(hash_uniform(ln, base, ctr, 1u), g),
+                     hash_uniform(ln, base, ctr, 2u) * kTwoPi);
+        scattered = true;
+        if (w < kRoulette) {
+          if (hash_uniform(ln, base, ctr, 3u) < kSurvive) {
+            w = w / kSurvive;
+          } else {
+            code = kCodeNone;  // died in the roulette
+            nst = (unsigned)i + 1u;
+          }
         }
+        if (code == -2) ++i;
       }
     }
-    nstep += dead ? i + 1 : i;
-    if (!dead) left += w;  // still walking at max_iter
+    if (code == -2 && i >= max_iter) {  // still walking at max_iter
+      code = kCodeLeft;
+      nst = (unsigned)i;
+    }
+    if (code != -2) {
+      rec_code[pid] = (uint8_t)code;
+      rec_w[pid] = code == kCodeNone ? 0.f : w;
+      if (b != acc_b) {
+        if (acc_b >= 0 && acc_steps) atomicAdd(steps + acc_b, acc_steps);
+        acc_b = b;
+        acc_steps = 0;
+      }
+      acc_steps += nst;
+      have = false;
+    }
+  }
+  if (acc_b >= 0 && acc_steps) atomicAdd(steps + acc_b, acc_steps);
+  if (lane_id == 0) atomicAdd(trips_out, trips);
+}
+
+template <int NDIR, int NC>
+__global__ void __launch_bounds__(kThreads)
+boxmc_reduce_kernel(const uint8_t* __restrict__ rec_code, const float* __restrict__ rec_w,
+                    float* __restrict__ out) {
+  __shared__ float s_acc[NC + 1][kThreads];  // tallies per code, then the leftover
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const uint8_t* rc = rec_code + (size_t)b * BOXMC_PHOTONS;
+  const float* rw = rec_w + (size_t)b * BOXMC_PHOTONS;
+
+  float acc[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) acc[c] = 0.f;
+  float left = 0.f;
+  for (int lane = tid; lane < BOXMC_PHOTONS; lane += kThreads) {
+    const int code = rc[lane];
+    const float w = rw[lane];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[c] += c == code ? w : 0.f;
+    left += code == kCodeLeft ? w : 0.f;
   }
 
-  const int tid = threadIdx.x;
 #pragma unroll
   for (int c = 0; c < NC; ++c) s_acc[c][tid] = acc[c];
   s_acc[NC][tid] = left;
-  s_steps[tid] = nstep;
   __syncthreads();
   for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
     if (tid < stride) {
 #pragma unroll
       for (int c = 0; c <= NC; ++c) s_acc[c][tid] += s_acc[c][tid + stride];
-      s_steps[tid] += s_steps[tid + stride];
     }
     __syncthreads();
   }
@@ -241,34 +393,70 @@ boxmc_trace_kernel(const float* __restrict__ params, float* __restrict__ out,
     for (int c = 0; c < NDIR; ++c) o[c] = s_acc[c][0] * kNorm;
 #pragma unroll
     for (int c = NDIR; c < NC; ++c) o[c] = s_acc[c][0] * scale * kNorm;
-    steps[b] = s_steps[0];
   }
 }
 
-template <bool LDIR, int NDIR, int NDIFF>
-cudaError_t launch(const float* params, float* out, long long* steps, const BoxTables* t,
-                   int batch, int max_iter, cudaStream_t stream) {
-  boxmc_trace_kernel<LDIR, NDIR, NDIFF><<<batch, kThreads, 0, stream>>>(params, out, steps, *t,
-                                                                       max_iter);
+template <bool LDIR>
+cudaError_t launch_trace(const BoxmcLaunch* a, int max_iter, cudaStream_t stream) {
+  // blocks resident on the current card, once per device ordinal
+  static std::atomic<int> cached[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int grid_max = dev < kMaxDevices ? cached[dev].load() : 0;
+  if (grid_max == 0) {
+    int nsm = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, boxmc_trace_kernel<LDIR>,
+                                                          kThreads, 0);
+    if (err != cudaSuccess) return err;
+    grid_max = nsm * (per_sm > 0 ? per_sm : 1);
+    if (dev < kMaxDevices) cached[dev].store(grid_max);
+  }
+  const unsigned total = (unsigned)a->batch * BOXMC_PHOTONS;
+  EntryConsts* ec = (EntryConsts*)a->entry_scratch;
+  boxmc_entry_kernel<LDIR><<<(a->batch + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      a->params, ec, a->batch);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int grid = (int)std::min<long>(grid_max, ((long)total + kThreads - 1) / kThreads);
+  boxmc_trace_kernel<LDIR><<<grid, kThreads, 0, stream>>>(
+      ec, a->order, a->rec_code, a->rec_w, (unsigned long long*)a->steps, a->queue,
+      (unsigned long long*)a->trips, *a->tables, max_iter, total);
   return cudaGetLastError();
 }
 
-template <bool LDIR>
-cudaError_t launch_layout(const float* params, float* out, long long* steps, const BoxTables* t,
-                          int ndir, int ndiff, int batch, int max_iter, cudaStream_t stream) {
-  if (ndir == 1 && ndiff == 2) return launch<LDIR, 1, 2>(params, out, steps, t, batch, max_iter, stream);
-  if (ndir == 3 && ndiff == 6) return launch<LDIR, 3, 6>(params, out, steps, t, batch, max_iter, stream);
-  if (ndir == 3 && ndiff == 10) return launch<LDIR, 3, 10>(params, out, steps, t, batch, max_iter, stream);
-  if (ndir == 8 && ndiff == 10) return launch<LDIR, 8, 10>(params, out, steps, t, batch, max_iter, stream);
+template <int NDIR, int NDIFF>
+cudaError_t launch_reduce(const BoxmcLaunch* a, cudaStream_t stream) {
+  boxmc_reduce_kernel<NDIR, NDIR + NDIFF><<<a->batch, kThreads, 0, stream>>>(
+      a->rec_code, a->rec_w, a->out);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_reduce_layout(const BoxmcLaunch* a, int ndir, int ndiff, cudaStream_t stream) {
+  if (ndir == 1 && ndiff == 2) return launch_reduce<1, 2>(a, stream);
+  if (ndir == 3 && ndiff == 6) return launch_reduce<3, 6>(a, stream);
+  if (ndir == 3 && ndiff == 10) return launch_reduce<3, 10>(a, stream);
+  if (ndir == 8 && ndiff == 10) return launch_reduce<8, 10>(a, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" cudaError_t launch_boxmc_trace(const float* params, float* out, long long* steps,
-                                          const BoxTables* t, int ldir, int ndir, int ndiff,
-                                          int batch, int max_iter, cudaStream_t stream) {
-  if (batch <= 0) return cudaSuccess;
-  return ldir ? launch_layout<true>(params, out, steps, t, ndir, ndiff, batch, max_iter, stream)
-              : launch_layout<false>(params, out, steps, t, ndir, ndiff, batch, max_iter, stream);
+extern "C" int boxmc_layout_ok(int ndir, int ndiff) {
+  return (ndir == 1 && ndiff == 2) || (ndir == 3 && ndiff == 6) || (ndir == 3 && ndiff == 10) ||
+         (ndir == 8 && ndiff == 10);
+}
+
+extern "C" int boxmc_entry_scratch_bytes(void) { return (int)sizeof(EntryConsts); }
+
+extern "C" cudaError_t launch_boxmc_trace(const BoxmcLaunch* a, int ldir, int ndir, int ndiff,
+                                          int max_iter, cudaStream_t stream) {
+  if (a->batch <= 0) return cudaSuccess;
+  if (!boxmc_layout_ok(ndir, ndiff)) return cudaErrorInvalidValue;
+  cudaError_t err = ldir ? launch_trace<true>(a, max_iter, stream)
+                         : launch_trace<false>(a, max_iter, stream);
+  if (err != cudaSuccess) return err;
+  return launch_reduce_layout(a, ndir, ndiff, stream);
 }

@@ -11,28 +11,79 @@
 // far below the card's flop/byte balance, so the design goal is to touch
 // device memory once per value.
 //
-// Design (the simplest correct one): one thread per cell (K2) or per face
-// position (K1), threads of a block contiguous in y so every load is
-// coalesced.  The TPU kernels' (Z, X, dof, Y) layout and padded halo
-// copies were Mosaic tiling constraints; here the kernels read the solver's
-// natural (B, dof, z, x, y) layout and compute the +-1 shifts (periodic in
-// x and y, zero halo in z) from indices, so no halo copy exists.  A K1
-// thread re-reads the neighbour cells' sources that its x-/y-/z-inward dofs
-// need; those re-reads hit L1/L2 because neighbouring threads load the same
-// lines.  The dots reduce per block (warp shuffles, then shared memory) into
-// a partials buffer that a second one-block-per-batch kernel sums in a fixed
-// order, so the result is deterministic.  Accumulation is float32 like the
-// JAX code.
+// K2 (the simplest correct design): one thread per cell, threads of a block
+// contiguous in the flattened cell index, so every load is coalesced.
+//
+// K1: 2.5-D blocking, so that each value comes from device memory once and
+// each cell's contributions are computed once.  A block owns a tile of
+// kTX x kTY = 8 x 64 face columns (y fastest: every staged row is a run of
+// 256 bytes) and marches down a range of z planes; the loop inside the block
+// takes the place of the grid's z.  Its 215 KB of shared memory allow one
+// block (19 warps) per SM.  For each
+// plane it stages in shared memory, with cp.async three planes deep, the 10
+// face dofs of u over the tile and a one-column halo on every side (periodic
+// in x and y, so halo indices wrap; TMA cannot wrap) and the 24 orbit
+// channels of the tile's cells and of the low halo cells.  Then (phase A)
+// one thread per cell of the tile and of its low halo forms the cell's 10
+// sources and its 10 dst contributions once, into shared memory; and (phase
+// B) one thread per face column assembles S at face plane k from the cells
+// that produce it (this plane's cell, its low x / y neighbour, and the cell
+// above, carried in a register from the previous plane), adds the surface
+// closure on face nz, and reads w (loaded a plane ahead, in registers),
+// writes A(u) and accumulates the two dots.
+// The orbit contraction, the shifts and the closure are compile-time code
+// generated from the Python tables (orbit_3_10.h), so channel indices are
+// immediates and the group sums unroll.  A block whose z range starts below
+// the top first computes the plane above it, for the carried contribution.
+// The dots reduce per block into a partials buffer that a second
+// one-block-per-batch kernel sums in a fixed order, so the result is
+// deterministic.  Accumulation is float32 like the JAX code.
 
+#include <algorithm>
+#include <atomic>
+
+#include "orbit_3_10.h"
 #include "orbit_tables.h"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // K2 and the partials reduction
 
-__device__ __forceinline__ int wrap(int i, int n) {
-  return i < 0 ? i + n : (i >= n ? i - n : i);
+// K1's blocking
+constexpr int kTX = 8, kTY = 64;             // a block's tile of face columns, y fastest
+constexpr int kRX = kTX + 2, kRY = kTY + 2;  // u region: the tile and a one-column halo
+constexpr int kCX = kTX + 1, kCY = kTY + 1;  // cell region: the tile and the low halo
+constexpr int kCells = kCX * kCY;
+constexpr int kK1Threads = 608;              // >= kCells (585), a whole number of warps
+constexpr int kUPlane = K1_ND * kRX * kRY;   // floats of one staged u plane
+constexpr int kOPlane = K1_NORB * kCells;    // floats of one staged orbit plane
+constexpr int kCPlane = K1_ND * kCells;      // floats of one plane of contributions
+constexpr int kUSlots = 3;                   // u planes k, k + 1 and the one in flight
+constexpr int kOSlots = 2;
+constexpr size_t kK1Smem = sizeof(float) * (kUSlots * kUPlane + kOSlots * kOPlane + kCPlane);
+constexpr int kMinPlanes = 4;                // the fewest face planes a block marches over
+constexpr int kMaxDevices = 64;              // device ordinals whose occupancy is cached
+
+// the 2.5-D scheme needs: sources read at the cell's face or one above it
+// (gshift in {0, 1}), dsts landing on the cell's face or one below it
+// (cshift in {0, -1}), and a dst from the cell above only in its own column
+constexpr bool k1_shifts_ok() {
+  for (int q = 0; q < K1_ND; ++q) {
+    if (k1_gz(q) < 0 || k1_gz(q) > 1 || k1_gx(q) < 0 || k1_gx(q) > 1 || k1_gy(q) < 0 ||
+        k1_gy(q) > 1)
+      return false;
+    if (k1_cz(q) < -1 || k1_cz(q) > 0 || k1_cx(q) < -1 || k1_cx(q) > 0 || k1_cy(q) < -1 ||
+        k1_cy(q) > 0)
+      return false;
+    if (k1_cz(q) == -1 && (k1_cx(q) != 0 || k1_cy(q) != 0)) return false;
+  }
+  return true;
 }
+static_assert(k1_shifts_ok(), "orbit_3_10.h: shifts outside what K1's blocking handles");
+static_assert(kCells <= kK1Threads && kTX * kTY <= kK1Threads && kK1Threads % 32 == 0,
+              "K1 block too small");
+static_assert(kTY % 32 == 0 && kRX <= kK1Threads, "K1 stages a region row with one warp");
+static_assert(kK1Smem <= 227 * 1024, "K1's shared memory exceeds what a block can use");
 
 template <int ND>
 __global__ void __launch_bounds__(kThreads)
@@ -72,8 +123,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Block-wide sum of two values; the result is valid in thread 0.
+template <int NT>
 __device__ __forceinline__ void block_sum2(float& a, float& b) {
-  __shared__ float sa[kThreads / 32], sb[kThreads / 32];
+  __shared__ float sa[NT / 32], sb[NT / 32];
   a = warp_sum(a);
   b = warp_sum(b);
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -83,96 +135,185 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
   }
   __syncthreads();
   if (wid == 0) {
-    a = lane < (int)(blockDim.x >> 5) ? sa[lane] : 0.f;
-    b = lane < (int)(blockDim.x >> 5) ? sb[lane] : 0.f;
+    a = lane < NT / 32 ? sa[lane] : 0.f;
+    b = lane < NT / 32 ? sb[lane] : 0.f;
     a = warp_sum(a);
     b = warp_sum(b);
   }
 }
 
-template <int ND>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned saddr = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(saddr), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ int pmod(int i, int n) {
+  const int r = i % n;
+  return r < 0 ? r + n : r;
+}
+
+// u, w, Au: (B, K1_ND, nz+1, nx, ny); orb: (B, K1_NORB, nz, nx, ny);
+// albedo: (B, nx, ny); partials: (B, gridDim.x, 2).  Block x = (tile,
+// z chunk) with the z chunk fastest; block y = batch.
+__global__ void __launch_bounds__(kK1Threads)
 fused_A_kernel(const float* __restrict__ u, const float* __restrict__ w,
                const float* __restrict__ orb, const float* __restrict__ albedo,
-               float* __restrict__ Au, float* __restrict__ partials, const OrbitTables t,
-               int nz, int nx, int ny) {
+               float* __restrict__ Au, float* __restrict__ partials, int nz, int nx, int ny,
+               int zsplit) {
+  extern __shared__ float smem[];
+  float* su = smem;                         // [kUSlots][K1_ND][kRX][kRY]
+  float* so = su + kUSlots * kUPlane;       // [kOSlots][K1_NORB][kCX][kCY]
+  float* sc = so + kOSlots * kOPlane;       // [K1_ND][kCX][kCY]
+  __shared__ int s_row[kRX];                // region row a -> x offset (i0 - 1 + a, wrapped) * ny
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y;
+  const int tiles_y = (ny + kTY - 1) / kTY;
+  const int tile = blockIdx.x / zsplit, zc = blockIdx.x - tile * zsplit;
+  const int i0 = (tile / tiles_y) * kTX, j0 = (tile % tiles_y) * kTY;
+  const int nplanes = nz + 1;
+  const int per = (nplanes + zsplit - 1) / zsplit;
+  const int k0 = zc * per, k1 = min(k0 + per, nplanes);  // face planes written here
+  const int kstart = k0 > 0 ? k0 - 1 : 0;
+
   const int nxy = nx * ny;
-  const size_t nface = (size_t)(nz + 1) * nxy;
-  const size_t ncell = (size_t)nz * nxy;
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t nface = (size_t)nplanes * nxy, ncell = (size_t)nz * nxy;
+  const float* ub = u + (size_t)b * K1_ND * nface;
+  const float* wb = w + (size_t)b * K1_ND * nface;
+  const float* ob = orb + (size_t)b * K1_NORB * ncell;
+  float* Ab = Au + (size_t)b * K1_ND * nface;
+
+  if (tid < kRX) s_row[tid] = pmod(i0 - 1 + tid, nx) * ny;
+  // a region row's columns: lane l stages the columns j0 + l + 32 m (region
+  // columns l + 32 m + 1); the halo columns j0 - 1 (region column 0) and
+  // j0 + kTY (kRY - 1)
+  int col_in[kTY / 32];
+#pragma unroll
+  for (int m = 0; m < kTY / 32; ++m) col_in[m] = pmod(j0 + lane + 32 * m, ny);
+  const int col_halo = lane == 0 ? pmod(j0 - 1, ny) : pmod(j0 + kTY, ny);
+  __syncthreads();
+
+  // Staging goes by region rows: a warp copies one row of a dof (or orbit
+  // channel) at a time, a lane per column.
+  auto stage_u = [&](int kp) {  // face plane kp of u into its ring slot
+    float* dst = su + (kp % kUSlots) * kUPlane;
+    const float* src = ub + (size_t)kp * nxy;
+    for (int r = warp; r < K1_ND * kRX; r += kK1Threads / 32) {
+      const int q = r / kRX, a = r - q * kRX;
+      const float* row = src + (size_t)q * nface + s_row[a];
+      float* drow = dst + r * kRY;
+#pragma unroll
+      for (int m = 0; m < kTY / 32; ++m) cp_async4(drow + 1 + lane + 32 * m, row + col_in[m]);
+      if (lane < 2) cp_async4(drow + (lane == 0 ? 0 : kRY - 1), row + col_halo);
+    }
+  };
+  auto stage_orb = [&](int kp) {  // cell plane kp of the orbit field
+    float* dst = so + (kp % kOSlots) * kOPlane;
+    const float* src = ob + (size_t)kp * nxy;
+    for (int r = warp; r < K1_NORB * kCX; r += kK1Threads / 32) {
+      const int ch = r / kCX, a = r - ch * kCX;
+      const float* row = src + (size_t)ch * ncell + s_row[a];
+      float* drow = dst + r * kCY;
+#pragma unroll
+      for (int m = 0; m < kTY / 32; ++m) cp_async4(drow + 1 + lane + 32 * m, row + col_in[m]);
+      if (lane == 0) cp_async4(drow, row + col_halo);
+    }
+  };
+
+  // phase B's face column, and phase A's cell
+  const int ti = tid / kTY, tj = tid - ti * kTY;
+  const bool face_thread = tid < kTX * kTY && i0 + ti < nx && j0 + tj < ny;
+  const size_t fcol = (size_t)(i0 + ti) * ny + (j0 + tj);
+  const int ca = tid / kCY, cc = tid - ca * kCY;
+  const bool cell_thread = tid < kCells;
+
+  float carry[K1_ND];  // contributions of the cell above (dsts with k1_cz = -1)
+#pragma unroll
+  for (int d = 0; d < K1_ND; ++d) carry[d] = 0.f;
   float p1 = 0.f, p2 = 0.f;
 
-  if (f < (int)nface) {
-    const int k = f / nxy;
-    const int r = f - k * nxy;
-    const int i = r / ny;
-    const int j = r - i * ny;
-    const float* ub = u + (size_t)b * ND * nface;
-    const float* ob = orb + (size_t)b * t.norb * ncell;
+  float wnext[K1_ND];  // w at this thread's face column, one plane ahead
+#pragma unroll
+  for (int d = 0; d < K1_ND; ++d)
+    wnext[d] = face_thread && kstart == k0 && k0 < k1
+                   ? wb[(size_t)d * nface + (size_t)k0 * nxy + fcol] : 0.f;
+  if (kstart < k1) {
+    stage_u(kstart);
+    cp_async_commit();
+    if (kstart + 1 <= nz) stage_u(kstart + 1);
+    if (kstart < nz) stage_orb(kstart);
+    cp_async_commit();
+  }
+  for (int kp = kstart; kp < k1; ++kp) {
+    const bool out_plane = kp >= k0 && face_thread;
+    // w of this plane arrived a step ago; w of the next plane is on its way
+    float wv[K1_ND];
+#pragma unroll
+    for (int d = 0; d < K1_ND; ++d) wv[d] = wnext[d];
+    if (face_thread && kp + 1 >= k0 && kp + 1 < k1) {
+#pragma unroll
+      for (int d = 0; d < K1_ND; ++d)
+        wnext[d] = wb[(size_t)d * nface + (size_t)(kp + 1) * nxy + fcol];
+    }
+    __syncthreads();  // the slots refilled below are no longer read
+    if (kp + 2 <= nz && kp + 2 <= k1) stage_u(kp + 2);
+    if (kp + 1 < nz && kp + 1 < k1) stage_orb(kp + 1);
+    cp_async_commit();
+    cp_async_wait_all_but_newest();  // u planes kp, kp + 1 and orbit plane kp are here
+    __syncthreads();
 
-    float S[ND];
+    // phase A: the contributions of the cells of plane kp
+    if (kp < nz && cell_thread) {
+      const float* o_pl = so + (kp % kOSlots) * kOPlane + tid;
+      const float* u_pl0 = su + (kp % kUSlots) * kUPlane;
+      const float* u_pl1 = su + ((kp + 1) % kUSlots) * kUPlane;
+      auto o = [&](int ch) { return o_pl[ch * kCells]; };
+      auto s = [&](int q) {
+        const float* pl = k1_gz(q) ? u_pl1 : u_pl0;
+        return pl[q * (kRX * kRY) + (ca + k1_gx(q)) * kRY + cc + k1_gy(q)];
+      };
+      float c[K1_ND];
+      k1_contract(o, s, c);
 #pragma unroll
-    for (int d = 0; d < ND; ++d) S[d] = 0.f;
+      for (int d = 0; d < K1_ND; ++d) sc[d * kCells + tid] = c[d];
+    }
+    __syncthreads();
 
-    // every dst dof of this face is produced by one of <= TS_MAXC cells
-    for (int cl = 0; cl < t.ncls; ++cl) {
-      const int kc = k + t.ccz[cl];
-      if (kc < 0 || kc >= nz) continue;  // zero halo in z
-      const int ic = wrap(i + t.ccx[cl], nx);
-      const int jc = wrap(j + t.ccy[cl], ny);
-      float sv[ND];
+    // phase B: S, A(u) and the dots at face plane kp
+    if (face_thread) {
+      const int own = (ti + 1) * kCY + tj + 1;
+      float S[K1_ND];
 #pragma unroll
-      for (int s = 0; s < ND; ++s) {
-        const int kf = kc + t.gz[s];
-        const int xf = wrap(ic + t.gx[s], nx);
-        const int yf = wrap(jc + t.gy[s], ny);
-        sv[s] = ub[(size_t)s * nface + (size_t)kf * nxy + xf * ny + yf];
-      }
-      const float* oc = ob + (size_t)kc * nxy + ic * ny + jc;
-      const int cm = t.cmask[cl];
-#pragma unroll
-      for (int d = 0; d < ND; ++d) {
-        if (!((cm >> d) & 1)) continue;
-        float acc = 0.f;
-        for (int g = 0; g < t.ngroups[d]; ++g) {
-          const int m = t.gmask[d][g];
-          float ssum = 0.f;
-#pragma unroll
-          for (int s = 0; s < ND; ++s)
-            if ((m >> s) & 1) ssum += sv[s];
-          acc += oc[(size_t)t.gorb[d][g] * ncell] * ssum;
+      for (int d = 0; d < K1_ND; ++d) {
+        if (k1_cz(d) == -1) {
+          S[d] = carry[d];
+          carry[d] = kp < nz ? sc[d * kCells + own] : 0.f;
+        } else {
+          S[d] = kp < nz ? sc[d * kCells + own + k1_cx(d) * kCY + k1_cy(d)] : 0.f;
         }
-        S[d] = acc;
       }
-    }
-
-    // Lambertian surface closure on face nz: up-top dofs gain
-    // albedo * w_d * sum of the down-top dofs
-    if (k == nz) {
-      float edn = 0.f;
+      if (out_plane) {
+        const float* u_pl = su + (kp % kUSlots) * kUPlane + (ti + 1) * kRY + tj + 1;
+        auto uf = [&](int q) { return u_pl[q * (kRX * kRY)]; };
+        if (kp == nz) k1_closure(uf, albedo[(size_t)b * nxy + fcol], S);
 #pragma unroll
-      for (int s = 0; s < ND; ++s)
-        if ((t.dn_mask >> s) & 1) edn += ub[(size_t)s * nface + f];
-      const float alb = albedo[(size_t)b * nxy + r];
-#pragma unroll
-      for (int d = 0; d < ND; ++d)
-        if (t.walb[d] != 0.f) S[d] += alb * edn * t.walb[d];
-    }
-
-    const float* wb = w + (size_t)b * ND * nface;
-    float* Ab = Au + (size_t)b * ND * nface;
-#pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      const float a = ub[(size_t)d * nface + f] - S[d];
-      Ab[(size_t)d * nface + f] = a;
-      p1 += wb[(size_t)d * nface + f] * a;
-      p2 += a * a;
+        for (int d = 0; d < K1_ND; ++d) {
+          const float a = uf(d) - S[d];
+          Ab[(size_t)d * nface + (size_t)kp * nxy + fcol] = a;
+          p1 += wv[d] * a;
+          p2 += a * a;
+        }
+      }
     }
   }
 
-  block_sum2(p1, p2);
-  if (threadIdx.x == 0) {
+  block_sum2<kK1Threads>(p1, p2);
+  if (tid == 0) {
     float* pb = partials + ((size_t)b * gridDim.x + blockIdx.x) * 2;
     pb[0] = p1;
     pb[1] = p2;
@@ -190,7 +331,7 @@ reduce_partials_kernel(const float* __restrict__ partials, float* __restrict__ d
     a += pb[2 * q];
     c += pb[2 * q + 1];
   }
-  block_sum2(a, c);
+  block_sum2<kThreads>(a, c);
   if (threadIdx.x == 0) {
     dots[2 * b] = a;
     dots[2 * b + 1] = c;
@@ -205,25 +346,39 @@ cudaError_t contract_nd(const float* src, const float* orb, float* out,
   return cudaGetLastError();
 }
 
-template <int ND>
-cudaError_t fused_nd(const float* u, const float* w, const float* orb, const float* albedo,
-                     float* Au, float* partials, float* dots, const OrbitTables* t,
-                     int batch, int nz, int nx, int ny, cudaStream_t stream) {
-  const int nblk = fused_A_dots_blocks(nz, nx, ny);
-  dim3 grid(nblk, batch);
-  fused_A_kernel<ND><<<grid, kThreads, 0, stream>>>(u, w, orb, albedo, Au, partials, *t,
-                                                     nz, nx, ny);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  reduce_partials_kernel<<<batch, kThreads, 0, stream>>>(partials, dots, nblk);
-  return cudaGetLastError();
+// K1 blocks resident on the current card (0 on an error).  The shared-memory
+// limit is an attribute of each device's context, so it is raised, and the
+// occupancy read, once per device ordinal.
+int k1_slots() {
+  static std::atomic<int> cached[kMaxDevices];
+  int dev = 0, nsm = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices && cached[dev].load() > 0) return cached[dev].load();
+  if (cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaFuncSetAttribute(fused_A_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kK1Smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_A_kernel, kK1Threads,
+                                                    kK1Smem) != cudaSuccess)
+    return 0;
+  const int slots = nsm * std::max(per_sm, 1);
+  if (dev < kMaxDevices) cached[dev].store(slots);
+  return slots;
+}
+
+// z chunks per tile: enough blocks to fill the card, at least kMinPlanes
+// face planes each
+int k1_zsplit(int batch, int nz, int nx, int ny) {
+  const long tiles = (long)((nx + kTX - 1) / kTX) * ((ny + kTY - 1) / kTY) * std::max(batch, 1);
+  const int zmax = std::max(1, (nz + 1) / kMinPlanes);
+  const long fill = std::max(1L, (long)k1_slots() / tiles);
+  return (int)std::min<long>(fill, zmax);
 }
 
 }  // namespace
 
-extern "C" int fused_A_dots_blocks(int nz, int nx, int ny) {
-  const long nface = (long)(nz + 1) * nx * ny;
-  return (int)((nface + kThreads - 1) / kThreads);
+extern "C" int fused_A_dots_blocks(int batch, int nz, int nx, int ny) {
+  const int tiles = ((nx + kTX - 1) / kTX) * ((ny + kTY - 1) / kTY);
+  return tiles * k1_zsplit(batch, nz, nx, ny);
 }
 
 extern "C" cudaError_t launch_orbit_contract(const float* src, const float* orb, float* out,
@@ -235,8 +390,19 @@ extern "C" cudaError_t launch_orbit_contract(const float* src, const float* orb,
 
 extern "C" cudaError_t launch_fused_A_dots(const float* u, const float* w, const float* orb,
                                            const float* albedo, float* Au, float* partials,
-                                           float* dots, const OrbitTables* t, int batch,
-                                           int nz, int nx, int ny, cudaStream_t stream) {
-  if (t->nd != 10) return cudaErrorInvalidValue;  // built for 3_10 only
-  return fused_nd<10>(u, w, orb, albedo, Au, partials, dots, t, batch, nz, nx, ny, stream);
+                                           float* dots, int batch, int nz, int nx, int ny,
+                                           cudaStream_t stream) {
+  if (k1_slots() == 0) {
+    const cudaError_t err = cudaGetLastError();
+    return err != cudaSuccess ? err : cudaErrorUnknown;
+  }
+  const int zsplit = k1_zsplit(batch, nz, nx, ny);
+  const int nblk = fused_A_dots_blocks(batch, nz, nx, ny);
+  dim3 grid(nblk, batch);
+  fused_A_kernel<<<grid, kK1Threads, kK1Smem, stream>>>(u, w, orb, albedo, Au, partials, nz, nx,
+                                                        ny, zsplit);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  reduce_partials_kernel<<<batch, kThreads, 0, stream>>>(partials, dots, nblk);
+  return cudaGetLastError();
 }

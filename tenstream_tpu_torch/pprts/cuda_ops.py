@@ -21,17 +21,21 @@ dense coefficients.
 
 All take a leading batch dim B (K1 returns per-batch dots), and are built
 for the 3_10 scheme's 10 diffuse dofs (the plain versions take any
-scheme).  A wrapper
+scheme).  K1 is compiled for 3_10's orbit and shift tables: they are code
+in `csrc/orbit_3_10.h`, which `orbit_header_text` generates from the same
+Python tables the plain version uses, and `load_extension` refuses to build
+from a header that differs from it.  A wrapper
 runs the plain version only because its tensors lie on the CPU; on a CUDA
 tensor it launches the kernel (or raises) -- there is no fallback.  Each
 launch adds one to `LAUNCHES[name]`.
 
 The CUDA sources are `tenstream_tpu_torch/csrc/{orbit_ops.cu,
-dense_ops.cu, boxmc_ops.cu, bind.cpp}`, built at first use with
-`torch.utils.cpp_extension.load` into `tenstream_tpu_torch/_build/`
-(sm_90a).  The same extension holds K4, the BoxMC photon tracer, whose
-wrapper is `tenstream_tpu_torch/boxmc/cuda_tracer.py::boxmc_trace`; its
-launches are counted here too.
+dense_ops.cu, boxmc_ops.cu, bind.cpp}` and their headers, built at first
+use with `torch.utils.cpp_extension.load` into
+`tenstream_tpu_torch/_build/` (sm_90a).  The same extension holds K4, the
+BoxMC photon tracer, whose wrapper is
+`tenstream_tpu_torch/boxmc/cuda_tracer.py::boxmc_trace`; its launches are
+counted here too.
 """
 
 from __future__ import annotations
@@ -63,7 +67,6 @@ LAUNCHES: Dict[str, int] = {"fused_A_dots": 0, "orbit_contract": 0, "diffuse_app
                             "boxmc_trace": 0}
 
 _TS_MAXD = 10
-_TS_MAXC = 5
 
 
 def reset_launch_counts() -> None:
@@ -76,6 +79,7 @@ def load_extension(verbose: bool = False):
     """Build (once per process) and load the kernels' extension."""
     from torch.utils.cpp_extension import load
 
+    _check_header()
     os.makedirs(BUILD_DIR, exist_ok=True)
     return load(
         name="tenstream_torch_kernels",
@@ -86,6 +90,92 @@ def load_extension(verbose: bool = False):
         extra_include_paths=[CSRC],
         verbose=verbose,
     )
+
+
+HEADER_3_10 = "orbit_3_10.h"  # K1's compile-time tables, generated by orbit_header_text
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_tables():
+    """The 3_10 tables K1 is compiled for: (idx, norb, groups, cshift,
+    gshift, dn, up)."""
+    from tenstream_tpu_torch.optprop.facade import diff_pair_orbits
+    from tenstream_tpu_torch.streams import get_scheme
+
+    scheme = get_scheme("3_10")
+    idx, norb = diff_pair_orbits(scheme, with_mz=False)
+    idx = np.asarray(idx, np.int64)
+    cshift, gshift = _shift_tables(scheme)
+    dn, up = surface_closure_rows(scheme)
+    return idx, int(norb), orbit_groups(idx), cshift, gshift, dn, up
+
+
+def _ternary(name: str, var: str, vals) -> str:
+    """A constexpr function of dof `var` returning vals[var] (0 where unlisted)."""
+    expr = "".join(f"{var} == {q} ? {v} : " for q, v in enumerate(vals) if v != 0) + "0"
+    return f"__host__ __device__ constexpr int {name}(int {var}) {{ return {expr}; }}"
+
+
+def orbit_header_text() -> str:
+    """The text of `csrc/orbit_3_10.h`: K1's orbit contraction, shifts and
+    surface closure for the 3_10 scheme as compile-time code, generated from
+    the same Python tables the plain version uses (`orbit_groups`,
+    `_shift_tables`, `surface_closure_rows`), in the plain version's order
+    of sums."""
+    idx, norb, groups, cshift, gshift, dn, up = _k1_tables()
+    nd = len(groups)
+    lines = [
+        "// K1's tables for the 3_10 scheme as compile-time code.  Generated by",
+        "// tenstream_tpu_torch/pprts/cuda_ops.py::orbit_header_text from the tables of",
+        "// the plain version (orbit_groups of diff_pair_orbits(3_10, with_mz=False),",
+        "// _shift_tables, surface_closure_rows); do not edit: load_extension refuses",
+        "// to build from a copy that differs from what they generate.",
+        "#pragma once",
+        "",
+        f"#define K1_ND {nd}",
+        f"#define K1_NORB {norb}",
+        "",
+        "// source s of a cell (k, i, j) is u[s] at face (k, i, j) + (k1_gz, k1_gx, k1_gy)(s)",
+    ]
+    for q, name in enumerate(("k1_gz", "k1_gx", "k1_gy")):
+        lines.append(_ternary(name, "s", [g[q] for g in gshift]))
+    lines.append("// dst d at face (k, i, j) is produced by the cell (k, i, j) + "
+                 "(k1_cz, k1_cx, k1_cy)(d)")
+    for q, name in enumerate(("k1_cz", "k1_cx", "k1_cy")):
+        lines.append(_ternary(name, "d", [c[q] for c in cshift]))
+    lines += [
+        "// one cell's contributions: c[d] = sum over the orbit groups (o, ss) of dst d of",
+        "// o(o) * (sum of s(src) over ss), groups in orbit order, as the plain version",
+        "template <class O, class S>",
+        "__device__ __forceinline__ void k1_contract(O o, S s, float* c) {",
+    ]
+    for d in range(nd):
+        terms = []
+        for o, ss in groups[d]:
+            ssum = " + ".join(f"s({q})" for q in ss)
+            terms.append(f"o({o}) * " + (f"({ssum})" if len(ss) > 1 else ssum))
+        lines.append(f"  c[{d}] = " + " + ".join(terms) + ";")
+    lines += [
+        "}",
+        "",
+        "// Lambertian surface closure on face nz: the up dofs gain albedo * (sum of the",
+        "// down dofs) * their hemisphere weight",
+        "template <class U>",
+        "__device__ __forceinline__ void k1_closure(U u, float alb, float* S) {",
+        "  const float edn = " + " + ".join(f"u({d})" for d in dn) + ";",
+    ]
+    for d, wt in up:
+        lines.append(f"  S[{d}] += alb * edn * {float(np.float32(wt))!r}f;")
+    lines += ["}", ""]
+    return "\n".join(lines)
+
+
+def _check_header() -> None:
+    path = os.path.join(CSRC, HEADER_3_10)
+    with open(path) as f:
+        if f.read() != orbit_header_text():
+            raise RuntimeError(f"{path} differs from what orbit_header_text() generates; "
+                               "regenerate it from the Python tables")
 
 
 def _shift_tables(scheme: StreamScheme):
@@ -115,9 +205,7 @@ def _tables_cached(scheme: StreamScheme, idx_bytes: bytes, norb: int):
                          f"dofs); scheme {scheme.name} has {nd}")
     idx = np.frombuffer(idx_bytes, np.int64).reshape(nd, nd)
     groups = orbit_groups(idx)
-    cshift, gshift = _shift_tables(scheme)
-    classes = sorted(set(cshift))
-    D, C = _TS_MAXD, _TS_MAXC
+    D = _TS_MAXD
     ngroups = [0] * D
     gorb = [[0] * D for _ in range(D)]
     gmask = [[0] * D for _ in range(D)]
@@ -126,22 +214,7 @@ def _tables_cached(scheme: StreamScheme, idx_bytes: bytes, norb: int):
         for g, (o, ss) in enumerate(groups[d]):
             gorb[d][g] = o
             gmask[d][g] = sum(1 << s for s in ss)
-    gz = [0] * D
-    gx = [0] * D
-    gy = [0] * D
-    for s in range(nd):
-        gz[s], gx[s], gy[s] = gshift[s]
-    ccz, ccx, ccy, cmask = [0] * C, [0] * C, [0] * C, [0] * C
-    for c, sh in enumerate(classes):
-        ccz[c], ccx[c], ccy[c] = sh
-        cmask[c] = sum(1 << d for d in range(nd) if cshift[d] == sh)
-    dn, up = surface_closure_rows(scheme)
-    walb = [0.0] * D
-    for d, w in up:
-        walb[d] = w
-    itab = ([nd, norb, len(classes)] + ngroups + sum(gorb, []) + sum(gmask, [])
-            + gz + gx + gy + ccz + ccx + ccy + cmask + [sum(1 << d for d in dn)])
-    return itab, walb
+    return [nd, norb] + ngroups + sum(gorb, []) + sum(gmask, [])
 
 
 def _tables(scheme: StreamScheme, idx: np.ndarray, norb: int):
@@ -171,8 +244,7 @@ def orbit_contract(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
     if src.device.type == "cpu" and orb.device.type == "cpu":
         return orbit_contract_plain(idx, orb, src)
     _require_cuda(src, orb)
-    itab, ftab = _tables(scheme, idx, orb.shape[1])
-    out = load_extension().orbit_contract(src, orb, itab, ftab)
+    out = load_extension().orbit_contract(src, orb, _tables(scheme, idx, orb.shape[1]))
     LAUNCHES["orbit_contract"] += 1
     return out
 
@@ -211,6 +283,15 @@ def fused_A_dots_plain(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
     return Au, dots
 
 
+def _k1_refusal(scheme: StreamScheme, idx: np.ndarray, norb: int) -> None:
+    """K1 is compiled for 3_10's orbit tables; raise for any other."""
+    k_idx, k_norb = _k1_tables()[:2]
+    if (scheme.name != "3_10" or norb != k_norb or np.shape(idx) != k_idx.shape
+            or not np.array_equal(idx, k_idx)):
+        raise ValueError(f"K1 is compiled for the 3_10 scheme's orbit tables "
+                         f"({HEADER_3_10}); got scheme {scheme.name} with {norb} channels")
+
+
 def fused_A_dots(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
                  u: torch.Tensor, w: torch.Tensor,
                  albedo: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -218,8 +299,8 @@ def fused_A_dots(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
     if all(t.device.type == "cpu" for t in (u, w, orb, albedo)):
         return fused_A_dots_plain(scheme, idx, orb, u, w, albedo)
     _require_cuda(u, w, orb, albedo)
-    itab, ftab = _tables(scheme, idx, orb.shape[1])
-    Au, dots = load_extension().fused_A_dots(u, w, orb, albedo, itab, ftab)
+    _k1_refusal(scheme, idx, orb.shape[1])
+    Au, dots = load_extension().fused_A_dots(u, w, orb, albedo)
     LAUNCHES["fused_A_dots"] += 1
     return Au, dots
 

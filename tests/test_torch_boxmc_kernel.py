@@ -8,7 +8,8 @@ What remains is float32 roundoff of the transcendentals (XLA's and
 torch's log/exp/sin/cos differ by ulps) and the exited photons that the
 lockstep TPU kernel keeps "moving" by ~0 (ulps of their weights), so
 every tally is held at 1e-5.  No case here needs more: no photon's walk
-flips a comparison.
+flips a comparison.  The plain version sums its photons' records in K4's
+order (`reduce_records`), held here against a float64 sum within 1e-6.
 """
 
 import jax
@@ -136,3 +137,53 @@ def test_refuses_what_it_cannot_represent(scheme, ldir):
                                          ("3_10", False), ("8_10", False)])
 def test_supports_the_full_face_schemes(scheme, ldir):
     assert ct.kernel_refusal(scheme, ldir) is None
+
+
+@pytest.mark.parametrize("ndir,ndiff", [(3, 10), (1, 2), (8, 10)])
+def test_ordered_reduction_matches_float64_sum(ndir, ndiff):
+    """`reduce_records` (K4's order of float32 adds) against a float64 sum of
+    the same per-photon records, with codes tallied nowhere (-1) and photons
+    still walking at max_iter among them."""
+    rng = np.random.default_rng(ndir + ndiff)
+    B, N, nc = 5, ct.PHOTONS, ndir + ndiff
+    code = rng.integers(-1, nc, (B, N))
+    w = rng.random((B, N)).astype(np.float32)
+    walking = rng.random((B, N)) < 0.05
+    code[walking] = -1
+    left = np.where(walking, w, 0.0).astype(np.float32)
+    w = np.where(walking, 0.0, w).astype(np.float32)
+    out = ct.reduce_records(torch.as_tensor(code), torch.as_tensor(w), torch.as_tensor(left),
+                            ndir, nc).numpy()
+    tally = np.stack([np.where(code == c, w.astype(np.float64), 0.0).sum(1) for c in range(nc)], 1)
+    mass = tally[:, ndir:].sum(1)
+    scale = 1.0 + left.astype(np.float64).sum(1) / mass
+    want = np.concatenate([tally[:, :ndir], tally[:, ndir:] * scale[:, None]], 1) / N
+    np.testing.assert_allclose(out, want, rtol=0, atol=1e-6)
+    assert out.dtype == np.float32
+
+
+def test_plain_reduces_its_records_in_kernel_order():
+    """The plain version's tallies are `reduce_records` of its photons'
+    records, and those agree with a float64 sum of the same records."""
+    rows = ct.entry_rows(ENTRIES[2:6], "3_10", 1, True, 4, "cpu")
+    out, steps = ct.boxmc_trace_plain(rows, "3_10", True, MAX_ITER)
+    code, w, left, nstep = ct.photon_records_plain(rows, "3_10", True, MAX_ITER)
+    assert torch.equal(out, ct.reduce_records(code, w, left, 3, 13))
+    assert torch.equal(steps, nstep.sum(1))
+    c, wd, ld = code.numpy(), w.double().numpy(), left.double().numpy()
+    tally = np.stack([np.where(c == k, wd, 0.0).sum(1) for k in range(13)], 1)
+    scale = 1.0 + ld.sum(1) / tally[:, 3:].sum(1)
+    want = np.concatenate([tally[:, :3], tally[:, 3:] * scale[:, None]], 1) / ct.PHOTONS
+    np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=1e-6)
+
+
+def test_launch_order_takes_long_walks_first():
+    """K4's queue order: a permutation of the rows, thick conservative boxes
+    before thin or absorbing ones (it changes no result, only the schedule)."""
+    rows = ct.entry_rows(ENTRIES, "3_10", 0, False, 0, "cpu")
+    order = ct.launch_order(rows)
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(len(ENTRIES)))
+    assert order[0].item() == 4  # tau 20, w0 0.99999
+    assert order.tolist().index(0) > order.tolist().index(3)  # transparent after forward-scattering
+    assert order.tolist().index(1) > order.tolist().index(7)  # w0 0: one step

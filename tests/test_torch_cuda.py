@@ -18,7 +18,8 @@ and its plain version do the same IEEE float32 arithmetic per photon (K4
 stops a photon at its exit, the plain version too); a rare flipped
 comparison moves one photon's weight (1/5120), so tallies are held at
 three photons' weight (6e-4), their mean at 1e-5 and the photon-steps at
-0.1%."""
+0.1%.  Where both sum the photons' records in K4's order, they agree bit
+for bit.  K1 is compiled for the 3_10 orbit tables and refuses others."""
 
 import numpy as np
 import pytest
@@ -60,7 +61,8 @@ def _inputs(name, B, nz, nx, ny, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,B,nz,nx,ny", [("3_10", 2, 5, 6, 10), ("3_10", 1, 39, 64, 64),
-                                             ("3_10", 1, 4, 3, 33)])
+                                             ("3_10", 1, 4, 3, 33), ("3_10", 3, 1, 1, 1),
+                                             ("3_10", 1, 7, 33, 65), ("3_10", 1, 39, 256, 256)])
 def test_cuda_kernels_match_plain(cuda_device, name, B, nz, nx, ny):
     ts, idx, orb, u, w, alb, src = _inputs(name, B, nz, nx, ny, seed=2)
     dev = lambda a: torch.as_tensor(a, device=cuda_device)
@@ -126,9 +128,13 @@ def test_cuda_wrappers_reject_bad_inputs(cuda_device):
         cuda_ops.fused_A_dots(ts, idx, dev(orb), dev(u).double(), dev(w), dev(alb))
     with pytest.raises(RuntimeError):
         cuda_ops.fused_A_dots(ts, idx, dev(orb), dev(u)[..., ::2], dev(w)[..., ::2], dev(alb))
-    ts6, idx6, orb6, _, _, _, src6 = _inputs("3_6", 1, 2, 3, 4, seed=0)
+    ts6, idx6, orb6, u6, w6, alb6, src6 = _inputs("3_6", 1, 2, 3, 4, seed=0)
     with pytest.raises(ValueError, match="3_10"):  # the kernels are built for 3_10 only
         cuda_ops.orbit_contract(ts6, idx6, dev(orb6), dev(src6))
+    with pytest.raises(ValueError, match="3_10"):
+        cuda_ops.fused_A_dots(ts6, idx6, dev(orb6), dev(u6), dev(w6), dev(alb6))
+    with pytest.raises(ValueError, match="3_10"):  # K1 is compiled for 3_10's orbit table
+        cuda_ops.fused_A_dots(ts, idx[::-1].copy(), dev(orb), dev(u), dev(w), dev(alb))
 
 
 _K4_ENTRIES = np.array([[1e-10, 0.5, 1.0, 0.0, 0.0, 0.0], [2.0, 0.0, 1.0, 0.0, 30.0, 40.0],
@@ -153,6 +159,35 @@ def test_cuda_boxmc_matches_plain(cuda_device, scheme, src, ldir):
     assert d.max().item() <= 6e-4 and d.mean().item() <= 1e-5, (d.max().item(), d.mean().item())
     np.testing.assert_allclose(steps.cpu().numpy(), ref_steps.cpu().numpy(), rtol=1e-3)
     assert out.sum(1).max().item() <= 1.0 + 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,src,ldir", [("3_10", 0, True), ("3_10", 2, False),
+                                             ("3_6", 3, False), ("8_10", 7, False)])
+def test_cuda_boxmc_bit_identical_to_ordered_plain(cuda_device, scheme, src, ldir):
+    """The plain version sums the photons' records in K4's order: where each
+    photon's walk rounds alike (IEEE float32, no contraction), the tallies
+    and photon-steps are equal bit for bit."""
+    rows = cuda_tracer.entry_rows(_K4_ENTRIES, scheme, src, ldir, 3, cuda_device)
+    out, steps = cuda_tracer.boxmc_trace(rows, scheme, ldir)
+    ref, ref_steps = cuda_tracer.boxmc_trace_plain(rows, scheme, ldir)
+    assert torch.equal(out, ref) and torch.equal(steps, ref_steps)
+
+
+@pytest.mark.cuda
+def test_cuda_boxmc_row_independent_of_its_neighbours(cuda_device):
+    """A thick entry in row 4095 gets the same tallies whether the other 4095
+    rows are thin or thick: the photons walked beside it do not touch it."""
+    thick = np.array([100.0, 0.99999, 1.0, 0.85, 0.0, 0.0], np.float32)
+    res = []
+    for other in ([1e-10, 0.5, 1.0, 0.0, 0.0, 0.0], [5.0, 0.9, 1.0, 0.85, 0.0, 0.0]):
+        ent = np.tile(np.array(other, np.float32), (4096, 1))
+        ent[4095] = thick
+        rows = cuda_tracer.entry_rows(ent, "3_10", 0, False, 13, cuda_device)
+        out, steps = cuda_tracer.boxmc_trace(rows, "3_10", False)
+        res.append((out[4095], steps[4095], steps[:4095].sum().item()))
+    assert res[0][2] < res[1][2]  # the neighbours did walk differently
+    assert torch.equal(res[0][0], res[1][0]) and torch.equal(res[0][1], res[1][1])
 
 
 @pytest.mark.cuda
@@ -185,12 +220,15 @@ def test_cuda_binding_checks_raise(cuda_device):
     ext = cuda_ops.load_extension()
     rows = cuda_tracer.entry_rows(_K4_ENTRIES, "3_10", 0, False, 0, cuda_device)
     tab = list(cuda_tracer._tables("3_10"))
-    for args in ((rows[:, :8].contiguous(), 0, 3, 10, tab, 100), (rows, 0, 3, 10, tab[:17], 100),
-                 (rows, 0, 3, 10, tab, -1), (rows, 0, 3, 10, [20] * 18, 100)):
+    order = cuda_tracer.launch_order(rows)
+    for args in ((rows[:, :8].contiguous(), order, 0, 3, 10, tab, 100),
+                 (rows, order, 0, 3, 10, tab[:17], 100), (rows, order, 0, 3, 10, tab, -1),
+                 (rows, order, 0, 3, 10, [20] * 18, 100), (rows, order.long(), 0, 3, 10, tab, 100),
+                 (rows, order[:6], 0, 3, 10, tab, 100), (rows, order, 0, 3, 7, tab, 100)):
         with pytest.raises(RuntimeError):
             ext.boxmc_trace(*args)
     ts, idx, orb, u, w, alb, _ = _inputs("3_10", 1, 2, 3, 4, seed=0)
     dev = lambda a: torch.as_tensor(a, device=cuda_device)
-    with pytest.raises(RuntimeError):  # 9 dofs where the tables say 10
+    with pytest.raises(RuntimeError):  # 9 dofs where K1 is compiled for 10
         ext.fused_A_dots(dev(u)[:, :9].contiguous(), dev(w)[:, :9].contiguous(), dev(orb),
-                         dev(alb), *cuda_ops._tables(ts, idx, orb.shape[1]))
+                         dev(alb))

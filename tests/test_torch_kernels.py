@@ -4,11 +4,15 @@ On the CPU the wrappers run their plain PyTorch versions; those are held
 against the JAX Pallas kernels in interpret mode and against the JAX XLA
 path (`diffuse_scatter` plus `jnp.vdot`), on odd and wrapping shapes and
 with a batch of B > 1.  The tables the CUDA kernels index by are checked
-by a numpy emulation of the kernels' indexing.  The CUDA kernels
+by a numpy emulation of K2's indexing, and K1's compile-time
+header by parsing it against the Python tables.  The CUDA kernels
 themselves are compared with the plain versions in `test_torch_cuda.py`.
 
 Tolerances: fields are sums of at most ~24 float32 products in another
 order (atol 3e-6 on O(1) values); the dots sum ~1e4 terms (rtol 2e-5)."""
+
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -113,56 +117,98 @@ def test_cpu_wrappers_count_no_launch():
 # the CUDA kernels' tables, emulated in numpy
 # ---------------------------------------------------------------------------
 
-def _emulate_fused_A(itab, walb, u, w, orb, alb):
-    """numpy replica of orbit_ops.cu::fused_A_kernel's indexing."""
-    D, C = cuda_ops._TS_MAXD, cuda_ops._TS_MAXC
+def _emulate_contract(itab, orb, src):
+    """numpy replica of orbit_ops.cu::orbit_contract_kernel's indexing."""
+    D = cuda_ops._TS_MAXD
     it = iter(itab)
     take = lambda n: [next(it) for _ in range(n)]
-    nd, norb, ncls = take(3)
+    nd, norb = take(2)
     ngroups = take(D)
     gorb = np.array(take(D * D)).reshape(D, D)
     gmask = np.array(take(D * D)).reshape(D, D)
-    gz, gx, gy = take(D), take(D), take(D)
-    ccz, ccx, ccy, cmask = take(C), take(C), take(C), take(C)
-    (dn_mask,) = take(1)
-    B, _, nz1, nx, ny = u.shape
-    nz = nz1 - 1
-    S = np.zeros_like(u)
-    k, i, j = np.meshgrid(np.arange(nz1), np.arange(nx), np.arange(ny), indexing="ij")
-    for cl in range(ncls):
-        kc = k + ccz[cl]
-        valid = (kc >= 0) & (kc < nz)
-        kcc = np.clip(kc, 0, nz - 1)
-        ic, jc = (i + ccx[cl]) % nx, (j + ccy[cl]) % ny
-        sv = [u[:, s, np.clip(kcc + gz[s], 0, nz), (ic + gx[s]) % nx, (jc + gy[s]) % ny]
-              for s in range(nd)]
-        for d in range(nd):
-            if not (cmask[cl] >> d) & 1:
-                continue
-            acc = 0.0
-            for gi in range(ngroups[d]):
-                ssum = sum(sv[s] for s in range(nd) if (gmask[d, gi] >> s) & 1)
-                acc = acc + orb[:, gorb[d, gi], kcc, ic, jc] * ssum
-            S[:, d] += np.where(valid, acc, 0.0)
-    edn = sum(u[:, s, nz] for s in range(nd) if (dn_mask >> s) & 1)
+    assert next(it, None) is None and norb == orb.shape[1]
+    out = np.zeros_like(src)
     for d in range(nd):
-        S[:, d, nz] += alb * edn * walb[d]
-    Au = u - S
-    return Au, np.stack([(w * Au).sum(axis=(1, 2, 3, 4)), (Au * Au).sum(axis=(1, 2, 3, 4))], 1)
+        for gi in range(ngroups[d]):
+            ssum = sum(src[:, s] for s in range(nd) if (gmask[d, gi] >> s) & 1)
+            out[:, d] += orb[:, gorb[d, gi]] * ssum
+    return out
 
 
 @pytest.mark.parametrize("name", ["3_10", "3_6", "1_2"])
 def test_kernel_tables_emulated(name):
+    """K2's runtime tables (K1's are compile-time code, tested below)."""
     ts = tget(name)
-    idx, orb, u, w, alb, _ = _inputs(name, 2, 3, 5, 4, seed=8)
+    idx, orb, _, _, _, src = _inputs(name, 2, 3, 5, 4, seed=8)
     if name != "3_10":  # the kernels are built for 3_10 only; its plain twins take any scheme
         with pytest.raises(ValueError, match="3_10"):
             cuda_ops._tables(ts, idx, orb.shape[1])
         return
-    itab, walb = cuda_ops._tables(ts, idx, orb.shape[1])
-    assert len(itab) == 3 + 10 + 2 * 100 + 30 + 4 * 5 + 1 and len(walb) == 10
-    Au_e, dots_e = _emulate_fused_A(itab, walb, u.astype(np.float64), w.astype(np.float64),
-                                    orb.astype(np.float64), alb.astype(np.float64))
-    Au, dots = cuda_ops.fused_A_dots_plain(ts, idx, *(torch.as_tensor(a) for a in (orb, u, w, alb)))
-    np.testing.assert_allclose(Au.numpy(), Au_e, atol=FIELD_ATOL)
-    np.testing.assert_allclose(dots.numpy(), dots_e, rtol=DOT_RTOL)
+    itab = cuda_ops._tables(ts, idx, orb.shape[1])
+    assert len(itab) == 2 + 10 + 2 * 100
+    emu = _emulate_contract(itab, orb.astype(np.float64), src.astype(np.float64))
+    out = cuda_ops.orbit_contract_plain(idx, torch.as_tensor(orb), torch.as_tensor(src))
+    np.testing.assert_allclose(out.numpy(), emu, atol=FIELD_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# K1's compile-time tables (csrc/orbit_3_10.h)
+# ---------------------------------------------------------------------------
+
+def _header_functions(text):
+    """name -> list of the 10 values of the generated constexpr ternaries."""
+    out = {}
+    for name, body in re.findall(r"constexpr int (k1_\w+)\(int \w\) \{\s*return (.*?);", text):
+        vals = dict((int(q), int(v)) for q, v in re.findall(r"== (\d+) \? (-?\d+)", body))
+        out[name] = [vals.get(q, int(body.rsplit(": ", 1)[1])) for q in range(10)]
+    return out
+
+
+def test_k1_header_is_generated_from_the_tables():
+    path = os.path.join(cuda_ops.CSRC, cuda_ops.HEADER_3_10)
+    with open(path) as f:
+        text = f.read()
+    assert text == cuda_ops.orbit_header_text()  # load_extension refuses a stale copy too
+    idx, norb = _orbit_idx("3_10")
+    groups = cuda_ops.orbit_groups(idx)
+    # the contraction: c[d] = sum over groups of o(orbit) * (sum of s(src))
+    rows = dict(re.findall(r"^  c\[(\d+)\] = (.*);$", text, re.M))
+    assert len(rows) == 10 and f"#define K1_NORB {norb}" in text
+    for d in range(10):
+        terms = re.findall(r"o\((\d+)\) \* \(?((?:s\(\d+\)(?: \+ )?)+)\)?", rows[str(d)])
+        got = tuple((int(o), tuple(int(q) for q in re.findall(r"s\((\d+)\)", ss)))
+                    for o, ss in terms)
+        assert got == groups[d]
+    # the shifts and the closure
+    fn = _header_functions(text)
+    cshift, gshift = cuda_ops._shift_tables(tget("3_10"))
+    for q, ax in enumerate("zxy"):
+        assert fn[f"k1_g{ax}"] == [g[q] for g in gshift]
+        assert fn[f"k1_c{ax}"] == [c[q] for c in cshift]
+    dn, up = cuda_ops.surface_closure_rows(tget("3_10"))
+    assert "const float edn = " + " + ".join(f"u({d})" for d in dn) + ";" in text
+    for d, wt in up:
+        assert f"S[{d}] += alb * edn * {float(np.float32(wt))!r}f;" in text
+
+
+def test_k1_header_contraction_emulated():
+    """The generated contraction, evaluated in numpy, against the plain K2
+    (the same per-cell sums) on random inputs."""
+    text = cuda_ops.orbit_header_text()
+    idx, norb = _orbit_idx("3_10")
+    _, orb, _, _, _, src = _inputs("3_10", 1, 3, 4, 5, seed=4)
+    o, s = orb[0].astype(np.float64), src[0].astype(np.float64)
+    got = np.zeros_like(s)
+    for d, expr in re.findall(r"^  c\[(\d+)\] = (.*);$", text, re.M):
+        got[int(d)] = eval(re.sub(r"([os])\((\d+)\)", r"\1[\2]", expr), {}, {"o": o, "s": s})
+    ref = cuda_ops.orbit_contract_plain(idx, torch.as_tensor(orb), torch.as_tensor(src))
+    np.testing.assert_allclose(got, ref[0].numpy(), atol=FIELD_ATOL)
+
+
+def test_k1_refuses_other_tables():
+    idx, norb = _orbit_idx("3_10")
+    cuda_ops._k1_refusal(tget("3_10"), idx, norb)  # the compiled tables: no error
+    for scheme, bad_idx, bad_norb in ((tget("3_10"), idx[::-1], norb), (tget("3_10"), idx, 25),
+                                      (tget("3_6"), _orbit_idx("3_6")[0], 6)):
+        with pytest.raises(ValueError, match="3_10"):
+            cuda_ops._k1_refusal(scheme, bad_idx, bad_norb)
