@@ -12,11 +12,12 @@ Phases, each printing its lines; any failure raises (non-zero exit):
   3. kernels  -- K1 fused_A_dots, K2 orbit_contract and K3
                  diffuse_apply_dense (float32 and bfloat16 coefficients)
                  against their plain PyTorch versions on the card, at their
-                 paths' shapes and at odd and tiny batched shapes, and K1 at
-                 the band chunk's batch of 8; times them, their plain versions
-                 and, beside K2 and K3, the one einsum that computes the
-                 contraction each contains.
-  4. main     -- the cloud path (orbit coefficients, K1 and K2): the 3_10
+                 paths' shapes and at odd and tiny batched shapes: K1 and K2
+                 at the spectral path's band chunk (B = 8, the 24 layers of
+                 the collapsed solve grid) and at a single band of 39 layers;
+                 times them, their plain versions and, beside K2 and K3, the
+                 one einsum that computes the contraction each contains.
+  4. cloud    -- the single-band cloud path (orbit coefficients, K1 and K2): the 3_10
                  PprtsSolver on a 100 m LES column (bench.py's vertical
                  structure, nz = 39) at 256 x 256 columns with the
                  production LUT: a cold solar+thermal solve, then a warm
@@ -37,9 +38,30 @@ Phases, each printing its lines; any failure raises (non-zero exit):
   8. dense vs orbit -- the 64 x 64 cloud scene with
                  pprts_orbit_coeffs=False (K3's path) against the orbit
                  solve (K1/K2's path), same gates.
-  9. profile  -- the warm re-solve of each path again: host time per
-                 solver stage, then under torch.profiler the device busy
-                 share and the kernels with the most device time.
+ 12. spectral -- the main path, bench.py's run through the port: ecCKD
+                 32 + 32 g-points on bench.py's scene (its z grid of 39
+                 layers, its cloud field from --seed) at 256 x 256 columns,
+                 the production LUT, sun (120, 40), albedo 0.15, band chunks
+                 of 8 solved as one batch through K1/K2, atm_collapse over
+                 the leading 1-D layers (16: a solve grid of 24 layers) and
+                 the f32 warm cache: a cold solve, an identical warm re-solve
+                 and two perturbed steps (the cloud field rolled one cell on
+                 alternating axes).  Prints each solve's wall, its K1/K2
+                 launches, columns/s of the perturbed steps, niter and
+                 res/tol per chunk and the broadband fluxes; checks finite
+                 results, res <= 1.5 tol and niter < 3000 in every lane, TOA
+                 edir = sum of the solar weights x mu within 1%, both kernels
+                 launched, heating rates (abso2hr) finite, and below 100 K/day
+                 in every cell but the cloud tops (cloud under clear air,
+                 which cool by about 100 K/day; printed).
+ 13. spectral parity -- the same spectral solve at 64 x 64 through the
+                 kernels and through their plain versions: fluxes within 0.1
+                 W/m2, absorption within 1e-4 W/m3, the same niter per band.
+  9. profile  -- (run after 12 and 13) the warm re-solve of each path again:
+                 the single-band cloud and urban solves and the spectral solve
+                 of phase 12's solver: host time per stage, then under
+                 torch.profiler the device busy share and the kernels with the
+                 most device time.
  10. boxmc    -- K4 boxmc_trace, the BoxMC photon tracer: one launch of 4096
                  entries drawn with --seed from the production diffuse grid
                  for the orbit-representative sources 0 and 2 and one from
@@ -66,8 +88,11 @@ launch's tallies and photon-steps, the generated table) against sha256
 digests recorded from the earlier K4 design: they must be equal bit for
 bit.
 
-The line before the last is a JSON object describing each kernel; the
-last line is {"ok": true, "device": {...}}.
+The phases run in the order 1-8, 12, 13, 9, 10, 11.  Each path resets the
+kernel launch counts before it runs and reads them after; the kernels JSON
+takes K1's and K2's launches from phase 12 (the main path), K3's from the
+urban path and K4's from the LUT pass.  The line before the last is a JSON
+object describing each kernel; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -95,7 +120,13 @@ DOT_RTOL = 2e-5  # dots over up to 2.6e7 terms, block partials vs torch's sum
 FLUX_ATOL = 0.1  # W/m2, the golden regression gate
 ABSO_ATOL = 1e-4  # W/m3
 NX = NY = 256  # BASELINE.md's LES width: both paths' columns
-NZ = 39  # bench.py's vertical structure (the cloud path)
+NZ = 39  # bench.py's vertical structure (the cloud and spectral paths)
+K_COLLAPSE = 16  # its leading 1-D layers (dz 350-2521 m >= 2 dx), folded by atm_collapse
+NZ_SOLVE = NZ - (K_COLLAPSE - 1)  # the spectral path's solve grid
+CHUNK = 8  # bands per batched solve (bench.py's band_chunk)
+NGPT = 32  # ecCKD g-points per spectrum (bench.py)
+SPECTRAL_SUN = (120.0, 40.0)  # bench.py's sun
+HR_MAX = 100.0  # K/day
 URBAN_NZ, URBAN_DZ, URBAN_DX = 40, 10.0, 20.0  # the urban path: aspect 0.5, all layers 3-D
 URBAN_ALBEDO, BUILDING_ALBEDO, BUILDING_T = 0.15, 0.4, 300.0
 SUN = (250.0, 35.0)  # phi, theta [deg]
@@ -224,6 +255,33 @@ def build_scene(nx: int, ny: int, seed: int):
     planck = (5.670374419e-8 * T ** 4 / np.pi).astype(np.float32)[:, None, None] * np.ones(
         (nx, ny), np.float32)
     return dz, kabs, ksca, g, planck
+
+
+def bench_zlev():
+    """bench.py's z grid, TOA -> surface: 24 layers of 100 m over 16
+    geometric layers to 20 km."""
+    z_low = np.arange(0.0, 24 * 100.0 + 1.0, 100.0)
+    z_high = np.geomspace(24 * 100.0 + 250.0, 20e3, 16)
+    return np.concatenate([z_high[::-1], z_low[::-1][1:]])
+
+
+def build_bench_atm(nx: int, ny: int, seed: int):
+    """bench.py's `build_scene` through the port: the standard atmosphere on
+    bench.py's z grid and its liquid water field (nx * ny / 16 boxes of
+    0.1-0.6 g/m3 between 600 m and 2 km), drawn from `seed`."""
+    from tenstream_tpu_torch.atm import setup_standard_atmosphere
+
+    atm = setup_standard_atmosphere(z_grid=bench_zlev())
+    rng = np.random.default_rng(seed)
+    lwc = np.zeros((atm.nlay, nx, ny), np.float32)
+    zc = atm.zlev[:-1]
+    cloudy = np.where((zc > 600.0) & (zc < 2000.0))[0]
+    for _ in range(nx * ny // 16):
+        i, j = rng.integers(0, nx), rng.integers(0, ny)
+        k = rng.choice(cloudy)
+        di, dj = rng.integers(1, 4), rng.integers(1, 4)
+        lwc[k:k + 2, i:i + di, j:j + dj] = rng.uniform(0.1, 0.6)
+    return atm, lwc
 
 
 def build_urban_scene(nx: int, ny: int, seed: int):
@@ -363,13 +421,14 @@ def _orbit_group_tensor(cuda_ops, idx, norb):
     return M
 
 
-def phase_kernels(cuda_ops, scheme, idx, nz, nx, ny):
-    """K1 and K2 against their plain versions, at the cloud path's shape, at
-    odd shapes, and K1 at the band chunk's batch of 8."""
+def phase_kernels(cuda_ops, scheme, idx, nx, ny):
+    """K1 and K2 against their plain versions at the main path's shape (a
+    band chunk of 8 on the collapsed solve grid), at the single-band cloud
+    path's shape and at odd shapes."""
     norb = int(idx.max()) + 1
     report = {}
     for (B, z, x, y, tag) in ((2, 5, 6, 10, "odd"), (3, 1, 1, 1, "tiny"), (1, 7, 33, 65, "odd"),
-                              (1, nz, nx, ny, "main"), (8, nz, nx, ny, "band")):
+                              (CHUNK, NZ_SOLVE, nx, ny, "main"), (1, NZ, nx, ny, "single")):
         orb, u, w, alb, src = _k_inputs(B, z, x, y, norb, seed=z + x)
         Au, dots = cuda_ops.fused_A_dots(scheme, idx, orb, u, w, alb)
         Au_p, dots_p = cuda_ops.fused_A_dots_plain(scheme, idx, orb, u, w, alb)
@@ -380,27 +439,28 @@ def phase_kernels(cuda_ops, scheme, idx, nz, nx, ny):
         del Au, Au_p
         line = (f"kernels {tag} B={B} nz={z} nx={x} ny={y}: K1 max abs {e1:.3e} rel {r1:.3e}, "
                 f"dots rel {d1:.3e}")
-        e2 = 0.0
-        if tag != "band":
-            c = cuda_ops.orbit_contract(scheme, idx, orb, src)
-            c_p = cuda_ops.orbit_contract_plain(idx, orb, src)
-            torch.cuda.synchronize()
-            e2 = (c - c_p).abs().max().item()
-            r2 = ((c - c_p).abs() / c_p.abs().clamp(min=1e-6)).max().item()
-            line += f"; K2 max abs {e2:.3e} rel {r2:.3e}"
+        c = cuda_ops.orbit_contract(scheme, idx, orb, src)
+        c_p = cuda_ops.orbit_contract_plain(idx, orb, src)
+        torch.cuda.synchronize()
+        e2 = (c - c_p).abs().max().item()
+        r2 = ((c - c_p).abs() / c_p.abs().clamp(min=1e-6)).max().item()
+        line += f"; K2 max abs {e2:.3e} rel {r2:.3e}"
         log(line)
         if not (e1 <= FIELD_ATOL and d1 <= DOT_RTOL and e2 <= FIELD_ATOL):
             raise AssertionError(f"kernel disagrees with its plain version at {tag} shape "
                                  f"(field atol {FIELD_ATOL}, dot rtol {DOT_RTOL})")
         cost = _kernel_cost(cuda_ops, scheme, idx, B, z, x, y, norb)
-        if tag == "band":
-            ms = cuda_ms(lambda: cuda_ops.fused_A_dots(scheme, idx, orb, u, w, alb), 20)
-            nbytes = cost["fused_A_dots"][0]
-            bound = nbytes / HBM_BYTES_PER_S * 1e3
-            log(f"kernels timing fused_A_dots at B={B}: {ms:.4f} ms (bound {bound:.4f} ms by bytes, "
-                f"{nbytes / 1e9:.3f} GB, {100 * bound / ms:.1f}% of the bound's rate)")
-            report["fused_A_dots"]["band_ms"] = ms
-            report["fused_A_dots"]["band_bound_ms"] = bound
+        if tag == "single":  # a single band of 39 layers (the cloud path, phases 4-8)
+            for name, fn in (("fused_A_dots", lambda: cuda_ops.fused_A_dots(
+                    scheme, idx, orb, u, w, alb)), ("orbit_contract", lambda: cuda_ops.orbit_contract(
+                    scheme, idx, orb, src))):
+                ms = cuda_ms(fn, 20)
+                nbytes = cost[name][0]
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                log(f"kernels timing {name} at B={B} nz={z}: {ms:.4f} ms (bound {bound:.4f} ms by "
+                    f"bytes, {nbytes / 1e9:.3f} GB, {100 * bound / ms:.1f}% of the bound's rate)")
+                report[name]["single_band_ms"] = ms
+                report[name]["single_band_bound_ms"] = bound
         if tag == "main":
             M = _orbit_group_tensor(cuda_ops, idx, norb)
             orb3, src3 = orb.view(B, norb, -1), src.view(B, 10, -1)
@@ -418,8 +478,7 @@ def phase_kernels(cuda_ops, scheme, idx, nz, nx, ny):
                 *cost["orbit_contract"],
                 cuda_ms(lambda: torch.einsum("dos,boc,bsc->bdc", M, orb3, src3), 5))
             del M, orb3, src3
-        if tag != "band":
-            del c, c_p
+        del c, c_p
         del orb, u, w, alb, src
     return report
 
@@ -613,24 +672,23 @@ def phase_urban(cuda_ops, opp, Grid, PprtsSolver, Buildings, sundir_from_angles,
     return launches
 
 
-def phase_profile(solver, resolve, label, top=12):
+def phase_profile(resolve, label, stages_of, top=12):
     """Where the time of a warm re-solve goes.  `resolve(i)` changes the
-    scene a little (i odd) or back (i even) and re-solves from the cached
-    solution: once with each solver stage timed on the host around a
+    scene a little (i odd) or back (i even), re-solves from the cached
+    solution and returns a line on its iterations: once with each stage
+    (`stages_of`: (owner, attribute name) pairs) timed on the host around a
     synchronise, then (changed back) under torch.profiler, whose kernel
     durations give the device busy time and the kernels with the most
     device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    import tenstream_tpu_torch.pprts.solver as solver_mod
-
     def timed_resolve(i):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sol = resolve(i)
+        text = resolve(i)
         torch.cuda.synchronize()
-        return sol, (time.perf_counter() - t0) * 1e3
+        return text, (time.perf_counter() - t0) * 1e3
 
     timed_resolve(0)
     stages = {}
@@ -645,23 +703,20 @@ def phase_profile(solver, resolve, label, top=12):
             return out
         return run
 
-    names = ("assemble_coeffs", "mask_coeffs", "solve_edir", "building_sources",
-             "thermal_source", "solve_bicgstab", "solve_richardson", "calc_flx_div")
-    saved = {n: getattr(solver_mod, n) for n in names}
-    for n in names:
-        setattr(solver_mod, n, timed(n, saved[n]))
+    saved = [(owner, n, getattr(owner, n)) for owner, n in stages_of]
+    for owner, n, fn in saved:
+        setattr(owner, n, timed(n, fn))
     try:
-        sol, wall_ms = timed_resolve(1)
+        text, wall_ms = timed_resolve(1)
     finally:
-        for n in names:
-            setattr(solver_mod, n, saved[n])
+        for owner, n, fn in saved:
+            setattr(owner, n, fn)
     other = wall_ms - sum(stages.values())
-    log(f"profile {label}: stages of the warm solar+thermal re-solve (wall {wall_ms:.1f} ms, "
-        f"bicgstab {sol.niter_bicgstab}+{sol.thermal.niter_bicgstab} iterations): "
+    log(f"profile {label}: stages of the warm re-solve (wall {wall_ms:.1f} ms, {text}): "
         + ", ".join(f"{n} {ms:.1f} ms" for n, ms in stages.items()) + f", other {other:.1f} ms")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sol_p, wall_prof_ms = timed_resolve(2)
+        text_p, wall_prof_ms = timed_resolve(2)
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -675,10 +730,21 @@ def phase_profile(solver, resolve, label, top=12):
     log(f"profile {label} device: busy {busy_ms:.1f} ms in "
         f"{sum(n for _, n in by_name.values())} kernels "
         f"= {100 * busy_ms / wall_ms:.1f}% of the unprofiled wall {wall_ms:.1f} ms "
-        f"(profiled wall {wall_prof_ms:.1f} ms; bicgstab "
-        f"{sol_p.niter_bicgstab}+{sol_p.thermal.niter_bicgstab} iterations)")
+        f"(profiled wall {wall_prof_ms:.1f} ms; {text_p})")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"profile {label}   {t:9.2f} ms {n:6d} launches  {name[:100]}")
+
+
+def _solver_stages():
+    import tenstream_tpu_torch.pprts.solver as solver_mod
+
+    names = ("assemble_coeffs", "mask_coeffs", "solve_edir", "building_sources",
+             "thermal_source", "solve_bicgstab", "solve_richardson", "calc_flx_div")
+    return [(solver_mod, n) for n in names]
+
+
+def _mono_iters(sol) -> str:
+    return f"bicgstab {sol.niter_bicgstab}+{sol.thermal.niter_bicgstab} iterations"
 
 
 def profile_main(opp, Grid, PprtsSolver, sundir, seed):
@@ -688,9 +754,9 @@ def profile_main(opp, Grid, PprtsSolver, sundir, seed):
     def resolve(i):
         solver.set_optical_properties(
             0.15, *(np.roll(a, i % 2, axis=1) for a in (kabs, ksca, g)), planck=planck)
-        return solver.solve(lthermal=True, lsolar=True, edirTOA=1000.0)
+        return _mono_iters(solver.solve(lthermal=True, lsolar=True, edirTOA=1000.0))
 
-    phase_profile(solver, resolve, f"main {NX}x{NY}x{NZ}")
+    phase_profile(resolve, f"cloud {NX}x{NY}x{NZ} solar+thermal", _solver_stages())
 
 
 def profile_urban(opp, Grid, PprtsSolver, Buildings, sundir_from_angles, seed):
@@ -702,9 +768,31 @@ def profile_urban(opp, Grid, PprtsSolver, Buildings, sundir_from_angles, seed):
 
     def resolve(i):
         solver.set_angles(sundir_from_angles(*(SUN_MOVED if i % 2 else SUN)))
-        return solver.solve(lthermal=True, lsolar=True, edirTOA=1000.0)
+        return _mono_iters(solver.solve(lthermal=True, lsolar=True, edirTOA=1000.0))
 
-    phase_profile(solver, resolve, f"urban {NX}x{NY}x{URBAN_NZ}")
+    phase_profile(resolve, f"urban {NX}x{NY}x{URBAN_NZ} solar+thermal", _solver_stages())
+
+
+def profile_spectral(spec):
+    """Phase 12's solver: the cloud field rolled by one cell and back, a
+    warm re-solve of the whole spectrum each time."""
+    import tenstream_tpu_torch.spectral.specint as specint_mod
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
+
+    solver, atm, lwc, gas = spec
+
+    def resolve(i):
+        specint_mod.specint_pprts(solver, atm, albedo=0.15, lthermal=True, lsolar=True,
+                                  specint=gas, lwc=np.roll(lwc, i % 2, axis=1),
+                                  band_chunk=CHUNK)
+        it = [n for k, sol in solver.solutions.items() for n in sol.niter_diff]
+        return f"{len(it)} bands, niter sum {sum(it)}, max {max(it)}"
+
+    stages = _solver_stages() + [(PprtsSolver, "_collapse"), (specint_mod, "delta_scale"),
+                                 (EcckdGasOptics, "solar"), (EcckdGasOptics, "thermal"),
+                                 (EcckdGasOptics, "cloud_optprops_gpt")]
+    phase_profile(resolve, f"spectral {NX}x{NY}x{NZ} ecCKD {NGPT}+{NGPT}", stages)
 
 
 def phase_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, sundir, seed):
@@ -758,6 +846,173 @@ def phase_dense_vs_orbit(cuda_ops, opp, Grid, PprtsSolver, Options, sundir, seed
         outs.append(solve_and_report(solver, fields, cuda_ops,
                                      "dense-vs-orbit " + ("dense" if dense else "orbit"))[0])
     _compare_solves(f"dense vs orbit 64x64x{NZ}", outs)
+
+
+def make_spectral_solver(nx, ny, seed, opp, cache="f32"):
+    """bench.py's scene and solver set-up through the port: atm_collapse over
+    the leading run of 1-D layers, the warm cache `cache`."""
+    from tenstream_tpu_torch.core.config import Options
+    from tenstream_tpu_torch.pprts.grid import Grid
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+    from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
+
+    atm, lwc = build_bench_atm(nx, ny, seed)
+    grid = Grid.create(atm.nlay, nx, ny, 100.0, 100.0, atm.dz.astype(np.float32), device="cuda")
+    solver = PprtsSolver(grid, opp, options=Options({"specint_cache": cache}, read_env=False))
+    l1d = np.asarray(solver._l1d, bool)
+    K = int(np.argmin(l1d)) if not l1d.all() else len(l1d)
+    if K != K_COLLAPSE:
+        raise AssertionError(f"bench.py's column has {K} leading 1-D layers, expected "
+                             f"{K_COLLAPSE}")
+    solver.options.set("atm_collapse", K)
+    solver.set_angles(sundir_from_angles(*SPECTRAL_SUN))
+    return solver, atm, lwc, EcckdGasOptics(n_gpt=NGPT)
+
+
+def _band_niters(solver) -> dict:
+    """{(spectrum, band): niter} of the last spectral call."""
+    out = {}
+    for tag, rows in solver._band_rows.items():
+        for gid, (key, row) in rows.items():
+            sol = solver.solutions.get(key)
+            if sol is not None:
+                out[(tag, gid)] = sol.niter_diff[row]
+    return out
+
+
+def spectral_solve(spec, lwc, cuda_ops, label, report_chunks=True):
+    """One spectral call through `specint_pprts`: its wall, its kernel
+    launches, the per-chunk iterations and the lane checks."""
+    from tenstream_tpu_torch.spectral import specint_pprts
+
+    solver, atm, _, gas = spec
+    before = dict(cuda_ops.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = specint_pprts(solver, atm, albedo=0.15, lthermal=True, lsolar=True, specint=gas,
+                        lwc=lwc, band_chunk=CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: cuda_ops.LAUNCHES[k] - before[k] for k in before}
+    niters = []
+    for key, sol in sorted(solver.solutions.items(), key=str):
+        n, r, t = sol.niter_diff, sol.diff_res, sol.diff_tol
+        niters += n
+        bad = [i for i in range(len(n)) if not (r[i] <= 1.5 * t[i]) or n[i] >= 3000]
+        if report_chunks:
+            log(f"{label} chunk {key}: niter min/med/max = {min(n)}/{int(np.median(n))}/{max(n)}, "
+                f"res max = {max(r):.3e} (tol {max(t):.3e}), max res/tol "
+                f"{max(a / b for a, b in zip(r, t)):.4f}")
+        if bad:
+            raise AssertionError(f"{label} chunk {key}: lanes {bad} above 1.5 tol or at maxiter")
+    for name, a in zip(("edir", "edn", "eup", "abso"), res):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+    log(f"{label}: wall {wall * 1e3:.1f} ms, {len(niters)} bands, niter sum {sum(niters)} "
+        f"(max {max(niters)}), launches K1 {launches['fused_A_dots']} K2 "
+        f"{launches['orbit_contract']} K3 {launches['diffuse_apply_dense']}; TOA SW down "
+        f"{res.edir[0].mean().item():.3f}, OLR+SW up {res.eup[0].mean().item():.3f}, surface edir "
+        f"{res.edir[-1].mean().item():.3f} W/m2")
+    return res, wall, launches
+
+
+def heating_rates(res, atm, K):
+    """abso2hr on the solve grid: the super-layer's air is the column mass of
+    the K folded layers over their height."""
+    from tenstream_tpu_torch.atm import abso2hr
+    from tenstream_tpu_torch.core.types import GRAV, R_DRY_AIR
+
+    play, tlay = atm.play, atm.tlay
+    t0 = float(np.mean(tlay[:K]))
+    rho0 = (atm.plev[K] - atm.plev[0]) / GRAV / float(atm.dz[:K].sum())
+    play_s = np.concatenate([[rho0 * R_DRY_AIR * t0], play[K:]])
+    tlay_s = np.concatenate([[t0], tlay[K:]])
+    return abso2hr(res.abso, play_s[:, None, None], tlay_s[:, None, None])
+
+
+def phase_spectral(cuda_ops, opp, seed, smi):
+    """The main path: bench.py's full-spectrum solve at 256 x 256."""
+    from tenstream_tpu_torch.spectral.specint import resolve_cache_mode
+
+    spec = make_spectral_solver(NX, NY, seed, opp)
+    solver, atm, lwc, gas = spec
+    auto = resolve_cache_mode("auto", NGPT, solver.scheme.ndiff, solver.nz_solve, NX, NY)
+    log(f"spectral: {NX}x{NY}x{NZ}, atm_collapse {K_COLLAPSE} (solve grid {solver.nz_solve} "
+        f"layers), ecCKD {NGPT}+{NGPT}, chunks of {CHUNK}; specint_cache f32 "
+        f"(auto would resolve to {auto!r} here)")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launch_counts()
+    walls = {}
+    res, walls["cold"], _ = spectral_solve(spec, lwc, cuda_ops, "spectral cold")
+    res, walls["warm identical"], _ = spectral_solve(spec, lwc, cuda_ops, "spectral warm")
+    pert = []
+    for k in range(2):
+        lwc = np.roll(lwc, 1, axis=1 + (k % 2))
+        res, wall, _ = spectral_solve(spec, lwc, cuda_ops, f"spectral perturbed {k + 1}")
+        pert.append(wall)
+    launches = dict(cuda_ops.LAUNCHES)
+    spec = (solver, atm, lwc, gas)
+    mu = float(np.cos(np.deg2rad(SPECTRAL_SUN[1])))
+    want = float(gas.solar(atm).weight.sum()) * mu
+    toa = res.edir[0].mean().item()
+    log(f"spectral: walls " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in walls.items())
+        + f", perturbed {pert[0] * 1e3:.1f} / {pert[1] * 1e3:.1f} ms = "
+        f"{NX * NY / np.mean(pert):.1f} columns/s ({smi}); launches {launches}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    hr = heating_rates(res, atm, K_COLLAPSE)
+    # cloud-top cells (cloud under clear air) cool through their top face by
+    # about 100 K/day; the JAX package reaches 104 K/day there on this scene
+    # at 64x64 (tools/torch_heating_rates.py): every other cell stays below
+    cloud = torch.as_tensor(lwc[K_COLLAPSE - 1:] > 0, device=hr.device)
+    top = cloud[1:] & ~cloud[:-1]
+    hr_lay = hr[1:].abs()
+    k, i, j = np.unravel_index(int(hr.abs().argmax()), tuple(hr.shape))
+    hr_other = max(hr_lay[~top].max().item(), hr[0].abs().max().item())
+    log(f"spectral: TOA edir {toa:.3f} W/m2 vs sum of the solar weights x mu {want:.3f}; heating "
+        f"rates max |{hr.abs().max().item():.2f}| K/day at solve layer {k} ({i}, {j}); cloud-top "
+        f"cells up to {hr_lay[top].max().item():.2f} K/day ({int((hr_lay[top] > HR_MAX).sum())} of "
+        f"{int(top.sum())} above {HR_MAX:.0f}), every other cell up to {hr_other:.2f} K/day; "
+        f"column mean at the surface layer {hr[-1].mean().item():.3f} K/day")
+    if abs(toa - want) > 0.01 * want:
+        raise AssertionError(f"spectral: TOA edir {toa} differs from {want} by more than 1%")
+    if not (bool(torch.isfinite(hr).all()) and hr_other < HR_MAX):
+        raise AssertionError(f"spectral: heating rates non-finite or above {HR_MAX} K/day "
+                             "outside the cloud tops")
+    for name in ("fused_A_dots", "orbit_contract"):
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+    return launches, spec
+
+
+def phase_spectral_parity(cuda_ops, ediff, opp, seed):
+    """The 64 x 64 spectral solve through K1/K2 and through their plain
+    versions: fluxes, absorption and the iterations of every band."""
+    outs, iters = [], []
+    for plain in (False, True):
+        spec = make_spectral_solver(64, 64, seed, opp)
+        saved = (ediff.fused_A_dots, cuda_ops.orbit_contract)
+        if plain:
+            ediff.fused_A_dots = (lambda scheme, idx, orb, u, w, alb:
+                                  cuda_ops.fused_A_dots_plain(scheme, idx, orb, u, w, alb))
+            cuda_ops.orbit_contract = (lambda scheme, idx, orb, src:
+                                       cuda_ops.orbit_contract_plain(idx, orb, src))
+        try:
+            res, _, launches = spectral_solve(
+                spec, spec[2], cuda_ops, "spectral parity " + ("plain" if plain else "kernels"),
+                report_chunks=False)
+        finally:
+            ediff.fused_A_dots, cuda_ops.orbit_contract = saved
+        if plain != (launches["fused_A_dots"] == 0):
+            raise AssertionError("spectral parity: K1 launched where it should not, or not at all")
+        outs.append(tuple(res))
+        iters.append(_band_niters(spec[0]))
+    _compare_solves(f"spectral parity 64x64x{NZ} kernels vs plain", outs)
+    differ = {k: (iters[0][k], iters[1][k]) for k in iters[0] if iters[0][k] != iters[1].get(k)}
+    log(f"spectral parity: {len(iters[0])} bands, niter equal in "
+        f"{len(iters[0]) - len(differ)}" + (f"; differ {differ}" if differ else ""))
+    if differ or iters[0].keys() != iters[1].keys():
+        raise AssertionError(f"spectral parity: per-band iterations differ {differ}")
 
 
 # ---------------------------------------------------------------------------
@@ -966,16 +1221,20 @@ def main():
     opp = OptProp(LUT.load(LUT_PATH, device="cuda"), device="cuda")
     idx = opp._solver_orbit_idx
     sundir = sundir_from_angles(*SUN)
-    report = phase_kernels(cuda_ops, opp.scheme, idx, NZ, NX, NY)
+    report = phase_kernels(cuda_ops, opp.scheme, idx, NX, NY)
     report["diffuse_apply_dense"] = phase_kernel_dense(cuda_ops, opp.scheme, URBAN_NZ, NX, NY)
-    launches = phase_main(cuda_ops, opp, Grid, PprtsSolver, sundir, args.seed)
+    phase_main(cuda_ops, opp, Grid, PprtsSolver, sundir, args.seed)
     phase_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, sundir, args.seed)
     urban = phase_urban(cuda_ops, opp, Grid, PprtsSolver, Buildings, sundir_from_angles, args.seed)
-    launches["diffuse_apply_dense"] = urban["diffuse_apply_dense"]
     phase_urban_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, Buildings, sundir, args.seed)
     phase_dense_vs_orbit(cuda_ops, opp, Grid, PprtsSolver, Options, sundir, args.seed)
+    launches, spec = phase_spectral(cuda_ops, opp, args.seed, smi)
+    launches["diffuse_apply_dense"] = urban["diffuse_apply_dense"]
+    phase_spectral_parity(cuda_ops, ediff, opp, args.seed)
     profile_main(opp, Grid, PprtsSolver, sundir, args.seed)
     profile_urban(opp, Grid, PprtsSolver, Buildings, sundir_from_angles, args.seed)
+    profile_spectral(spec)
+    del spec
     report["boxmc_trace"] = phase_boxmc(cuda_tracer, lutgen, args.seed)
     launches["boxmc_trace"] = phase_lut(cuda_ops, cuda_tracer, lutgen, LUT, OptProp, Grid,
                                         PprtsSolver, sundir, args.seed)

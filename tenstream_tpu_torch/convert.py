@@ -8,7 +8,9 @@ solve with identical tables; the tables pass through unchanged, a
 diff2diff table that is not symmetrized included (the port's `OptProp`
 then keeps the dense coefficient form, as the JAX one does).
 `buildings_from_arrays` does the same for the fields of a JAX
-`Buildings`.
+`Buildings`, and `atmosphere_from_arrays` for an `Atmosphere` (the
+spectral driver's input, host float64 arrays that pass through as
+copies).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tenstream_tpu_torch.atm import Atmosphere
 from tenstream_tpu_torch.optprop.lut import LUT, LUTAxes
 from tenstream_tpu_torch.pprts.buildings import Buildings
 
@@ -45,3 +48,14 @@ def buildings_from_arrays(solid, albedo, planck=None, temp=None, device="cuda") 
     f = lambda v: None if v is None else torch.as_tensor(np.array(v, np.float32), device=device)
     return Buildings(torch.as_tensor(np.array(solid, bool), device=device), float(albedo),
                      f(planck), f(temp))
+
+
+def atmosphere_from_arrays(obj) -> Atmosphere:
+    """The port's `Atmosphere` from any object with the JAX `Atmosphere`'s
+    fields (plev, tlev, zlev, gases and the optional cloud fields)."""
+    opt = lambda v: None if v is None else np.array(v)
+    return Atmosphere(
+        plev=np.array(obj.plev), tlev=np.array(obj.tlev), zlev=np.array(obj.zlev),
+        gases={k: np.array(v) for k, v in obj.gases.items()},
+        lwc=opt(obj.lwc), reliq=opt(obj.reliq), iwc=opt(obj.iwc), reice=opt(obj.reice),
+        cfrac=opt(obj.cfrac), skin_temperature=opt(obj.skin_temperature))

@@ -1,11 +1,14 @@
-"""Effective Planck emission across a layer (port of `b_eff_mu` / `b_eff`
-from `tenstream_tpu/ops/planck.py`; reference `src/schwarzschild.F90:36-66`).
+"""Planck emission (port of `b_eff_mu`, `b_eff` and
+`planck_radiance_wavenumber` from `tenstream_tpu/ops/planck.py`;
+reference `src/schwarzschild.F90:36-66`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tenstream_tpu_torch.core.types import C_SPEED_OF_LIGHT, H_PLANCK, K_BOLTZMANN, ireals
 
 
 def gauss_legendre_01(n: int):
@@ -37,3 +40,22 @@ def b_eff(b_far, b_near, tau, nmu: int = 2):
         mu32, w32 = float(np.float32(mu)), float(np.float32(w))
         b = b + b_eff_mu(b_far, b_near, tau, mu32) * mu32 * w32
     return b * 2.0
+
+
+def planck_radiance_wavenumber(wvn_lo_cm: float, wvn_hi_cm: float, T, n_quad: int = 16):
+    """Band-integrated Planck radiance [W/m2/sr] between two wavenumbers
+    [1/cm] by Gauss-Legendre quadrature over wavenumber, in float32 like
+    the JAX function (the nodes and weights are float64 on the host)."""
+    T = torch.as_tensor(T, dtype=ireals)
+    nu_lo, nu_hi = wvn_lo_cm * 100.0, wvn_hi_cm * 100.0  # [1/m]
+    x, w = np.polynomial.legendre.leggauss(n_quad)
+    nu = 0.5 * (nu_hi + nu_lo) + 0.5 * (nu_hi - nu_lo) * x
+    wq = 0.5 * (nu_hi - nu_lo) * w
+    c1 = 2.0 * H_PLANCK * C_SPEED_OF_LIGHT ** 2
+    c2 = H_PLANCK * C_SPEED_OF_LIGHT / K_BOLTZMANN
+    out = torch.zeros_like(T)
+    for nui, wi in zip(nu, wq):
+        # B_nu = c1 nu^3 / (exp(c2 nu / T) - 1)
+        out = out + float(np.float32(wi * c1 * nui ** 3)) / torch.expm1(
+            float(np.float32(c2 * nui)) / T)
+    return out

@@ -25,31 +25,35 @@ from tenstream_tpu_torch.streams import StreamScheme
 
 def gather_diff_dst(scheme: StreamScheme, b: torch.Tensor) -> torch.Tensor:
     """Per-cell view of what each cell deposited at its dst faces (the
-    inverse of `scatter_diff_dst`)."""
+    inverse of `scatter_diff_dst`): (..., ndiff, Nz+1, Nx, Ny) ->
+    (..., ndiff, Nz, Nx, Ny)."""
     axis = scheme.diff_axis()
     inward = scheme.diff_inward()
     rows = []
     for d in range(scheme.ndiff):
-        v = b[d]
+        v = b[..., d, :, :, :]
         if axis[d] == 0:
-            rows.append(v[1:] if inward[d] else v[:-1])
+            rows.append(v[..., 1:, :, :] if inward[d] else v[..., :-1, :, :])
         elif inward[d]:
-            rows.append(torch.roll(v[:-1], -1, dims=axis[d]))
+            rows.append(torch.roll(v[..., :-1, :, :], -1, dims=axis[d] - 3))
         else:
-            rows.append(v[:-1])
-    return torch.stack(rows, dim=0)
+            rows.append(v[..., :-1, :, :])
+    return torch.stack(rows, dim=-4)
 
 
 def _top_only(scheme_ntop: int, n: int, top: torch.Tensor) -> torch.Tensor:
-    """(n,) + top.shape: `top` on the first scheme_ntop dofs, zero after."""
-    return torch.cat([top[None].expand((scheme_ntop,) + tuple(top.shape)),
-                      top.new_zeros((n - scheme_ntop,) + tuple(top.shape))], dim=0)
+    """(..., n, Nz, Nx, Ny): `top` (..., Nz, Nx, Ny) on the first
+    scheme_ntop dofs, zero after."""
+    t = top.unsqueeze(-4)
+    lead, cells = tuple(top.shape[:-3]), tuple(top.shape[-3:])
+    return torch.cat([t.expand(lead + (scheme_ntop,) + cells),
+                      top.new_zeros(lead + (n - scheme_ntop,) + cells)], dim=-4)
 
 
 def calc_flx_div(
     scheme: StreamScheme,
     diff2diff,
-    ediff: torch.Tensor,  # [W]
+    ediff: torch.Tensor,  # ([B,] ndiff, Nz+1, Nx, Ny) [W]
     volumes: torch.Tensor,  # (Nz, Nx, Ny)
     l1d: np.ndarray,
     kabs: torch.Tensor,
@@ -67,7 +71,8 @@ def calc_flx_div(
     1 - sum_dst(dir2dir) - sum_dst(dir2diff), reduced before the diffuse
     solve so the direct coefficient fields can be freed first."""
     l1d_mask = torch.as_tensor(np.asarray(l1d, bool), device=ediff.device)[None, :, None, None]
-    abso = torch.zeros(tuple(volumes.shape), dtype=ediff.dtype, device=ediff.device)
+    abso = torch.zeros(tuple(ediff.shape[:-4]) + tuple(volumes.shape), dtype=ediff.dtype,
+                       device=ediff.device)
 
     if edir is not None and cdiv_dir is not None:
         src = gather_dir_src(scheme, edir, sun.xinc, sun.yinc)
@@ -76,15 +81,15 @@ def calc_flx_div(
         mu = max(float(sun.mu), 1e-6)
         bl = -torch.expm1(-kabs * dz3d / mu)
         cdiv = torch.where(l1d_mask, _top_only(scheme.dirtop.dof, scheme.ndir, bl), cdiv_dir)
-        abso = abso + (src * cdiv).sum(dim=0)
+        abso = abso + (src * cdiv).sum(dim=-4)
 
     src = gather_diff_src(scheme, ediff)
     cdiv = torch.clamp(1.0 - diff_dst_sums(diff2diff), 0.0, 1.0)
     cdiv_1d_top = torch.clamp(1.0 - a11 - a12, 0.0, 1.0)
     cdiv = torch.where(l1d_mask, _top_only(scheme.difftop.dof, scheme.ndiff, cdiv_1d_top), cdiv)
-    abso = abso + (src * cdiv).sum(dim=0)
+    abso = abso + (src * cdiv).sum(dim=-4)
 
     if b_thermal is not None:
-        abso = abso - gather_diff_dst(scheme, b_thermal).sum(dim=0)
+        abso = abso - gather_diff_dst(scheme, b_thermal).sum(dim=-4)
 
     return abso / volumes

@@ -1,10 +1,17 @@
 """Per-cell transfer-coefficient field assembly (port of
 `tenstream_tpu/pprts/coeffs.py`: `assemble_coeffs` in orbit and dense
-form, `determine_1d_layers`, `_onedee_blocks`, `_onedee_diff_orbit`).
+form, `determine_1d_layers`, `_onedee_blocks`, `_onedee_diff_orbit`, and
+the atmosphere-collapse folds `fold_eddington_adding`,
+`fold_thermal_emission`, `onedee_blocks_collapsed`).
 
 3-D layers interpolate the LUT; layers flagged 1-D (aspect >=
 twostr_ratio) get analytic delta-Eddington blocks, so the solvers have
 no 1-D special case.  The LUT lookups run on the 3-D layers only.
+
+A band chunk is assembled in one pass: its lanes are cellwise
+independent, so `assemble_coeffs` lays the (B, Nz, Nx, Ny) fields side by
+side along x, runs one lookup over all of them, and hands back the fields
+with the lane dim leading.
 """
 
 from __future__ import annotations
@@ -80,7 +87,7 @@ def assemble_coeffs(
     g: torch.Tensor,
     dz3d: torch.Tensor,
     dx: float,
-    l1d: np.ndarray,  # (Nz,) bool, host
+    l1d: np.ndarray,
     sun: Optional[SunInfo],
     need_dir: bool,
     orbit: bool = False,
@@ -89,7 +96,44 @@ def assemble_coeffs(
     a33).  orbit=True stores diff2diff as `OrbitCoeff` (needs a
     symmetrized LUT), else as the dense (ndiff, ndiff, Nz, Nx, Ny) tensor.
     dz3d may be (Nz, 1, 1) (per-layer thickness, which lets the lookup
-    take the one-hot path) or full."""
+    take the one-hot path) or full (Nz, Nx, Ny).
+
+    kabs/ksca/g may carry a leading lane dim B (a band chunk); the fields
+    then come back as (B, ...) with one lookup over all lanes."""
+    if kabs.dim() == 3:
+        return _assemble(scheme, opp, kabs, ksca, g, dz3d, dx, l1d, sun, need_dir, orbit)
+    B, nz, nx, ny = kabs.shape
+    side = lambda a: a.permute(1, 0, 2, 3).reshape(nz, B * nx, ny)
+    dz_s = dz3d if tuple(dz3d.shape[-2:]) == (1, 1) else side(dz3d.expand(B, nz, nx, ny))
+    coeffs, edd = _assemble(scheme, opp, side(kabs), side(ksca), side(g), dz_s, dx, l1d, sun,
+                            need_dir, orbit)
+
+    def back(a):  # (..., Nz, B*Nx, Ny) -> (B, ..., Nz, Nx, Ny)
+        lead = tuple(a.shape[:-3])
+        a = a.reshape(lead + (nz, B, nx, ny))
+        return torch.movedim(a, len(lead) + 1, 0).contiguous()
+
+    dd = None if coeffs.dir2dir is None else back(coeffs.dir2dir)
+    df = None if coeffs.dir2diff is None else back(coeffs.dir2diff)
+    ff = coeffs.diff2diff
+    ff = OrbitCoeff(back(ff.orb), ff.idx) if isinstance(ff, OrbitCoeff) else back(ff)
+    return CoeffFields(dd, df, ff), tuple(back(a) for a in edd)
+
+
+def _assemble(
+    scheme: StreamScheme,
+    opp,
+    kabs: torch.Tensor,
+    ksca: torch.Tensor,
+    g: torch.Tensor,
+    dz3d: torch.Tensor,
+    dx: float,
+    l1d: np.ndarray,  # (Nz,) bool, host
+    sun: Optional[SunInfo],
+    need_dir: bool,
+    orbit: bool = False,
+) -> Tuple[CoeffFields, Tuple[torch.Tensor, ...]]:
+    """`assemble_coeffs` on unbatched (Nz, Nx, Ny) fields."""
     if orbit and getattr(opp, "_solver_orbit_idx", None) is None:
         raise ValueError("orbit coefficient storage needs a symmetrized LUT")
     tauz, w0, aspect = optical_state(kabs, ksca, dz3d, dx)
@@ -126,3 +170,76 @@ def determine_1d_layers(dz3d: torch.Tensor, dx: float, twostr_ratio: float) -> n
     bool array; reference `determine_1d_layers`)."""
     aspect = dz3d / dx
     return (aspect.amax(dim=(1, 2)) >= twostr_ratio).cpu().numpy()
+
+
+def fold_thermal_emission(a11, a12, btop, bbot):
+    """Fold per-layer thermal emission (btop up at each layer top, bbot
+    down at each bottom, emissivity applied) through the stack with the
+    exact interface recursion of `fold_eddington_adding`.  Inputs have
+    the layer axis leading, (K, ...).  Returns the stack's emission
+    leaving its top and its bottom face (block-model exact, in-stack
+    scattering included)."""
+    T, Rb, Eup, Edn = a11[0], a12[0], btop[0], bbot[0]
+    for k in range(1, a11.shape[0]):
+        t, r, s_up, s_dn = a11[k], a12[k], btop[k], bbot[k]
+        denom = 1.0 - Rb * r
+        B = (r * Edn + s_up) / denom
+        A = Edn + Rb * B
+        Edn = t * A + s_dn
+        Eup = Eup + T * B
+        T, Rb = T * t / denom, r + t * Rb * t / denom
+    return Eup, Edn
+
+
+def fold_eddington_adding(a11, a12, a13, a23, a33):
+    """Fold a stack of plane-parallel layers into ONE effective layer by
+    the exact adding method (reference `adding`, `src/pprts.F90:2125-2198`,
+    whose interface denominator uses the top reflectivity where the
+    bottom one belongs; here the Schur elimination is exact).
+
+    Inputs are per-layer symmetric two-stream sets with the layer axis
+    leading, (K, ...).  Returns the asymmetric combined set
+    (Ttop, Rtop, Tbot, Rbot, rdir, sdir, tdir): Ttop/Rtop act on
+    radiation from the top, Tbot/Rbot from below, (rdir, sdir, tdir) the
+    direct->diffuse up/down and direct->direct transmissions."""
+    T, Rt, Rb, tdir, rdir, sdir = a11[0], a12[0], a12[0], a33[0], a13[0], a23[0]
+    for k in range(1, a11.shape[0]):
+        t, r, s_up, s_dn, t_dir = a11[k], a12[k], a13[k], a23[k], a33[k]
+        denom = 1.0 - Rb * r
+        T2 = T * t / denom
+        Rt2 = Rt + T * r * T / denom
+        Rb2 = r + t * Rb * t / denom
+        # the new layer's upward source bounces between the composite
+        # bottom (Rb) and the layer top (r)
+        B = (r * sdir + s_up * tdir) / denom
+        A = sdir + Rb * B
+        sdir = t * A + s_dn * tdir
+        rdir = rdir + T * B
+        tdir = tdir * t_dir
+        T, Rt, Rb = T2, Rt2, Rb2
+    return T, Rt, T, Rb, rdir, sdir, tdir
+
+
+def onedee_blocks_collapsed(scheme: StreamScheme, folded):
+    """Per-cell blocks of the collapsed super-layer from the folded set:
+    downward top dofs transmit Ttop / reflect Rtop, upward ones Tbot /
+    Rbot.  Returns (dir2dir, dir2diff, diff2diff) shaped
+    (..., nd, nd, Nx, Ny) / (..., nd, nf, Nx, Ny) / (..., nf, nf, Nx, Ny)
+    for folded fields shaped (..., Nx, Ny)."""
+    Ttop, Rtop, Tbot, Rbot, rdir, sdir, tdir = folded
+    lead, hw = tuple(Ttop.shape[:-2]), tuple(Ttop.shape[-2:])
+    nd, nf = scheme.ndir, scheme.ndiff
+    inward = scheme.diff_inward()
+    inv = scheme.diff_inv_dof()
+    wtop = scheme.difftop_weights()
+    z = lambda n, m: torch.zeros(lead + (n, m) + hw, dtype=Ttop.dtype, device=Ttop.device)
+    dir2dir, dir2diff, diff2diff = z(nd, nd), z(nd, nf), z(nf, nf)
+    for t in range(scheme.dirtop.dof):
+        dir2dir[..., t, t, :, :] = tdir
+        for d in range(scheme.difftop.dof):
+            dir2diff[..., t, d, :, :] = (sdir if inward[d] else rdir) * float(wtop[d])
+    # (src, dst): src d transmits into dst d and reflects into dst inv[d]
+    for d in range(scheme.difftop.dof):
+        diff2diff[..., d, d, :, :] = Ttop if inward[d] else Tbot
+        diff2diff[..., d, int(inv[d]), :, :] = Rtop if inward[d] else Rbot
+    return dir2dir, dir2diff, diff2diff

@@ -251,13 +251,15 @@ def orbit_contract(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
 
 def diffuse_apply_orbit(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
                         x: torch.Tensor, albedo2d: torch.Tensor) -> torch.Tensor:
-    """S(x) for one unbatched field x (nd, Nz+1, Nx, Ny): gather -> K2 ->
-    scatter, plus the surface closure (`ediff._make_apply`'s orbit path)."""
+    """S(x) for x ([B,] nd, Nz+1, Nx, Ny) on the orbit field orb ([B,] norb,
+    Nz, Nx, Ny): gather -> K2 (one launch for the whole chunk) -> scatter,
+    plus the surface closure (`ediff._make_apply`'s orbit path)."""
     from tenstream_tpu_torch.pprts.operators import add_surface_reflection
 
-    src = gather_diff_src(scheme, x)
-    contrib = orbit_contract(scheme, idx, orb[None], src[None])[0]
-    out = scatter_diff_dst(scheme, contrib)
+    lanes = x.dim() == 5
+    src = gather_diff_src(scheme, x if lanes else x[None])
+    contrib = orbit_contract(scheme, idx, orb if lanes else orb[None], src)
+    out = scatter_diff_dst(scheme, contrib if lanes else contrib[0])
     return add_surface_reflection(scheme, out, x, albedo2d)
 
 

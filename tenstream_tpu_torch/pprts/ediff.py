@@ -17,19 +17,28 @@ On CUDA tensors the kernels run; on CPU tensors their plain versions.
 A dense coefficient field may be stored in bfloat16: the kernels and the
 preconditioners read it as float32.
 
-JAX keeps the iteration in a `lax.while_loop` on the device.  Here the
-loop is a Python loop, and each iteration synchronises with the host
-exactly once: one small tensor of scalars (residual, the dots the next
+Both solvers take a band chunk: b of shape (B, ndiff, Nz+1, Nx, Ny) is B
+independent systems (lanes) solved together, the counterpart of the JAX
+package's `jax.vmap` over its `lax.while_loop` solvers.  Every scalar of
+the iteration is per lane; a lane that has converged or stalled is
+frozen -- its iterate and its counts no longer change -- and the loop
+ends when every lane has stopped.  Each kernel launch carries the whole
+chunk.  An unbatched b (ndiff, Nz+1, Nx, Ny) is a chunk of one and
+returns plain numbers.
+
+JAX keeps the iteration on the device.  Here the loop is a Python loop,
+and each iteration synchronises with the host exactly once for the whole
+chunk: one small tensor of per-lane scalars (residual, the dots the next
 iteration's restart and breakdown tests need, a finiteness probe) comes
 back in a single transfer.  The scalars that feed vector updates (alpha,
-omega, rho) stay 0-d device tensors.  Both solvers return the number of
+omega, rho) stay (B,) device tensors.  Both solvers return the number of
 host syncs they made.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
@@ -70,25 +79,45 @@ def _make_pc(scheme: StreamScheme, coeff, albedo2d, precond) -> Callable:
 
 
 def _make_apply(scheme: StreamScheme, coeff, albedo2d) -> Callable:
-    """S(x) with the surface closure: gather -> K2 -> scatter on orbit
-    coefficients, K3 on dense ones."""
+    """S(x) with the surface closure on ([B,] ndiff, Nz+1, Nx, Ny): gather ->
+    K2 -> scatter on orbit coefficients, K3 on dense ones."""
     if isinstance(coeff, OrbitCoeff):
         return lambda x: diffuse_apply_orbit(scheme, coeff.idx, coeff.orb, x, albedo2d)
-    cb = coeff[None]
-    return lambda x: add_surface_reflection(
-        scheme, diffuse_apply_dense(scheme, cb, x[None])[0], x, albedo2d)
+
+    def apply(x):
+        if x.dim() == 5:
+            out = diffuse_apply_dense(scheme, coeff, x)
+        else:
+            out = diffuse_apply_dense(scheme, coeff[None], x[None])[0]
+        return add_surface_reflection(scheme, out, x, albedo2d)
+
+    return apply
 
 
 def _line_blocks(scheme: StreamScheme, coeff):
+    """(d_up, d_dn, a_dn, b_dn, a_up, b_up) with the blocks' layer axis
+    moved to the front: (Nz, ..., Nx, Ny) float32."""
     inward = scheme.diff_inward()
     d_up = 0 if not inward[0] else 1
     d_dn = 1 - d_up
     if isinstance(coeff, OrbitCoeff):
-        e = lambda s, d: coeff.entry(s, d).float()
+        e = lambda s, d: torch.movedim(coeff.entry(s, d).float(), -3, 0)
     else:
-        e = lambda s, d: coeff[s, d].float()
-    # (Nz, Nx, Ny): src Edn -> dst Edn, src Eup -> dst Edn, ...
+        e = lambda s, d: torch.movedim(coeff[..., s, d, :, :, :].float(), -3, 0)
+    # src Edn -> dst Edn, src Eup -> dst Edn, ...
     return d_up, d_dn, e(d_dn, d_dn), e(d_up, d_dn), e(d_up, d_up), e(d_dn, d_up)
+
+
+def _dof(r: torch.Tensor, d: int) -> torch.Tensor:
+    """Stream d of r (..., ndof, Nz+1, Nx, Ny) with its level axis first."""
+    return torch.movedim(r[..., d, :, :, :], -3, 0)
+
+
+def _with_vertical(r: torch.Tensor, d_dn: int, d_up: int, Edn, Eup) -> torch.Tensor:
+    x = r.clone()
+    x[..., d_dn, :, :, :] = torch.movedim(Edn, 0, -3)
+    x[..., d_up, :, :, :] = torch.movedim(Eup, 0, -3)
+    return x
 
 
 def vertical_line_solve(scheme: StreamScheme, coeff, r: torch.Tensor,
@@ -100,12 +129,12 @@ def vertical_line_solve(scheme: StreamScheme, coeff, r: torch.Tensor,
     if scheme.difftop.dof != 2:
         return r
     d_up, d_dn, a_dn, b_dn, a_up, b_up = _line_blocks(scheme, coeff)
-    r_dn, r_up = r[d_dn], r[d_up]
+    r_dn, r_up = _dof(r, d_dn), _dof(r, d_up)
     nz = a_dn.shape[0]
     R = [None] * (nz + 1)
     Q = [None] * (nz + 1)
     D = [None] * nz
-    R[nz], Q[nz] = albedo2d, r_up[-1]
+    R[nz], Q[nz] = albedo2d.expand_as(r_up[-1]), r_up[-1]
     for k in range(nz - 1, -1, -1):
         D[k] = 1.0 - b_dn[k] * R[k + 1]
         R[k] = b_up[k] + a_up[k] * R[k + 1] * a_dn[k] / D[k]
@@ -114,10 +143,7 @@ def vertical_line_solve(scheme: StreamScheme, coeff, r: torch.Tensor,
     for k in range(nz):
         edn.append((a_dn[k] * edn[k] + b_dn[k] * Q[k + 1] + r_dn[k + 1]) / D[k])
     Edn = torch.stack(edn, 0)
-    x = r.clone()
-    x[d_dn] = Edn
-    x[d_up] = torch.stack(R, 0) * Edn + torch.stack(Q, 0)
-    return x
+    return _with_vertical(r, d_dn, d_up, Edn, torch.stack(R, 0) * Edn + torch.stack(Q, 0))
 
 
 def _affine_prefix(A: torch.Tensor, c: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
@@ -136,14 +162,15 @@ def _affine_suffix(A: torch.Tensor, c: torch.Tensor, xn: torch.Tensor) -> torch.
 def make_line_pc(scheme: StreamScheme, coeff, albedo2d: torch.Tensor) -> Callable:
     """Factored vertical-line preconditioner: the r-independent R/D
     elimination runs once here; each apply is two log-depth affine scans
-    (same math as `vertical_line_solve`)."""
+    (same math as `vertical_line_solve`).  Lanes of a band chunk are
+    factorised and applied together."""
     if scheme.difftop.dof != 2:
         return lambda r: r
     d_up, d_dn, a_dn, b_dn, a_up, b_up = _line_blocks(scheme, coeff)
     nz = a_dn.shape[0]
     R_next = [None] * nz
     D = [None] * nz
-    R = albedo2d.float()
+    R = albedo2d.float().expand_as(a_dn[0])
     for k in range(nz - 1, -1, -1):
         R_next[k] = R
         D[k] = 1.0 - b_dn[k] * R
@@ -160,15 +187,48 @@ def make_line_pc(scheme: StreamScheme, coeff, albedo2d: torch.Tensor) -> Callabl
     inv_D = 1.0 / D
 
     def M(r):
-        r_dn, r_up = r[d_dn], r[d_up]
+        r_dn, r_up = _dof(r, d_dn), _dof(r, d_up)
         Q_all = _affine_suffix(A_q, f_dn * r_dn[1:] + r_up[:-1], r_up[-1])
         Edn = _affine_prefix(A_e, (b_dn * Q_all[1:] + r_dn[1:]) * inv_D, r_dn[0])
-        x = r.clone()
-        x[d_dn] = Edn
-        x[d_up] = R_all * Edn + Q_all
-        return x
+        return _with_vertical(r, d_dn, d_up, Edn, R_all * Edn + Q_all)
 
     return M
+
+
+def _lanes(coeff, b: torch.Tensor, x0: Optional[torch.Tensor]):
+    """(coeff, b, x0) with a lane dim, and whether the caller passed one."""
+    if b.dim() == 5:
+        return coeff, b, x0, True
+    coeff = OrbitCoeff(coeff.orb[None], coeff.idx) if isinstance(coeff, OrbitCoeff) else coeff[None]
+    return coeff, b[None], None if x0 is None else x0[None], False
+
+
+def _lane_dots(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B,) per-lane dot products of (B, ...) fields."""
+    return (u * v).reshape(u.shape[0], -1).sum(dim=1)
+
+
+def _per_lane(v: torch.Tensor) -> torch.Tensor:
+    """(B,) lane scalars -> (B, 1, 1, 1, 1) for vector updates."""
+    return v[:, None, None, None, None]
+
+
+def _lane_tensor(vals, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Host values per lane as a device tensor.  On the card the copy goes
+    through pinned memory without waiting for the device: a plain copy to
+    the card would synchronise the stream a second time per iteration."""
+    t = torch.tensor(vals, dtype=dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _keep_lanes(new: torch.Tensor, old: torch.Tensor, frozen: List[int]) -> torch.Tensor:
+    """`new` with the frozen lanes' values taken from `old`."""
+    if frozen:
+        idx = _lane_tensor(frozen, torch.int64, new.device)
+        new[idx] = old[idx]
+    return new
 
 
 def solve_richardson(
@@ -177,56 +237,74 @@ def solve_richardson(
     b: torch.Tensor,
     albedo2d: torch.Tensor,
     x0: Optional[torch.Tensor] = None,
-    omega0: float = 1.0,
+    omega0: Union[float, Sequence[float]] = 1.0,
     rtol: float = 1e-5,
     atol: float = 1e-8,
     max_iter: int = 3000,
     precond="line",
-    tol: Optional[float] = None,
-) -> Tuple[torch.Tensor, int, float, float, int]:
+    tol: Union[None, float, Sequence[float]] = None,
+):
     """Adaptive-omega preconditioned Richardson iteration.  Returns
-    (x, niter, omega_final, res, host_syncs).
+    (x, niter, omega_final, res, host_syncs); for a band chunk niter,
+    omega_final and res are per-lane lists, and omega0 / tol may be too.
 
     `tol` replaces the relative-to-first-residual stop with an absolute
     residual target (the polish after BiCGStab).  As in the JAX loop, the
-    residual tested is that of the iterate before the step, so a solve
+    residual tested is that of the iterate before the step, so a lane
     that is already converged still takes one step."""
+    coeff, b, x0, lanes = _lanes(coeff, b, x0)
+    nb = b.shape[0]
     x = torch.zeros_like(b) if x0 is None else x0
     M = _make_pc(scheme, coeff, albedo2d, precond)
     S_apply = _make_apply(scheme, coeff, albedo2d)
+    lane_list = lambda v: [float(a) for a in v] if isinstance(v, (list, tuple)) else [float(v)] * nb
+    tols = None if tol is None else lane_list(tol)
 
     # omega <= 1: this is a Jacobi-type iteration, for which omega > 1
     # diverges once the scattering operator's spectral radius nears 1
     omega_min, omega_max = 0.6, 1.0
-    it, res, res0, res_prev2 = 0, math.inf, 1.0, math.inf
-    omega, omega_dir, omega_step, log_rate_prev = float(omega0), 1.0, 0.05, 0.0
+    it = [0] * nb
+    res, res0, res_prev2 = [math.inf] * nb, [1.0] * nb, [math.inf] * nb
+    omega = lane_list(omega0)
+    omega_dir, omega_step, log_rate_prev = [1.0] * nb, [0.05] * nb, [0.0] * nb
     syncs = 0
 
-    def unconverged():
-        if tol is not None:
-            return res >= tol
-        return res >= atol and res >= rtol * res0
+    def running(i):
+        if it[i] >= max_iter:
+            return False
+        if tols is not None:
+            return res[i] >= tols[i]
+        return res[i] >= atol and res[i] >= rtol * res0[i]
 
-    while it < max_iter and unconverged():
+    active = [running(i) for i in range(nb)]
+    while any(active):
         r = b + S_apply(x) - x
-        res_dev = torch.linalg.vector_norm(r)
-        x = x + omega * M(r)
-        res_new = float(res_dev)  # the iteration's one host sync
+        res_dev = torch.linalg.vector_norm(r.reshape(nb, -1), dim=1)
+        om = _lane_tensor(omega, b.dtype, b.device)
+        x = _keep_lanes(x + _per_lane(om) * M(r), x, [i for i in range(nb) if not active[i]])
+        res_new = res_dev.tolist()  # the iteration's one host sync
         syncs += 1
-        if it == 0:
-            res0 = max(res_new, 1e-30)
-        # adaptive omega controller (log-rate feedback)
-        if it >= 2 and res_new > 0 and res_prev2 > 0:
-            log_rate = 0.5 * math.log(max(res_new, 1e-30) / max(res_prev2, 1e-30))
-            if log_rate < log_rate_prev:
-                omega_step = min(omega_step * 1.3, omega_max - omega_min)
-            else:
-                omega_step = max(omega_step * 0.5, 0.01)
-                omega_dir = -omega_dir
-            omega = min(max(omega + omega_dir * omega_step, omega_min), omega_max)
-            log_rate_prev = log_rate
-        it, res_prev2, res = it + 1, res, res_new
-    return x, it, omega, res, syncs
+        for i in range(nb):
+            if not active[i]:
+                continue
+            rn = res_new[i]
+            if it[i] == 0:
+                res0[i] = max(rn, 1e-30)
+            # adaptive omega controller (log-rate feedback)
+            if it[i] >= 2 and rn > 0 and res_prev2[i] > 0:
+                log_rate = 0.5 * math.log(max(rn, 1e-30) / max(res_prev2[i], 1e-30))
+                if log_rate < log_rate_prev[i]:
+                    omega_step[i] = min(omega_step[i] * 1.3, omega_max - omega_min)
+                else:
+                    omega_step[i] = max(omega_step[i] * 0.5, 0.01)
+                    omega_dir[i] = -omega_dir[i]
+                omega[i] = min(max(omega[i] + omega_dir[i] * omega_step[i], omega_min), omega_max)
+                log_rate_prev[i] = log_rate
+            it[i], res_prev2[i], res[i] = it[i] + 1, res[i], rn
+            active[i] = running(i)
+    if lanes:
+        return x, it, omega, res, syncs
+    return x[0], it[0], omega[0], res[0], syncs
 
 
 def _safe(v: torch.Tensor, eps: float) -> torch.Tensor:
@@ -244,36 +322,41 @@ def solve_bicgstab(
     atol: float = 1e-8,
     maxiter: int = 1000,
     precond="line",
-) -> Tuple[torch.Tensor, int, float, int]:
+):
     """Matrix-free right-preconditioned BiCGStab on A(x) = x - S(x).
-    Returns (x, niter, res, host_syncs).
+    Returns (x, niter, res, host_syncs); for a band chunk niter and res
+    are per-lane lists.
 
     As in the JAX solver: a warm x0 is replaced by its optimal multiple
     alpha x0 (alpha = <A x0, b> / <A x0, A x0>); the Krylov directions
     restart from the current residual every 10 non-improving iterations
     and on a rho breakdown; a non-finite update freezes the iterate and
     counts as a stall; 30 non-improving iterations end the solve (the
-    Richardson polish that follows guarantees the final accuracy)."""
-    dot = lambda u, v: torch.dot(u.reshape(-1), v.reshape(-1))
+    Richardson polish that follows guarantees the final accuracy).  Each
+    lane runs this logic on its own scalars."""
+    coeff, b, x0, lanes = _lanes(coeff, b, x0)
+    nb = b.shape[0]
     if isinstance(coeff, OrbitCoeff):
-        orb = coeff.orb[None]
-        alb = albedo2d.expand(b.shape[-2:]).contiguous()[None]
+        orb = coeff.orb
+        alb = albedo2d.expand((nb,) + tuple(b.shape[-2:])).contiguous()
 
         def fused_AD(u, w):
-            Au, dots = fused_A_dots(scheme, coeff.idx, orb, u[None], w[None], alb)
-            return Au[0], dots[0, 0], dots[0, 1]
+            Au, dots = fused_A_dots(scheme, coeff.idx, orb, u, w, alb)
+            return Au, dots[:, 0], dots[:, 1]
     else:
         S_apply = _make_apply(scheme, coeff, albedo2d)
 
         def fused_AD(u, w):
             Au = u - S_apply(u)
-            return Au, dot(w, Au), dot(Au, Au)
+            return Au, _lane_dots(w, Au), _lane_dots(Au, Au)
 
     M = _make_pc(scheme, coeff, albedo2d, precond)
     eps = TINY * 1e4
     stall_limit = 30
     restart_every = 10
     syncs = 0
+    dev, dt = b.device, b.dtype
+    mask = lambda flags: _lane_tensor(flags, torch.bool, dev)
 
     if x0 is None:
         x = torch.zeros_like(b)
@@ -281,10 +364,10 @@ def solve_bicgstab(
     else:
         Ax, num, den = fused_AD(x0, b)
         alpha0 = torch.where(den > eps, num / _safe(den, eps), torch.ones_like(den))
-        x = alpha0 * x0
-        r = b - alpha0 * Ax
+        x = _per_lane(alpha0) * x0
+        r = b - _per_lane(alpha0) * Ax
     rhat = r
-    one = torch.ones((), dtype=b.dtype, device=b.device)
+    one = torch.ones((nb,), dtype=dt, device=dev)
     p = torch.zeros_like(b)
     v = torch.zeros_like(b)
     rho = alpha = omega = one
@@ -294,55 +377,88 @@ def solve_bicgstab(
         syncs += 1
         return torch.stack(vals).tolist()
 
-    rr_dev = dot(r, r)
-    bb, rr = fetch(dot(b, b), rr_dev)
-    tol = max(rtol * math.sqrt(bb), atol)
-    res = math.sqrt(rr)
-    rhr_dev, rhr, hh = rr_dev, rr, rr
-    best_res, stall, it = res, 0, 0
+    rr_dev = _lane_dots(r, r)
+    bb, rr = fetch(_lane_dots(b, b), rr_dev)
+    tol = [max(rtol * math.sqrt(q), atol) for q in bb]
+    res = [math.sqrt(q) for q in rr]
+    rhr_dev, rhr, hh = rr_dev, list(rr), list(rr)
+    best_res, stall, it = list(res), [0] * nb, [0] * nb
 
-    while it < maxiter and res > tol and stall < stall_limit:
-        if stall > 0 and stall % restart_every == 0:
+    def running(i):
+        return it[i] < maxiter and res[i] > tol[i] and stall[i] < stall_limit
+
+    active = [running(i) for i in range(nb)]
+    while any(active):
+        restart = [active[i] and stall[i] > 0 and stall[i] % restart_every == 0
+                   for i in range(nb)]
+        if any(restart):
             # plateau restart from the current residual
-            rhat, rhr_dev, rhr, hh = r, rr_dev, rr, rr
-            p = torch.zeros_like(b)
-            v = torch.zeros_like(b)
-            rho = alpha = omega = one
+            m = mask(restart)
+            m5 = _per_lane(m)
+            rhat = torch.where(m5, r, rhat)
+            p = torch.where(m5, 0.0, p)
+            v = torch.where(m5, 0.0, v)
+            rho, alpha, omega = (torch.where(m, one, q) for q in (rho, alpha, omega))
+            rhr_dev = torch.where(m, rr_dev, rhr_dev)
+            for i in range(nb):
+                if restart[i]:
+                    rhr[i] = hh[i] = rr[i]
         rho_new = rhr_dev
-        if abs(rhr) < eps * max(math.sqrt(hh) * math.sqrt(rr), eps):
+        p_new = r + _per_lane((rho_new / _safe(rho, eps)) * (alpha / _safe(omega, eps))) * (
+            p - _per_lane(omega) * v)
+        breakdown = [active[i] and abs(rhr[i]) < eps * max(math.sqrt(hh[i]) * math.sqrt(rr[i]),
+                                                           eps) for i in range(nb)]
+        if any(breakdown):
             # rho breakdown: restart the directions from the current r
-            rhat, rho_new = r, rr_dev
-            p = r
-        else:
-            p = r + (rho_new / _safe(rho, eps)) * (alpha / _safe(omega, eps)) * (p - omega * v)
+            m = mask(breakdown)
+            rhat = torch.where(_per_lane(m), r, rhat)
+            rho_new = torch.where(m, rr_dev, rho_new)
+            p_new = torch.where(_per_lane(m), r, p_new)
+        p = p_new
 
         phat = M(p)
         v, rv, _ = fused_AD(phat, rhat)
         alpha = rho_new / _safe(rv, eps)
-        s = r - alpha * v
+        s = r - _per_lane(alpha) * v
         shat = M(s)
         t, ts, tt = fused_AD(shat, s)
         omega_new = ts / _safe(tt, eps)
-        x_new = x + alpha * phat + omega_new * shat
-        r_new = s - omega_new * t
+        x_new = x + _per_lane(alpha) * phat + _per_lane(omega_new) * shat
+        r_new = s - _per_lane(omega_new) * t
 
-        rr_new_dev, rhr_new_dev = dot(r_new, r_new), dot(rhat, r_new)
-        rr_new, rhr_new, hh_new, xsum = fetch(rr_new_dev, rhr_new_dev, dot(rhat, rhat),
-                                              x_new.sum())
-        ok = math.isfinite(rr_new) and math.isfinite(xsum)
-        if ok:
-            x, r = x_new, r_new
-            rr_dev, rr, rhr_dev, rhr, hh = rr_new_dev, rr_new, rhr_new_dev, rhr_new, hh_new
-        else:
-            # non-finite guard: keep the previous iterate, count a stall
-            rhr_dev = dot(rhat, r)
-            rhr, hh = fetch(rhr_dev, dot(rhat, rhat))
+        rr_new_dev, rhr_new_dev = _lane_dots(r_new, r_new), _lane_dots(rhat, r_new)
+        rr_new, rhr_new, hh_new, xsum = fetch(rr_new_dev, rhr_new_dev, _lane_dots(rhat, rhat),
+                                              x_new.reshape(nb, -1).sum(dim=1))
+        ok = [math.isfinite(rr_new[i]) and math.isfinite(xsum[i]) for i in range(nb)]
+        # frozen lanes and non-finite updates keep the previous iterate
+        keep = [i for i in range(nb) if not (active[i] and ok[i])]
+        x = _keep_lanes(x_new, x, keep)
+        r = _keep_lanes(r_new, r, keep)
+        k = mask([i not in keep for i in range(nb)])
+        rr_dev = torch.where(k, rr_new_dev, rr_dev)
+        rhr_dev = torch.where(k, rhr_new_dev, rhr_dev)
+        bad = [i for i in range(nb) if active[i] and not ok[i]]
+        if bad:
+            # non-finite guard: the kept residual against the new rhat
+            rhr_keep = _lane_dots(rhat, r)
+            rhr_dev = torch.where(mask([i in bad for i in range(nb)]), rhr_keep, rhr_dev)
+            rhr_b, hh_b = fetch(rhr_keep, _lane_dots(rhat, rhat))
         rho, omega = rho_new, omega_new
-        res = math.sqrt(rr)
-        if res < best_res * (1.0 - 1e-4):
-            best_res = res
-            stall = 0 if ok else stall + 1
-        else:
-            stall += 1
-        it += 1
-    return x, it, res, syncs
+        for i in range(nb):
+            if not active[i]:
+                continue
+            if ok[i]:
+                rr[i], rhr[i], hh[i] = rr_new[i], rhr_new[i], hh_new[i]
+            else:
+                rhr[i], hh[i] = rhr_b[i], hh_b[i]
+            res[i] = math.sqrt(rr[i])
+            if res[i] < best_res[i] * (1.0 - 1e-4):
+                best_res[i] = res[i]
+                stall[i] = 0 if ok[i] else stall[i] + 1
+            else:
+                stall[i] += 1
+            it[i] += 1
+            active[i] = running(i)
+    if lanes:
+        return x, it, res, syncs
+    return x[0], it[0], res[0], syncs

@@ -13,6 +13,10 @@ few pair passes plus one Aitken extrapolation and a cleanup pass.
 
 The sun octant enters as host integers (xinc, yinc); the recurrences run
 in the canonical (+x, +y, -z) orientation via axis flips.
+
+A band chunk (a leading lane dim on dir2dir and the incoming beam) is
+solved in one pass: the lanes ride along as a trailing batch dim of the
+scans, and the Aitken step extrapolates each lane with its own rate.
 """
 
 from __future__ import annotations
@@ -89,8 +93,8 @@ def cyclic_affine_solve(A: torch.Tensor, B: torch.Tensor, axis: int) -> torch.Te
 
 
 def _tdot(c, v):
-    """sum_s c[s, d] v[s] per cell: c (s, d, Nx, Ny), v (s, Nx, Ny)."""
-    return torch.einsum("sdij,sij->dij", c, v)
+    """sum_s c[s, d] v[s] per cell: c (s, d, Nx, Ny[, B]), v (s, Nx, Ny[, B])."""
+    return torch.einsum("sd...,s...->d...", c, v)
 
 
 def _edir_core(scheme: StreamScheme, c: torch.Tensor, incoming_top: torch.Tensor,
@@ -99,12 +103,13 @@ def _edir_core(scheme: StreamScheme, c: torch.Tensor, incoming_top: torch.Tensor
     nt = scheme.dirtop.dof
     ns = scheme.dirside.dof
     nd = scheme.ndir
-    nz, nx, ny = c.shape[2], c.shape[3], c.shape[4]
+    nz = c.shape[2]
+    cells = tuple(incoming_top.shape[1:])  # (Nx, Ny[, B])
     sl_t = slice(0, nt)
     sl_x = slice(nt, nt + ns)
     sl_y = slice(nt + ns, nt + 2 * ns)
 
-    edir = torch.zeros((nd, nz + 1, nx, ny), dtype=incoming_top.dtype,
+    edir = torch.zeros((nd, nz + 1) + cells, dtype=incoming_top.dtype,
                        device=incoming_top.device)
     T_in = incoming_top
     for k in range(nz):
@@ -123,7 +128,7 @@ def _edir_core(scheme: StreamScheme, c: torch.Tensor, incoming_top: torch.Tensor
             Y = cyclic_affine_solve(cyy, by_top + _tdot(cxy, X), axis=1)
             return X, Y
 
-        Y = torch.zeros((ns, nx, ny), dtype=T_in.dtype, device=T_in.device)
+        Y = torch.zeros((ns,) + cells, dtype=T_in.dtype, device=T_in.device)
         X = torch.zeros_like(Y)
         Xp, Yp = X, Y
         Xpp, Ypp = X, Y
@@ -135,8 +140,9 @@ def _edir_core(scheme: StreamScheme, c: torch.Tensor, incoming_top: torch.Tensor
         if aitken and n_inner >= 3:
             dX1, dY1 = X - Xp, Y - Yp
             dX0, dY0 = Xp - Xpp, Yp - Ypp
-            num = (dX1 * dX1).sum() + (dY1 * dY1).sum()
-            den = (dX0 * dX0).sum() + (dY0 * dY0).sum()
+            lane_sum = lambda a: a.sum(dim=(0, 1, 2))  # per lane, or all for no lanes
+            num = lane_sum(dX1 * dX1) + lane_sum(dY1 * dY1)
+            den = lane_sum(dX0 * dX0) + lane_sum(dY0 * dY0)
             rho = torch.clamp(torch.sqrt(num / torch.clamp(den, min=1e-30)), max=0.95)
             f = rho / (1.0 - rho)
             X = X + f * dX1
@@ -198,10 +204,16 @@ def solve_edir(
 ) -> torch.Tensor:
     """March the direct beam down through all layers.
 
-    dir2dir: (ndir, ndir, Nz, Nx, Ny) [src, dst]; incoming_top: (ntop, Nx,
-    Ny) [W].  Returns edir (ndir, Nz+1, Nx, Ny) [W], face-indexed."""
+    dir2dir: ([B,] ndir, ndir, Nz, Nx, Ny) [src, dst]; incoming_top: ([B,]
+    ntop, Nx, Ny) [W].  Returns edir ([B,] ndir, Nz+1, Nx, Ny) [W],
+    face-indexed."""
+    lanes = dir2dir.dim() == 6
+    if lanes:  # lanes become the trailing batch dim of the scans
+        dir2dir = torch.movedim(dir2dir, 0, -1).contiguous()
+        incoming_top = torch.movedim(incoming_top, 0, -1).contiguous()
     if dir2dir.shape[0] != scheme.ndir:
         raise ValueError(f"dir2dir has {dir2dir.shape[0]} dofs, scheme {scheme.ndir}")
     c, inc = _canonicalize(dir2dir, incoming_top, xinc, yinc)
     edir = _edir_core(scheme, c, inc, n_inner, aitken=aitken, cleanup=cleanup)
-    return _uncanonicalize(scheme, edir, xinc, yinc)
+    edir = _uncanonicalize(scheme, edir, xinc, yinc)
+    return torch.movedim(edir, -1, 0).contiguous() if lanes else edir

@@ -2,9 +2,10 @@
 `tenstream_tpu/pprts/operators.py`).
 
 Stream fields are face-indexed (..., ndof, Nz+1, Nx, Ny), coefficient
-fields cell-indexed (nsrc, ndst, Nz, Nx, Ny) or `OrbitCoeff`.  x and y
-are periodic (`torch.roll`), z has a zero halo.  Every function here
-accepts optional leading batch dims on the stream fields.
+fields cell-indexed (..., nsrc, ndst, Nz, Nx, Ny) or `OrbitCoeff`.  x and
+y are periodic (`torch.roll`), z has a zero halo.  Every function here
+accepts optional leading lane dims (a chunk of bands solved together) on
+the stream and coefficient fields.
 
 This plain path is the twin the CUDA kernels of `cuda_ops.py` are held
 against: `fused_A_dots_plain`, `orbit_contract_plain` and
@@ -27,7 +28,8 @@ class OrbitCoeff:
     orbit of the solver symmetry subgroup {x-mirror, y-mirror, x<->y}
     (24 channels instead of ndiff^2 = 100 for 3_10).
 
-    `orb` is (norb, Nz, Nx, Ny); `idx[src, dst]` the static orbit id."""
+    `orb` is (..., norb, Nz, Nx, Ny), with optional leading lane dims
+    (a band chunk); `idx[src, dst]` the static orbit id."""
 
     def __init__(self, orb: torch.Tensor, idx: np.ndarray):
         self.orb = orb
@@ -36,32 +38,51 @@ class OrbitCoeff:
     @property
     def shape(self):
         nf = self.idx.shape[0]
-        return (nf, nf) + tuple(self.orb.shape[1:])
+        return tuple(self.orb.shape[:-4]) + (nf, nf) + tuple(self.orb.shape[-3:])
 
     def astype(self, dt) -> "OrbitCoeff":
         return OrbitCoeff(self.orb.to(dt), self.idx)
 
     def full(self) -> torch.Tensor:
-        """Expanded (ndiff, ndiff, Nz, Nx, Ny) field (a materialised copy)."""
+        """Expanded (..., ndiff, ndiff, Nz, Nx, Ny) field (a materialised copy)."""
         nf = self.idx.shape[0]
         sel = torch.as_tensor(self.idx.ravel(), device=self.orb.device)
-        return self.orb[sel].reshape((nf, nf) + tuple(self.orb.shape[1:]))
+        out = self.orb.index_select(-4, sel)
+        return out.reshape(tuple(self.orb.shape[:-4]) + (nf, nf) + tuple(self.orb.shape[-3:]))
 
     def entry(self, s: int, d: int) -> torch.Tensor:
-        """Single (src, dst) coefficient field (Nz, Nx, Ny)."""
-        return self.orb[int(self.idx[s, d])]
+        """Single (src, dst) coefficient field (..., Nz, Nx, Ny)."""
+        return self.orb[..., int(self.idx[s, d]), :, :, :]
 
     def dst_sums(self) -> torch.Tensor:
         """Sum over dst per src (the dense field's sum over dst) in
         float32, via a static per-orbit count matrix."""
-        norb = self.orb.shape[0]
+        norb = self.orb.shape[-4]
         nf = self.idx.shape[0]
         R = np.zeros((nf, norb), np.float32)
         for s in range(nf):
             for d in range(nf):
                 R[s, self.idx[s, d]] += 1.0
         R = torch.as_tensor(R, device=self.orb.device)
-        return torch.einsum("so,o...->s...", R, self.orb.float())
+        return torch.einsum("so,...okij->...skij", R, self.orb.float())
+
+    def set_layer0(self, block_full: torch.Tensor) -> "OrbitCoeff":
+        """A copy with layer 0 overwritten by a full (..., ndiff, ndiff,
+        Nx, Ny) block, which must itself be orbit-consistent (the
+        atm-collapse folded blocks are); the orbit-representative entries
+        are taken."""
+        norb = self.orb.shape[-4]
+        reps = [None] * norb
+        nf = self.idx.shape[0]
+        for s in range(nf):
+            for d in range(nf):
+                o = int(self.idx[s, d])
+                if reps[o] is None:
+                    reps[o] = (s, d)
+        orb0 = torch.stack([block_full[..., s, d, :, :] for (s, d) in reps], dim=-3)
+        orb = self.orb.clone()
+        orb[..., 0, :, :] = orb0.to(orb.dtype)
+        return OrbitCoeff(orb, self.idx)
 
 
 # a diffuse coefficient field in either storage form: orbit channels or
@@ -79,7 +100,7 @@ def diff_dst_sums(coeff: DiffCoeff) -> torch.Tensor:
     either storage form."""
     if isinstance(coeff, OrbitCoeff):
         return coeff.dst_sums()
-    return coeff.sum(dim=1, dtype=torch.float32)
+    return coeff.sum(dim=-4, dtype=torch.float32)
 
 
 def orbit_groups(idx: np.ndarray):
@@ -200,18 +221,19 @@ def add_surface_reflection(scheme: StreamScheme, out, x, albedo2d):
 
 
 def gather_dir_src(scheme: StreamScheme, e: torch.Tensor, xinc: int, yinc: int) -> torch.Tensor:
-    """Per-cell source values for every direct dof (upwind faces)."""
+    """Per-cell source values for every direct dof (upwind faces):
+    (..., ndir, Nz+1, Nx, Ny) -> (..., ndir, Nz, Nx, Ny)."""
     axis = scheme.dir_axis()
     rows = []
     for s in range(scheme.ndir):
-        v = e[s, :-1]
+        v = e[..., s, :-1, :, :]
         if axis[s] == 0:
             rows.append(v)
         elif axis[s] == 1:
-            rows.append(v if xinc == 1 else torch.roll(v, -1, dims=1))
+            rows.append(v if xinc == 1 else torch.roll(v, -1, dims=-2))
         else:
-            rows.append(v if yinc == 1 else torch.roll(v, -1, dims=2))
-    return torch.stack(rows, dim=0)
+            rows.append(v if yinc == 1 else torch.roll(v, -1, dims=-1))
+    return torch.stack(rows, dim=-4)
 
 
 def dir2diff_source(
@@ -222,11 +244,11 @@ def dir2diff_source(
     yinc: int,
 ) -> torch.Tensor:
     """Diffuse source [W] from scattered direct radiation:
-    dir2diff (ndir, ndiff, Nz, Nx, Ny), edir (ndir, Nz+1, Nx, Ny)."""
+    dir2diff (..., ndir, ndiff, Nz, Nx, Ny), edir (..., ndir, Nz+1, Nx, Ny)."""
     src = gather_dir_src(scheme, edir, xinc, yinc)
     contrib = None
     for s in range(scheme.ndir):
-        t = dir2diff[s] * src[s][None]
+        t = dir2diff[..., s, :, :, :, :] * src[..., s, None, :, :, :]
         contrib = t if contrib is None else contrib + t
     return scatter_diff_dst(scheme, contrib)
 
@@ -235,11 +257,12 @@ def direct_surface_reflection(
     scheme: StreamScheme, edir: torch.Tensor, albedo2d: torch.Tensor
 ) -> torch.Tensor:
     """b contribution: ground albedo reflecting the direct beam into the
-    upward diffuse dofs."""
-    edir_sfc = edir[: scheme.dirtop.dof, -1].sum(dim=0)
-    b = torch.zeros((scheme.ndiff,) + tuple(edir.shape[1:]), dtype=edir.dtype,
+    upward diffuse dofs; edir (..., ndir, Nz+1, Nx, Ny)."""
+    edir_sfc = edir[..., : scheme.dirtop.dof, -1, :, :].sum(dim=-3)
+    lead = tuple(edir.shape[:-4])
+    b = torch.zeros(lead + (scheme.ndiff,) + tuple(edir.shape[-3:]), dtype=edir.dtype,
                     device=edir.device)
     _, up = surface_closure_rows(scheme)
     for d, w in up:
-        b[d, -1] += edir_sfc * albedo2d * w
+        b[..., d, -1, :, :] += edir_sfc * albedo2d * w
     return b

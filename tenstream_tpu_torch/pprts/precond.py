@@ -16,7 +16,9 @@ C the Galerkin coarse operator (a fine +-1 shift becomes the pooled phase
 high-pass residual.  Complex work is complex64.  The residual is real, so
 only one mode of every conjugate pair {k, -k} is factorised and swept
 (`_hermitian_modes`).  Block arrays keep the JAX package's
-(blocks, d, s, modes) layout.
+(blocks, d, s, modes) layout; the lanes of a band chunk sit between the
+block and the (d, s) axes, (blocks, B, d, s, modes), and are factorised
+and swept together.
 """
 
 from __future__ import annotations
@@ -84,14 +86,14 @@ def auto_coarse_factor(nx: int, ny: int, target: int = 32) -> int:
 
 
 def _mean_coeff(coeff) -> torch.Tensor:
-    """Layer-mean (ndiff, ndiff, Nz) of the diffuse coefficient field
+    """Layer-mean (..., ndiff, ndiff, Nz) of the diffuse coefficient field
     (`OrbitCoeff` or dense), in float32."""
     if not isinstance(coeff, OrbitCoeff):
         return coeff.mean(dim=(-2, -1), dtype=torch.float32)
-    m = coeff.orb.float().mean(dim=(-2, -1))  # (norb, Nz)
+    m = coeff.orb.float().mean(dim=(-2, -1))  # (..., norb, Nz)
     nf = coeff.idx.shape[0]
     sel = torch.as_tensor(coeff.idx.ravel(), device=m.device)
-    return m[sel].reshape(nf, nf, m.shape[-1])
+    return m.index_select(-2, sel).reshape(tuple(m.shape[:-2]) + (nf, nf, m.shape[-1]))
 
 
 def _phase_tables(scheme: StreamScheme, ncx: int, ncy: int, cf: int):
@@ -165,15 +167,14 @@ def build_coarse_factors(scheme: StreamScheme, coeff, albedo2d: torch.Tensor,
     systems (I - S_hom) from the layer-mean coefficients."""
     nf = scheme.ndiff
     dev = albedo2d.device
-    cbar = _mean_coeff(coeff)  # (s, d, Nz)
+    cbar = _mean_coeff(coeff)  # (..., s, d, Nz)
     nz = cbar.shape[-1]
     L1 = nz + 1
-    M = ncx * ncy
 
     Phi, offs, offd = _phase_tables(scheme, ncx, ncy, cf)
     Phi = torch.as_tensor(Phi, device=dev)
-    T = cbar[:, :, :, None].to(icomplex) * Phi[:, :, None, :]  # (s, d, k, m)
-    T = T.permute(2, 1, 0, 3)  # (k, d, s, m)
+    T = cbar[..., None].to(icomplex) * Phi[:, :, None, :]  # (..., s, d, k, m)
+    T = torch.movedim(T, -2, 0).transpose(-3, -2)  # (k, ..., d, s, m)
 
     mask = lambda a: torch.as_tensor(a[..., None], device=dev)
     m00 = mask((~offd)[:, None] & (~offs)[None, :])  # (d, s, 1)
@@ -181,8 +182,8 @@ def build_coarse_factors(scheme: StreamScheme, coeff, albedo2d: torch.Tensor,
     m01 = mask(offd[:, None] & (~offs)[None, :])  # sub-diagonal
     m10 = mask((~offd)[:, None] & offs[None, :])  # super-diagonal
     zT = torch.zeros_like(T)
-    zero = torch.zeros((1, nf, nf, M), dtype=icomplex, device=dev)
-    eye = torch.eye(nf, dtype=icomplex, device=dev)[None, :, :, None].expand(L1, nf, nf, M)
+    zero = torch.zeros_like(T[:1])
+    eye = torch.eye(nf, dtype=icomplex, device=dev)[:, :, None]
     D = eye - torch.cat([torch.where(m00, T, zT), zero], 0)
     D = D - torch.cat([zero, torch.where(m11, T, zT)], 0)
     Lo = -torch.cat([zero, torch.where(m01, T, zT)], 0)
@@ -203,9 +204,8 @@ def build_coarse_factors(scheme: StreamScheme, coeff, albedo2d: torch.Tensor,
     Lp = _pad_blocks(L1)
     if Lp > L1:
         pad = Lp - L1
-        eyep = torch.eye(nf, dtype=icomplex, device=dev)[None, :, :, None].expand(pad, nf, nf, M)
-        zp = torch.zeros((pad, nf, nf, M), dtype=icomplex, device=dev)
-        D = torch.cat([D, eyep], 0)
+        zp = torch.zeros((pad,) + tuple(D.shape[1:]), dtype=icomplex, device=dev)
+        D = torch.cat([D, zp + eye], 0)
         Lo = torch.cat([Lo, zp], 0)
         Up = torch.cat([Up, zp], 0)
 
@@ -248,10 +248,11 @@ def _dft2(rc: torch.Tensor, inverse: bool = False) -> torch.Tensor:
 
 def coarse_solve(factors: CoarseFactors, rc: torch.Tensor) -> torch.Tensor:
     """DFT2 -> cyclic-reduction down/up sweeps -> inverse DFT2.
-    rc: (ndiff, Nz+1, ncx, ncy) real."""
-    nf, L1, ncx, ncy = rc.shape
+    rc: (..., ndiff, Nz+1, ncx, ncy) real."""
+    lead = tuple(rc.shape[:-4])
+    nf, L1, ncx, ncy = rc.shape[-4:]
     rh = _dft2(rc.to(icomplex))
-    rh = rh.reshape(nf, L1, ncx * ncy).permute(1, 0, 2)  # (l, d, m)
+    rh = torch.movedim(rh.reshape(lead + (nf, L1, ncx * ncy)), -2, 0)  # (l, ..., d, m)
     rh = rh.index_select(-1, factors.canon)
     Lp = _pad_blocks(L1)
     if Lp > L1:
@@ -274,8 +275,8 @@ def coarse_solve(factors: CoarseFactors, rc: torch.Tensor) -> torch.Tensor:
 
     x = x[:L1]
     xf = x.index_select(-1, factors.src)
-    xf = torch.where(factors.conj[None, None, :], xf.conj(), xf)
-    xc = xf.permute(1, 0, 2).reshape(nf, L1, ncx, ncy)
+    xf = torch.where(factors.conj, xf.conj(), xf)
+    xc = torch.movedim(xf, 0, -2).reshape(lead + (nf, L1, ncx, ncy))
     return _dft2(xc, inverse=True).real.to(rc.dtype)
 
 

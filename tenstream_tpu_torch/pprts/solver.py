@@ -1,14 +1,21 @@
 """The pprts solver driver: init / set optical properties / solve / result
 (port of `tenstream_tpu/pprts/solver.py`, restricted to the 3-D solve).
 
-One solve runs: coefficient assembly -> direct z-scan -> sources ->
-BiCGStab with the two-level preconditioner -> Richardson polish ->
-absorption.  The diffuse coefficients are stored per symmetry orbit
-(`OrbitCoeff`) unless buildings are attached, `pprts_orbit_coeffs` is off
-or the LUT is not symmetrized; then they are the dense (src, dst) field.
-Whenever the solver's tensors are on the card the diffuse solve goes
-through the CUDA kernels of `pprts/cuda_ops.py`: K1 and K2 on orbit
-coefficients, K3 on dense ones.
+A solve runs on a chunk of B bands (lanes) at once, the counterpart of the
+JAX package's `jax.vmap` of its solve program: (atm_collapse) ->
+coefficient assembly -> direct z-scan -> sources -> BiCGStab with the
+two-level preconditioner -> Richardson polish -> absorption, each stage
+on the whole chunk (`solve_lanes`, which `specint_pprts` calls).  A
+single-band `solve` is a chunk of one.  The diffuse coefficients are
+stored per symmetry orbit (`OrbitCoeff`) unless buildings are attached,
+`pprts_orbit_coeffs` is off or the LUT is not symmetrized; then they are
+the dense (src, dst) field.  Whenever the solver's tensors are on the
+card the diffuse solve goes through the CUDA kernels of
+`pprts/cuda_ops.py`: K1 and K2 on orbit coefficients, K3 on dense ones.
+
+With `atm_collapse` K the top K (1-D) layers fold into one super-layer
+(reference `-atm_collapse`); states and results then live on the solve
+grid of `nz_solve` layers.
 
 Units: the solve works in [W] per stream dof (face-area scaled power);
 `get_result` converts to [W/m2], with the TOA tilt factor sun.mu on solar
@@ -22,7 +29,7 @@ the `OptProp` has to be on the same device.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +37,8 @@ import torch
 from tenstream_tpu_torch.core.config import Options
 from tenstream_tpu_torch.core.types import PI, TINY, ireals
 from tenstream_tpu_torch.ops.delta_scale import delta_scale
+from tenstream_tpu_torch.ops.eddington import eddington_coeff_ec
+from tenstream_tpu_torch.ops.planck import b_eff
 from tenstream_tpu_torch.ops.twostream import delta_eddington_twostream
 from tenstream_tpu_torch.optprop.facade import OptProp
 from tenstream_tpu_torch.pprts.absorption import calc_flx_div
@@ -40,7 +49,14 @@ from tenstream_tpu_torch.pprts.buildings import (
     face_masks,
     mask_coeffs,
 )
-from tenstream_tpu_torch.pprts.coeffs import assemble_coeffs, determine_1d_layers
+from tenstream_tpu_torch.pprts.coeffs import (
+    CoeffFields,
+    assemble_coeffs,
+    determine_1d_layers,
+    fold_eddington_adding,
+    fold_thermal_emission,
+    onedee_blocks_collapsed,
+)
 from tenstream_tpu_torch.pprts.ediff import solve_bicgstab, solve_richardson
 from tenstream_tpu_torch.pprts.edir import inner_iter_policy, solve_edir
 from tenstream_tpu_torch.pprts.grid import Grid
@@ -108,6 +124,22 @@ class Solution(NamedTuple):
     host_syncs: int = 0  # device -> host scalar transfers of the diffuse solve
 
 
+class LaneSolution(NamedTuple):
+    """The result of a chunk of B bands: fields with a leading lane dim,
+    per-lane lists of the solve's numbers."""
+
+    edir: Optional[torch.Tensor]  # (B, ndir, nz_solve+1, Nx, Ny) [W]
+    ediff: torch.Tensor  # (B, ndiff, nz_solve+1, Nx, Ny) [W]
+    abso: torch.Tensor  # (B, nz_solve, Nx, Ny) [W/m3]
+    omega: List[float]
+    niter: List[int]  # BiCGStab + polish iterations
+    res: List[float]
+    tol: List[float]
+    niter_bicgstab: List[int]
+    niter_polish: List[int]
+    host_syncs: int  # for the whole chunk
+
+
 def _validate_optprops(fields: Dict[str, torch.Tensor]) -> None:
     """Input sanity checks (reference `src/pprts.F90:1831-1859`)."""
     for name, x in fields.items():
@@ -140,10 +172,6 @@ class PprtsSolver:
         for key, item in _UNPORTED_BOOL_OPTIONS.items():
             if self.options.get_bool(key, False):
                 raise NotImplementedError(f"option {key} is not ported (ROADMAP {item})")
-        if self.options.get_int("atm_collapse", 0) > 1:
-            raise NotImplementedError(
-                "atm_collapse is not ported (ROADMAP M10); it cannot combine with buildings or "
-                "diff_guess_2str")
         if self.options.get("diff_solver", "bicgstab") not in ("bicgstab", "richardson"):
             raise ValueError("diff_solver must be 'bicgstab' or 'richardson', got "
                              f"{self.options.get('diff_solver')!r}")
@@ -154,6 +182,11 @@ class PprtsSolver:
         self._l1d = determine_1d_layers(grid.dz3d, grid.dx,
                                         self.options.get_float("twostr_ratio", 2.0))
         self._buildings: Optional[Buildings] = None
+        # `specint_pprts` state: the frozen difficulty order per spectrum,
+        # each band's (chunk key, row), the x(t-1) of the extrapolation
+        self._band_order: Dict[str, np.ndarray] = {}
+        self._band_rows: Dict[str, Dict[int, Tuple[Any, int]]] = {}
+        self._extrap_states: Dict[Any, torch.Tensor] = {}
 
     # ------------------------------------------------------------------
     def set_angles(self, sundir) -> None:
@@ -194,12 +227,89 @@ class PprtsSolver:
                          planck_srfc=planck_srfc)
 
     # ------------------------------------------------------------------
-    def _run(self, lthermal: bool, lsolar: bool, edirTOA: float,
-             x0: Optional[torch.Tensor], omega0: float) -> Solution:
-        """One mono solve: assembly, edir, sources, diffuse solve, absorption."""
-        atm, scheme, grid, sun, opts = self._atm, self.scheme, self.grid, self.sun, self.options
-        kabs, ksca, g, albedo2d = atm["kabs"], atm["ksca"], atm["g"], atm["albedo2d"]
-        planck = atm["planck"]
+    @property
+    def nz_solve(self) -> int:
+        """Layers of the solve grid: grid.nz, less K - 1 with
+        atm_collapse K (results and warm-start states live on it)."""
+        K = self.options.get_int("atm_collapse", 0)
+        return self.grid.nz - (K - 1 if K > 1 else 0)
+
+    def _dz_solve(self) -> torch.Tensor:
+        """dz3d on the solve grid (atm_collapse folds the top K layers
+        into one)."""
+        K = self.options.get_int("atm_collapse", 0)
+        dz3 = self.grid.dz3d
+        if K > 1:
+            dz3 = torch.cat([dz3[:K].sum(0, keepdim=True), dz3[K:]], dim=0)
+        return dz3
+
+    def _collapse(self, K: int, lthermal: bool, lsolar: bool, kabs, ksca, g, planck, dz3d):
+        """Fold the top K (1-D) layers into one super-layer by the exact
+        adding method (reference `-atm_collapse`, `src/pprts.F90:685-705,
+        2080-2198`).  Fields are (B, Nz, ...).  Returns the reduced
+        (kabs, ksca, g, planck, dz3d), the folded set and, thermal, the
+        super-layer's emission (top, bottom)."""
+        sun = self.sun
+        mu_c = float(sun.mu) if (lsolar and sun is not None and sun.sun_up) else 1.0
+        kext_s = kabs[:, :K] + ksca[:, :K]
+        tz_s = kext_s * dz3d[:K]
+        w0_s = ksca[:, :K] / torch.clamp(kext_s, min=TINY)
+        edd_s = eddington_coeff_ec(tz_s, w0_s, g[:, :K], mu_c)  # each (B, K, Nx, Ny)
+        layer_first = lambda a: torch.movedim(a, 1, 0)
+        folded = fold_eddington_adding(*map(layer_first, edd_s))
+        emission = None
+        if lthermal:
+            # per-layer B_eff emission rows folded through the same exact
+            # interface recursion, in-stack scattering included
+            a11_s, a12_s = edd_s[0], edd_s[1]
+            tau_abs = kabs[:, :K] * dz3d[:K]
+            emis_s = torch.clamp(1.0 - a11_s - a12_s, 0.0, 1.0)
+            bt = b_eff(planck[:, 1:K + 1], planck[:, :K], tau_abs) * emis_s
+            bb = b_eff(planck[:, :K], planck[:, 1:K + 1], tau_abs) * emis_s
+            emission = fold_thermal_emission(*map(layer_first, (a11_s, a12_s, bt, bb)))
+        # the super-layer keeps the total optical depth; its blocks are
+        # overwritten with the folded set after assembly
+        dz0 = dz3d[:K].sum(0, keepdim=True)
+        cat = lambda top, rest: torch.cat([top, rest], dim=1)
+        kabs = cat((kabs[:, :K] * dz3d[:K]).sum(1, keepdim=True) / dz0, kabs[:, K:])
+        ksca = cat((ksca[:, :K] * dz3d[:K]).sum(1, keepdim=True) / dz0, ksca[:, K:])
+        g = cat(g[:, :1], g[:, K:])
+        if planck is not None:
+            planck = cat(planck[:, :1], planck[:, K:])
+        return kabs, ksca, g, planck, torch.cat([dz0, dz3d[K:]], dim=0), folded, emission
+
+    def solve_lanes(self, lthermal: bool, lsolar: bool, kabs, ksca, g, albedo2d,
+                    planck=None, planck_srfc=None, edirTOA=None,
+                    x0: Optional[torch.Tensor] = None, omega0=None) -> LaneSolution:
+        """One solve of a chunk of B bands (lanes), the counterpart of the
+        JAX package's `jax.vmap` of its solve program.
+
+        kabs/ksca/g (B, Nz, Nx, Ny), already delta-scaled; albedo2d (Nx,
+        Ny); planck (B, Nz+1, Nx, Ny) and planck_srfc (B, Nx, Ny) for a
+        thermal solve; edirTOA (B,) per-lane TOA irradiance [W/m2] for a
+        solar one; x0 (B, ndiff, nz_solve+1, Nx, Ny) and omega0 (B,) warm
+        starts.  Every stage runs on the whole chunk; the diffuse solve
+        iterates each lane until it converges or stalls, then freezes it.
+        """
+        atm = dict(kabs=kabs, ksca=ksca, g=g, planck=planck, planck_srfc=planck_srfc)
+        dev = self.device
+        for k, v in atm.items():
+            if v is not None:
+                atm[k] = torch.as_tensor(v, dtype=ireals, device=dev)
+        nb = atm["kabs"].shape[0]
+        toa = (torch.zeros(nb, dtype=ireals, device=dev) if edirTOA is None
+               else torch.as_tensor(edirTOA, dtype=ireals, device=dev).reshape(nb))
+        a2d = torch.as_tensor(albedo2d, dtype=ireals, device=dev)
+        om0 = [1.0] * nb if omega0 is None else [float(o) for o in omega0]
+        return self._run(lthermal, lsolar, atm, a2d, toa, x0, om0)
+
+    def _run(self, lthermal: bool, lsolar: bool, atm: Dict[str, Any], albedo2d: torch.Tensor,
+             edirTOA: torch.Tensor, x0: Optional[torch.Tensor], omega0) -> LaneSolution:
+        """The solve of a chunk: (collapse), assembly, edir, sources,
+        diffuse solve, absorption; fields carry a leading lane dim."""
+        scheme, grid, sun, opts = self.scheme, self.grid, self.sun, self.options
+        kabs, ksca, g, planck = atm["kabs"], atm["ksca"], atm["g"], atm["planck"]
+        nb = kabs.shape[0]
         l1d = np.asarray(self._l1d, bool)
         precond = opts.get("diff_precond", "two_level")
         max_iter = opts.get_int("ksp_max_it", 3000)
@@ -231,28 +341,55 @@ class PprtsSolver:
         # per-layer (Nz, 1, 1) thickness keeps the aspect ratio per layer,
         # which lets the LUT lookup take the one-hot path
         dz3d = grid.dz[:, None, None] if grid.dz.dim() == 1 else grid.dz3d
-        dz_full = dz3d.expand(grid.nz, grid.nx, grid.ny)
+        K = opts.get_int("atm_collapse", 0)
+        folded = emission = None
+        if K > 1:
+            if not bool(l1d[:K].all()):
+                raise ValueError(f"atm_collapse={K}: the collapsed region must be 1-D layers "
+                                 "(reference forces l1d there, src/pprts.F90:703)")
+            if buildings is not None:
+                raise ValueError("atm_collapse cannot combine with buildings")
+            if guess_2str:
+                raise ValueError("atm_collapse cannot combine with diff_guess_2str")
+            l1d = np.concatenate([[True], l1d[K:]])
+            kabs, ksca, g, planck, dz3d, folded, emission = self._collapse(
+                K, lthermal, lsolar, kabs, ksca, g, planck, dz3d)
+        nz_r = dz3d.shape[0]
+        dz_full = dz3d.expand(nz_r, grid.nx, grid.ny)
+
         coeffs, (a11, a12, _, _, _) = assemble_coeffs(
             scheme, self.opp, kabs, ksca, g, dz3d, grid.dx, l1d, sun, need_dir=lsolar,
             orbit=orbit_coeffs)
+        if folded is not None:
+            # the super-layer's analytic blocks become the adding-folded
+            # (asymmetric) set
+            dd0, df0, ff0 = onedee_blocks_collapsed(scheme, folded)
+            ff = coeffs.diff2diff
+            if orbit_coeffs:
+                ff = ff.set_layer0(ff0)
+            else:
+                ff[..., 0, :, :] = ff0
+            if coeffs.dir2dir is not None:
+                coeffs.dir2dir[..., 0, :, :] = dd0
+                coeffs.dir2diff[..., 0, :, :] = df0
+            coeffs = CoeffFields(coeffs.dir2dir, coeffs.dir2diff, ff)
         if buildings is not None:
             coeffs = mask_coeffs(coeffs, buildings)
 
         edir = cdiv_dir = None
-        b = torch.zeros((scheme.ndiff, grid.nz + 1, grid.nx, grid.ny), dtype=ireals,
+        b = torch.zeros((nb, scheme.ndiff, nz_r + 1, grid.nx, grid.ny), dtype=ireals,
                         device=self.device)
         sun_on = bool(lsolar and sun is not None and sun.sun_up)
         if sun_on:
             fac = edirTOA * grid.az / scheme.dirtop.area_divider
-            inc = torch.full((scheme.dirtop.dof, grid.nx, grid.ny), fac, dtype=ireals,
-                             device=self.device)
-            edir = solve_edir(scheme, coeffs.dir2dir, inc, sun.xinc, sun.yinc,
+            inc = fac[:, None, None, None].expand(nb, scheme.dirtop.dof, grid.nx, grid.ny)
+            edir = solve_edir(scheme, coeffs.dir2dir, inc.contiguous(), sun.xinc, sun.yinc,
                               n_inner=n_inner, aitken=edir_aitken, cleanup=edir_cleanup)
             b = b + dir2diff_source(scheme, coeffs.dir2diff, edir, sun.xinc, sun.yinc)
             b = b + direct_surface_reflection(scheme, edir, albedo2d)
             # reduced now, so the direct coefficient fields are freed
             # before the diffuse solve
-            cdiv_dir = torch.clamp(1.0 - coeffs.dir2dir.sum(dim=1) - coeffs.dir2diff.sum(dim=1),
+            cdiv_dir = torch.clamp(1.0 - coeffs.dir2dir.sum(dim=-4) - coeffs.dir2diff.sum(dim=-4),
                                    0.0, 1.0)
         # sources and emissivities read the float32 blocks even when the
         # iteration's coefficients are compressed
@@ -268,49 +405,57 @@ class PprtsSolver:
             planck_bldg = buildings.planck if buildings.planck is not None else (
                 torch.zeros_like(dz_full) if emit else None)
             with_sun = sun is not None and lsolar
-            b = b + building_sources(
-                scheme, buildings, edir, grid.az, dz3d=grid.dz3d, dx=grid.dx, dy=grid.dy,
-                xinc=sun.xinc if with_sun else 1, yinc=sun.yinc if with_sun else 1,
-                planck=planck_bldg)
+            # the face sources are built lane by lane: buildings solve one
+            # band at a time (`specint_pprts` refuses them, ROADMAP M10)
+            b = b + torch.stack([building_sources(
+                scheme, buildings, None if edir is None else edir[i], grid.az, dz3d=grid.dz3d,
+                dx=grid.dx, dy=grid.dy, xinc=sun.xinc if with_sun else 1,
+                yinc=sun.yinc if with_sun else 1, planck=planck_bldg) for i in range(nb)])
 
         b_th = None
         if lthermal and planck is not None:
+            c_top, c_bot = (None, None) if emission is None else emission
             b_th = thermal_source(scheme, diff2diff_f32, planck, kabs, dz_full, grid.dx, grid.dy,
-                                  albedo2d, l1d, planck_srfc=atm["planck_srfc"])
+                                  albedo2d, l1d, planck_srfc=atm["planck_srfc"],
+                                  collapse_btop=c_top, collapse_bbot=c_bot)
             b = b + b_th
         del diff2diff_f32
 
         if guess_2str and x0 is None:
+            # the two-stream column guess, lane by lane (a cold-start
+            # option of single-band solves; the collapse refuses it)
             thermal = lthermal and planck is not None
-            x0 = _twostream_guess(
-                scheme, grid, kabs, ksca, g, albedo2d, sun.mu if sun_on else 0.5,
-                edirTOA if sun_on else 0.0, planck=planck if thermal else None,
-                planck_srfc=atm["planck_srfc"] if thermal else None)
+            ps = atm["planck_srfc"]
+            x0 = torch.stack([_twostream_guess(
+                scheme, grid, kabs[i], ksca[i], g[i], albedo2d, sun.mu if sun_on else 0.5,
+                float(edirTOA[i]) if sun_on else 0.0, planck=planck[i] if thermal else None,
+                planck_srfc=None if (ps is None or not thermal) else ps[i]) for i in range(nb)])
 
-        tol = max(rtol * float(torch.linalg.vector_norm(b)), atol)
+        tol = [max(rtol * q, atol)
+               for q in torch.linalg.vector_norm(b.reshape(nb, -1), dim=1).tolist()]
         syncs = 1
         if opts.get("diff_solver", "bicgstab") == "bicgstab":
             ediff, niter_b, res, s = solve_bicgstab(
                 scheme, diff2diff, b, albedo2d, x0=x0, rtol=rtol, atol=atol,
                 maxiter=max_iter, precond=precond)
-            # convergence-guaranteed polish: exits after one step when
-            # BiCGStab already converged
+            # convergence-guaranteed polish: a lane that BiCGStab already
+            # converged takes one step
             ediff, niter_p, omega, res_p, s2 = solve_richardson(
                 scheme, diff2diff, b, albedo2d, x0=ediff, omega0=omega0, rtol=rtol,
                 atol=atol, max_iter=max_iter, precond=precond, tol=tol)
-            res = min(res, res_p)
+            res = [min(a, c) for a, c in zip(res, res_p)]
             syncs += s + s2
         else:
-            niter_b = 0
+            niter_b = [0] * nb
             ediff, niter_p, omega, res, s = solve_richardson(
                 scheme, diff2diff, b, albedo2d, x0=x0, omega0=omega0, rtol=rtol,
                 atol=atol, max_iter=max_iter, precond=precond)
             syncs += s
 
-        abso = calc_flx_div(scheme, diff2diff, ediff, grid.volumes(), l1d, kabs, dz_full,
+        abso = calc_flx_div(scheme, diff2diff, ediff, dz_full * grid.az, l1d, kabs, dz_full,
                             a11, a12, sun=sun, edir=edir, b_thermal=b_th, cdiv_dir=cdiv_dir)
-        return Solution(edir, ediff, abso, omega, niter_b + niter_p, res, tol,
-                        niter_bicgstab=niter_b, niter_polish=niter_p, host_syncs=syncs)
+        return LaneSolution(edir, ediff, abso, omega, [a + c for a, c in zip(niter_b, niter_p)],
+                            res, tol, niter_b, niter_p, syncs)
 
     def solve(self, lthermal: bool, lsolar: bool, edirTOA: float = 0.0, uid: Any = 0) -> Solution:
         """Run one (monochromatic / single-band) solve; `uid` keys the
@@ -330,10 +475,22 @@ class PprtsSolver:
         return self._solve_mono(lthermal, lsolar, edirTOA, uid)
 
     def _solve_mono(self, lthermal, lsolar, edirTOA, uid) -> Solution:
+        """A single band: a chunk of one lane."""
         prev = self.solutions.get(uid)
-        x0 = prev.ediff.to(ireals) if prev is not None else None
+        x0 = prev.ediff.to(ireals)[None] if prev is not None else None
         omega0 = prev.diff_omega if prev is not None else 1.0
-        sol = self._run(lthermal, lsolar, float(edirTOA), x0, omega0)
+        atm = self._atm
+        lane = lambda a: None if a is None else a[None]
+        r = self._run(lthermal, lsolar,
+                      dict(kabs=lane(atm["kabs"]), ksca=lane(atm["ksca"]), g=lane(atm["g"]),
+                           planck=lane(atm["planck"]), planck_srfc=lane(atm["planck_srfc"])),
+                      atm["albedo2d"],
+                      torch.full((1,), float(edirTOA), dtype=ireals, device=self.device),
+                      x0, [omega0])
+        sol = Solution(None if r.edir is None else r.edir[0], r.ediff[0], r.abso[0],
+                       r.omega[0], r.niter[0], r.res[0], r.tol[0],
+                       niter_bicgstab=r.niter_bicgstab[0], niter_polish=r.niter_polish[0],
+                       host_syncs=r.host_syncs)
         self._pending_convergence[uid] = (sol.niter_diff, sol.diff_res, sol.diff_tol)
         self.solutions[uid] = self._maybe_compress(sol)
         return sol
@@ -358,9 +515,14 @@ class PprtsSolver:
         failed = []
         for k in keys:
             niter, res, tol = self._pending_convergence.pop(k)
-            if res > 1.5 * tol or not math.isfinite(res):
-                failed.append(f"uid={k!r}: niter={niter}/max_it={max_it}, residual "
-                              f"{res:.3e} vs tol {tol:.3e}")
+            # a band chunk records per-lane lists; every lane is held to
+            # its own tolerance
+            per_lane = zip(*(v if isinstance(v, (list, tuple)) else [v] for v in (niter, res, tol)))
+            for lane, (n, r, t) in enumerate(per_lane):
+                if r > 1.5 * t or not math.isfinite(r):
+                    name = f"uid={k!r}" + (f" lane {lane}" if isinstance(res, (list, tuple)) else "")
+                    failed.append(f"{name}: niter={n}/max_it={max_it}, residual "
+                                  f"{r:.3e} vs tol {t:.3e}")
         if failed:
             raise RuntimeError(
                 "diffuse solve did not converge (" + "; ".join(failed) + "); set "
@@ -371,14 +533,15 @@ class PprtsSolver:
                       side_divider: float) -> torch.Tensor:
         """1 / (face area per dof): converts [W] -> [W/m2]."""
         g = self.grid
+        dz3 = self._dz_solve()
         rows = []
         for d in range(ndof):
             if d < ntop:
-                area = torch.full((g.nz + 1, g.nx, g.ny), g.az / top_divider, dtype=ireals,
-                                  device=self.device)
+                area = torch.full((self.nz_solve + 1, g.nx, g.ny), g.az / top_divider,
+                                  dtype=ireals, device=self.device)
             else:
                 a = g.dy if d < ntop + side_dof else g.dx
-                area = torch.cat([a * g.dz3d / side_divider,
+                area = torch.cat([a * dz3 / side_divider,
                                   torch.ones((1, g.nx, g.ny), dtype=ireals, device=self.device)],
                                  dim=0)
             rows.append(1.0 / area)

@@ -21,20 +21,25 @@ from tenstream_tpu_torch.streams import StreamScheme
 
 def thermal_source(
     scheme: StreamScheme,
-    diff2diff,  # OrbitCoeff or (ndiff, ndiff, Nz, Nx, Ny)
-    planck: torch.Tensor,  # (Nz+1, Nx, Ny) [W/m2/sr]
-    kabs: torch.Tensor,  # (Nz, Nx, Ny)
+    diff2diff,  # OrbitCoeff or ([B,] ndiff, ndiff, Nz, Nx, Ny)
+    planck: torch.Tensor,  # ([B,] Nz+1, Nx, Ny) [W/m2/sr]
+    kabs: torch.Tensor,  # ([B,] Nz, Nx, Ny)
     dz3d: torch.Tensor,
     dx: float,
     dy: float,
     albedo2d: torch.Tensor,
     l1d: np.ndarray,  # (Nz,) bool, host
     planck_srfc: Optional[torch.Tensor] = None,
+    collapse_btop: Optional[torch.Tensor] = None,  # ([B,] Nx, Ny) [W/m2/sr]
+    collapse_bbot: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Thermal emission source b [W], shape (ndiff, Nz+1, Nx, Ny)."""
+    """Thermal emission source b [W], shape ([B,] ndiff, Nz+1, Nx, Ny).
+    With `collapse_btop/bbot`, layer 0 is an atm-collapse super-layer
+    whose folded emission (emissivity included) replaces the top dofs'
+    layer-0 rows."""
     tauz = kabs * dz3d
-    b0 = planck[:-1]
-    b1 = planck[1:]
+    b0 = planck[..., :-1, :, :]
+    b1 = planck[..., 1:, :, :]
     btop = b_eff(b1, b0, tauz)
     bbot = b_eff(b0, b1, tauz)
 
@@ -54,24 +59,28 @@ def thermal_source(
     ftop = scheme.diffside_bsrc_top()
     rows = []
     for d in range(scheme.ndiff):
+        e_d = emis[..., d, :, :, :]
         if d < ntop:
             bfac = PI * az * float(wtop[d])
-            val = (bbot if inward[d] else btop) * bfac * emis[d]
+            val = (bbot if inward[d] else btop) * bfac * e_d
+            if collapse_btop is not None:
+                val = val.clone()
+                val[..., 0, :, :] = (collapse_bbot if inward[d] else collapse_btop) * bfac
         else:
             side_pos = (d - ntop) % nside
             area = ax if d < ntop + nside else ay
             bfac = PI * area * float(wside[side_pos])
             f = float(ftop[side_pos])
             bsrc = bbot * (1.0 - f) + btop * f
-            val = bsrc * bfac * emis[d]
+            val = bsrc * bfac * e_d
             val = torch.where(l1d_mask, torch.zeros_like(val), val)  # no side emission in 1-D layers
         rows.append(val)
-    b = scatter_diff_dst(scheme, torch.stack(rows, dim=0))
+    b = scatter_diff_dst(scheme, torch.stack(rows, dim=-4))
 
     # surface emission into the upward dofs
-    bsrfc = planck[-1] if planck_srfc is None else planck_srfc
+    bsrfc = planck[..., -1, :, :] if planck_srfc is None else planck_srfc
     for d in range(ntop):
         if not inward[d]:
-            b[d, -1] += (bsrfc * (dx * dy / scheme.difftop.area_divider)
-                         * (1.0 - albedo2d) * PI * float(wtop[d]))
+            b[..., d, -1, :, :] += (bsrfc * (dx * dy / scheme.difftop.area_divider)
+                                    * (1.0 - albedo2d) * PI * float(wtop[d]))
     return b

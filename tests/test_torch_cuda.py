@@ -62,7 +62,8 @@ def _inputs(name, B, nz, nx, ny, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,B,nz,nx,ny", [("3_10", 2, 5, 6, 10), ("3_10", 1, 39, 64, 64),
                                              ("3_10", 1, 4, 3, 33), ("3_10", 3, 1, 1, 1),
-                                             ("3_10", 1, 7, 33, 65), ("3_10", 1, 39, 256, 256)])
+                                             ("3_10", 1, 7, 33, 65), ("3_10", 1, 39, 256, 256),
+                                             ("3_10", 8, 24, 64, 64)])
 def test_cuda_kernels_match_plain(cuda_device, name, B, nz, nx, ny):
     ts, idx, orb, u, w, alb, src = _inputs(name, B, nz, nx, ny, seed=2)
     dev = lambda a: torch.as_tensor(a, device=cuda_device)
@@ -232,3 +233,126 @@ def test_cuda_binding_checks_raise(cuda_device):
     with pytest.raises(RuntimeError):  # 9 dofs where K1 is compiled for 10
         ext.fused_A_dots(dev(u)[:, :9].contiguous(), dev(w)[:, :9].contiguous(), dev(orb),
                          dev(alb))
+
+
+def _chunk_solve(device, plain: bool):
+    """A chunk of 8 bands (clouds of growing optical depth, one lane
+    warm-started from its own solution) solved as one batch on the card,
+    through K1/K2 or through their plain versions; returns the result and
+    the kernel launches of the second solve."""
+    import glob
+    import os
+
+    from tenstream_tpu_torch.core.config import Options
+    from tenstream_tpu_torch.optprop.facade import OptProp
+    from tenstream_tpu_torch.optprop.lut import LUT
+    from tenstream_tpu_torch.pprts import ediff
+    from tenstream_tpu_torch.pprts.grid import Grid
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    lut = LUT.load(sorted(glob.glob(os.path.join(here, "data", "luts", "LUT_3_10_*.npz")))[0],
+                   device=device)
+    B, nz, nx, ny = 8, 10, 16, 16
+    rng = np.random.default_rng(3)
+    ka = (1e-5 + 2e-4 * rng.random((B, nz, nx, ny))).astype(np.float32)
+    ks = (1e-5 + 1e-4 * rng.random((B, nz, nx, ny))).astype(np.float32)
+    for i in range(B):
+        ks[i, 3:7, 4:12, 4:12] += 0.01 * 4 ** (i / 2)
+    g = np.full((B, nz, nx, ny), 0.5, np.float32)
+    s = PprtsSolver(Grid.create(nz, nx, ny, 100.0, 100.0, 100.0, device=device),
+                    OptProp(lut, device=device), options=Options({}, read_env=False))
+    s.set_angles(sundir_from_angles(40.0, 35.0))
+    alb = torch.full((nx, ny), 0.2, device=device)
+    toa = np.linspace(100.0, 800.0, B).astype(np.float32)
+    saved = (ediff.fused_A_dots, cuda_ops.orbit_contract)
+    if plain:
+        ediff.fused_A_dots = lambda scheme, idx, orb, u, w, a: cuda_ops.fused_A_dots_plain(
+            scheme, idx, orb, u, w, a)
+        cuda_ops.orbit_contract = lambda scheme, idx, orb, src: cuda_ops.orbit_contract_plain(
+            idx, orb, src)
+    try:
+        first = s.solve_lanes(False, True, ka, ks, g, alb, edirTOA=toa)
+        x0 = torch.zeros_like(first.ediff)
+        x0[0] = first.ediff[0]
+        cuda_ops.reset_launch_counts()
+        r = s.solve_lanes(False, True, ka, ks, g, alb, edirTOA=toa, x0=x0,
+                          omega0=[first.omega[0]] + [1.0] * (B - 1))
+        torch.cuda.synchronize()
+        return r, dict(cuda_ops.LAUNCHES)
+    finally:
+        ediff.fused_A_dots, cuda_ops.orbit_contract = saved
+
+
+@pytest.mark.cuda
+def test_cuda_batched_chunk_matches_plain(cuda_device):
+    """The band-batched solve through K1 (B = 8 per launch, per-lane dots)
+    and K2 against the same chunk through their plain versions: the same
+    per-lane iterations, and fields within float32 round-off of their
+    magnitude; the lane that converges at once is frozen at its warm
+    state in both."""
+    r, launches = _chunk_solve(cuda_device, plain=False)
+    p, plain_launches = _chunk_solve(cuda_device, plain=True)
+    assert launches["fused_A_dots"] > 0 and launches["orbit_contract"] > 0
+    assert plain_launches["fused_A_dots"] == plain_launches["orbit_contract"] == 0
+    assert r.niter == p.niter and r.niter_bicgstab == p.niter_bicgstab, (r.niter, p.niter)
+    assert r.niter[0] == 1 and max(r.niter) > 1
+    # one K1 launch for the warm seed, two per BiCGStab iteration of the chunk
+    assert launches["fused_A_dots"] == 1 + 2 * max(r.niter_bicgstab)
+    for a, b in ((r.ediff, p.ediff), (r.edir, p.edir), (r.abso, p.abso)):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert all(res <= 1.5 * tol for res, tol in zip(r.res, r.tol))
+
+
+@pytest.mark.cuda
+def test_cuda_spectral_host_cache_matches_f32(cuda_device):
+    """`specint_pprts` on the card with the warm states kept in pinned host
+    memory (copied without waiting, collected one chunk later) against the
+    f32 device cache: the same iterations, and fluxes within float32
+    round-off of their magnitude, on a cold and a warm perturbed call."""
+    import glob
+    import os
+
+    from tenstream_tpu_torch.atm import setup_standard_atmosphere
+    from tenstream_tpu_torch.core.config import Options
+    from tenstream_tpu_torch.optprop.facade import OptProp
+    from tenstream_tpu_torch.optprop.lut import LUT
+    from tenstream_tpu_torch.pprts.grid import Grid
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+    from tenstream_tpu_torch.spectral import specint_pprts
+    from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    opp = OptProp(LUT.load(sorted(glob.glob(os.path.join(here, "data", "luts",
+                                                         "LUT_3_10_*.npz")))[0],
+                           device=cuda_device), device=cuda_device)
+    z_low = np.arange(0.0, 2401.0, 100.0)
+    zlev = np.concatenate([np.geomspace(2650.0, 20e3, 16)[::-1], z_low[::-1][1:]])
+    atm = setup_standard_atmosphere(z_grid=zlev)
+    n = 16
+    lwc = np.zeros((atm.nlay, n, n), np.float32)
+    lwc[25:27, 3:9, 4:12] = 0.4
+    out = {}
+    for mode in ("f32", "host"):
+        s = PprtsSolver(Grid.create(atm.nlay, n, n, 100.0, 100.0, atm.dz.astype(np.float32),
+                                    device=cuda_device), opp,
+                        options=Options({"atm_collapse": 16, "specint_cache": mode},
+                                        read_env=False))
+        s.set_angles(sundir_from_angles(120.0, 40.0))
+        res = []
+        for step in range(2):
+            r = specint_pprts(s, atm, albedo=0.15, lthermal=True, lsolar=True,
+                              specint=EcckdGasOptics(n_gpt=16), lwc=np.roll(lwc, step, axis=1),
+                              band_chunk=8)
+            res.append(([a.cpu() for a in r],
+                        sorted((k, tuple(v.niter_diff)) for k, v in s.solutions.items())))
+        if mode == "host":
+            assert all(v.ediff.device.type == "cpu" and v.ediff.is_pinned()
+                       for v in s.solutions.values())
+        out[mode] = res
+    for (rf, nf), (rh, nh) in zip(out["f32"], out["host"]):
+        assert nf == nh
+        for a, b in zip(rf, rh):
+            assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())

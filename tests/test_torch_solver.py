@@ -224,10 +224,20 @@ def test_coeff_bf16_on_orbit_coefficients_raises(jlut):
 
 @pytest.mark.parametrize("opts", [{"atm_collapse": 4}, {"pprts_geometric_coeffs": True}])
 def test_unported_options_raise(jlut, opts):
+    """Unported options raise and name their ROADMAP item.  atm_collapse is
+    ported: over this scene's 3-D layers it raises the JAX package's
+    ValueError at solve time."""
     opp = OptProp(lut_from_arrays(jlut, "cpu"), device="cpu")
     grid = Grid.create(NZ, NX, NY, 100.0, 100.0, 100.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PprtsSolver(grid, opp, options=Options(opts, read_env=False))
+    if "atm_collapse" in opts:
+        solver = PprtsSolver(grid, opp, options=Options(opts, read_env=False))
+        ka, ks, g, planck = _scene()
+        solver.set_optical_properties(0.25, ka, ks, g, planck=planck)
+        with pytest.raises(ValueError, match="must be 1-D layers"):
+            solver.solve(lthermal=True, lsolar=False)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PprtsSolver(grid, opp, options=Options(opts, read_env=False))
     with pytest.raises(ValueError, match="diff_solver"):
         PprtsSolver(grid, opp, options=Options({"diff_solver": "gmres"}, read_env=False))
 
