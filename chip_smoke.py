@@ -16,7 +16,8 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  at the spectral path's band chunk (B = 8, the 24 layers of
                  the collapsed solve grid) and at a single band of 39 layers;
                  times them, their plain versions and, beside K2 and K3, the
-                 one einsum that computes the contraction each contains.
+                 one einsum that computes the contraction each contains; K3 also
+                 at the urban spectral path's band chunk (B = 8, 56 layers).
   4. cloud    -- the single-band cloud path (orbit coefficients, K1 and K2): the 3_10
                  PprtsSolver on a 100 m LES column (bench.py's vertical
                  structure, nz = 39) at 256 x 256 columns with the
@@ -62,6 +63,35 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  of phase 12's solver: host time per stage, then under
                  torch.profiler the device busy share and the kernels with the
                  most device time.
+ 14. urban spectral -- this slice's path: buildings inside specint_pprts.
+                 Phase 6's street grid (its solid mask) at the bottom of the
+                 standard atmosphere: 40 layers of 10 m under 16 geometric
+                 layers to 20 km (56), 256 x 256 columns of 20 m, faces at
+                 300 K (Buildings.temp), ecCKD 32 + 32 in chunks of 8 through
+                 K3 (dense coefficients, no atm_collapse), the f32 warm cache:
+                 a cold call, an identical warm call, the sun moved to
+                 (253, 37), and the sun moved back under torch.profiler.
+                 Prints walls, columns/s, niter per chunk, launches, peak
+                 memory, K3's time, bound and einsum at the chunk's shape and
+                 the device busy share; checks every lane converged, finite
+                 fields, TOA edir = sum of the solar weights x mu within 1%,
+                 phase 6's shadow and face checks (the open columns against
+                 the direct beam at the box's top, the faces' emission the sum
+                 of the per-g-point Planck at 300 K), K3 launched, K1/K2 not.
+ 15. urban spectral parity -- the same at 64 x 64 through K3 and through its
+                 plain version: fluxes 0.1 W/m2, absorption 1e-4 W/m3, face
+                 fluxes 0.1 W/m2, every band's niter equal.
+ 16. options  -- the McICA draws (threefry) on the card against the same
+                 draws on the CPU (sha256), then at 64 x 64, each through the
+                 kernels and through their plain versions with phase 13's
+                 gates: McICA on bench.py's scene with a partial cloud
+                 fraction, three steps of the adaptive spectral skip (equal
+                 skip counts), one 8_10 solve on the committed production
+                 table through K1/K2.
+ 17. terrain  -- ex_pprts_hill.py's Gaussian hill at 64 x 64 columns of 100 m
+                 (20 sigma layers) with pprts_geometric_coeffs, kernels
+                 against plain; the slope-corrected surface direct beam
+                 brightens the flank facing the sun and dims the other.
  10. boxmc    -- K4 boxmc_trace, the BoxMC photon tracer: one launch of 4096
                  entries drawn with --seed from the production diffuse grid
                  for the orbit-representative sources 0 and 2 and one from
@@ -88,10 +118,11 @@ launch's tallies and photon-steps, the generated table) against sha256
 digests recorded from the earlier K4 design: they must be equal bit for
 bit.
 
-The phases run in the order 1-8, 12, 13, 9, 10, 11.  Each path resets the
-kernel launch counts before it runs and reads them after; the kernels JSON
-takes K1's and K2's launches from phase 12 (the main path), K3's from the
-urban path and K4's from the LUT pass.  The line before the last is a JSON
+The phases run in the order 1-8, 12, 13, 9, 14-17, 10, 11.  Each path resets
+the kernel launch counts before it runs and reads them after; the kernels
+JSON takes K1's and K2's launches from phase 12 (the main path), K3's from
+phase 14 (the urban spectral path, where its entry is timed) and K4's from
+the LUT pass.  The line before the last is a JSON
 object describing each kernel; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -99,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import hashlib
 import json
 import os
@@ -128,6 +160,9 @@ NGPT = 32  # ecCKD g-points per spectrum (bench.py)
 SPECTRAL_SUN = (120.0, 40.0)  # bench.py's sun
 HR_MAX = 100.0  # K/day
 URBAN_NZ, URBAN_DZ, URBAN_DX = 40, 10.0, 20.0  # the urban path: aspect 0.5, all layers 3-D
+URBAN_SKY = 16  # geometric layers from the urban box's top (400 m) to 20 km: all 1-D
+URBAN_SPEC_NZ = URBAN_NZ + URBAN_SKY  # the urban spectral path's column
+LUT_8_10_PATH = os.path.join(REPO, "data", "luts", "LUT_8_10_production.npz")
 URBAN_ALBEDO, BUILDING_ALBEDO, BUILDING_T = 0.15, 0.4, 300.0
 SUN = (250.0, 35.0)  # phi, theta [deg]
 SUN_MOVED = (253.0, 37.0)  # the urban warm solve's sun
@@ -483,17 +518,20 @@ def phase_kernels(cuda_ops, scheme, idx, nx, ny):
     return report
 
 
-def phase_kernel_dense(cuda_ops, scheme, nz, nx, ny):
+def phase_kernel_dense(cuda_ops, scheme, nx, ny):
     """K3 against its plain version, with float32 and bfloat16 coefficients,
-    at the urban path's shape and at an odd batched shape.  The bound counts
-    the coefficient field, x and the result once each.  Beside it the one
-    PyTorch call that computes the contraction K3 contains, on sources
-    gathered beforehand and without the scatter: the einsum (float32
-    coefficients only; it is used nowhere in the package)."""
+    at the urban spectral path's band chunk (B = 8, 56 layers: K3's main
+    path), at the single-band urban path's shape (B = 1, 40 layers) and at
+    an odd batched shape.  The bound counts the coefficient field, x and the
+    result once each.  Beside it the one PyTorch call that computes the
+    contraction K3 contains, on sources gathered beforehand and without the
+    scatter: the einsum (float32 coefficients only; it is used nowhere in
+    the package).  The JSON entry is the chunk's float32 reading; the
+    single-band and bfloat16 readings ride along under their own keys."""
     nd = scheme.ndiff
     entry = {}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        for (B, z, x_, y) in ((2, 5, 6, 10), (1, nz, nx, ny)):
+        for (B, z, x_, y) in ((2, 5, 6, 10), (1, URBAN_NZ, nx, ny), (CHUNK, URBAN_SPEC_NZ, nx, ny)):
             g = torch.Generator(device="cuda").manual_seed(z + x_)
             c = (torch.rand((B, nd, nd, z, x_, y), device="cuda", generator=g) * 0.1).to(dtype)
             x = torch.rand((B, nd, z + 1, x_, y), device="cuda", generator=g)
@@ -501,6 +539,7 @@ def phase_kernel_dense(cuda_ops, scheme, nz, nx, ny):
             ref = cuda_ops.diffuse_apply_dense_plain(scheme, c, x)
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
+            del out, ref
             log(f"kernels K3 {tag} B={B} nz={z} nx={x_} ny={y}: max abs {err:.3e}")
             if not err <= FIELD_ATOL:
                 raise AssertionError(f"K3 ({tag}) disagrees with its plain version "
@@ -510,17 +549,24 @@ def phase_kernel_dense(cuda_ops, scheme, nz, nx, ny):
                 plain_ms = cuda_ms(lambda: cuda_ops.diffuse_apply_dense_plain(scheme, c, x), 3)
                 lib_ms = None
                 if dtype == torch.float32:
-                    src = cuda_ops.gather_diff_src(scheme, x)[0].contiguous()
-                    lib_ms = cuda_ms(lambda: torch.einsum("sdzxy,szxy->dzxy", c[0], src), 3)
+                    src = cuda_ops.gather_diff_src(scheme, x).contiguous()
+                    lib_ms = cuda_ms(lambda: torch.einsum("bsdzxy,bszxy->bdzxy", c, src), 3)
                     del src
                 ncell, nface = z * x_ * y, (z + 1) * x_ * y
                 nbytes = B * (nd * nd * ncell * c.element_size() + 2 * nd * nface * 4)
                 flops = B * 2 * nd * nd * ncell
-                entry[tag] = _report_entry(f"diffuse_apply_dense ({tag} coefficients)", err, ms,
-                                           plain_ms, nbytes, flops, lib_ms)
-            del c, x, out, ref
-    report = dict(entry["f32"])
-    report.update({f"{k}_bf16": v for k, v in entry["bf16"].items() if k != "library_ms"})
+                entry[tag, B] = _report_entry(
+                    f"diffuse_apply_dense ({tag} coefficients, B={B} nz={z})", err, ms, plain_ms,
+                    nbytes, flops, lib_ms)
+            del c, x
+            torch.cuda.empty_cache()
+    report = dict(entry["f32", CHUNK])
+    one = entry["f32", 1]
+    report.update(single_band_ms=one["ms"], single_band_bound_ms=one["bound_ms"],
+                  single_band_library_ms=one["library_ms"])
+    for B, key in ((CHUNK, ""), (1, "single_band_")):
+        bf = entry["bf16", B]
+        report.update({f"{key}{k}_bf16": bf[k] for k in ("ms", "bound_ms", "max_abs_err")})
     return report
 
 
@@ -613,16 +659,20 @@ def phase_main(cuda_ops, opp, Grid, PprtsSolver, sundir, seed):
     return launches
 
 
-def check_urban(solver, solid, outs, label):
-    """Shadows under the buildings, sun in the open, and the face fluxes."""
+def check_urban(solver, solid, outs, label, fluxes=None, B_face=None, box_top=0):
+    """Shadows under the buildings, sun in the open, and the face fluxes:
+    `fluxes` (default `solver.get_building_fluxes()`) against the faces'
+    emission B_face (default the static `Buildings.planck`).  The open
+    columns are held to the direct irradiance at the urban box's top,
+    level `box_top`."""
     edir = outs[0]
     cols = torch.as_tensor(solid.any(axis=0), device=edir.device)
     under = edir[-1][cols].max().item()
-    clear = edir[0].mean().item()
+    clear = edir[box_top].mean().item()
     lit = edir[-1][~cols].max().item()
     log(f"{label}: {100 * solid.any(axis=0).mean():.1f}% of the columns hold a building; surface "
         f"edir under them at most {under:.3e} W/m2, in the open up to {lit:.1f} of {clear:.1f} "
-        "W/m2 at the top")
+        "W/m2 at the box's top")
     if not under < 1.0:
         raise AssertionError(f"{label}: direct irradiance {under} W/m2 under a solid column")
     if not lit > 0.9 * clear:
@@ -630,13 +680,14 @@ def check_urban(solver, solid, outs, label):
     from tenstream_tpu_torch.pprts.buildings import face_masks
 
     b = solver._buildings
-    fl = solver.get_building_fluxes()
+    fl = solver.get_building_fluxes() if fluxes is None else fluxes
+    B_face = b.planck if B_face is None else B_face
     for kind, m in face_masks(b).items():
         f = fl[kind]
         for q in ("edir", "incoming", "outgoing"):
             if not bool(torch.isfinite(f[q]).all()):
                 raise AssertionError(f"{label}: non-finite {q} on {kind} faces")
-        want = torch.where(m, b.albedo * f["incoming"] + (1.0 - b.albedo) * np.pi * b.planck,
+        want = torch.where(m, b.albedo * f["incoming"] + (1.0 - b.albedo) * np.pi * B_face,
                            torch.zeros_like(f["incoming"]))
         err = (f["outgoing"] - want).abs().max().item()
         if err > 1e-3 * max(1.0, want.abs().max().item()):
@@ -680,9 +731,6 @@ def phase_profile(resolve, label, stages_of, top=12):
     synchronise, then (changed back) under torch.profiler, whose kernel
     durations give the device busy time and the kernels with the most
     device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def timed_resolve(i):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -715,13 +763,7 @@ def phase_profile(resolve, label, stages_of, top=12):
     log(f"profile {label}: stages of the warm re-solve (wall {wall_ms:.1f} ms, {text}): "
         + ", ".join(f"{n} {ms:.1f} ms" for n, ms in stages.items()) + f", other {other:.1f} ms")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        text_p, wall_prof_ms = timed_resolve(2)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            t, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    (text_p, wall_prof_ms), by_name = device_kernels(lambda: timed_resolve(2))
     busy_ms = sum(t for t, _ in by_name.values())
     if busy_ms == 0:
         log(f"profile {label}: the profiler recorded no device time; device busy share not "
@@ -733,6 +775,24 @@ def phase_profile(resolve, label, stages_of, top=12):
         f"(profiled wall {wall_prof_ms:.1f} ms; {text_p})")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"profile {label}   {t:9.2f} ms {n:6d} launches  {name[:100]}")
+
+
+def device_kernels(fn):
+    """fn() under torch.profiler, tracing the device only: (its result,
+    {kernel name: (device ms, launches)}).  The trace's raw events are read
+    directly: building the profiler's event tree for a spectral call's
+    ~400k kernels takes minutes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            t, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (t + (e.end_ns() - e.start_ns()) / 1e6, n + 1)
+    return out, by_name
 
 
 def _solver_stages():
@@ -795,22 +855,31 @@ def profile_spectral(spec):
     phase_profile(resolve, f"spectral {NX}x{NY}x{NZ} ecCKD {NGPT}+{NGPT}", stages)
 
 
+@contextlib.contextmanager
+def kernels_or_plain(cuda_ops, ediff, plain: bool):
+    """Run the block on the kernels K1-K3 or (plain) on their plain PyTorch
+    versions, on the card either way."""
+    saved = (ediff.fused_A_dots, cuda_ops.orbit_contract, ediff.diffuse_apply_dense)
+    if plain:
+        ediff.fused_A_dots = (lambda scheme, idx, orb, u, w, alb:
+                              cuda_ops.fused_A_dots_plain(scheme, idx, orb, u, w, alb))
+        cuda_ops.orbit_contract = (lambda scheme, idx, orb, src:
+                                   cuda_ops.orbit_contract_plain(idx, orb, src))
+        ediff.diffuse_apply_dense = cuda_ops.diffuse_apply_dense_plain
+    try:
+        yield
+    finally:
+        ediff.fused_A_dots, cuda_ops.orbit_contract, ediff.diffuse_apply_dense = saved
+
+
 def phase_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, sundir, seed):
     """64x64 cloud scene through K1/K2, then through their plain versions."""
     outs = []
     for plain in (False, True):
         solver, fields = make_solver(64, 64, seed, opp, Grid, PprtsSolver, sundir)
-        saved = (ediff.fused_A_dots, cuda_ops.orbit_contract)
-        if plain:
-            ediff.fused_A_dots = (lambda scheme, idx, orb, u, w, alb:
-                                  cuda_ops.fused_A_dots_plain(scheme, idx, orb, u, w, alb))
-            cuda_ops.orbit_contract = (lambda scheme, idx, orb, src:
-                                       cuda_ops.orbit_contract_plain(idx, orb, src))
-        try:
+        with kernels_or_plain(cuda_ops, ediff, plain):
             outs.append(solve_and_report(solver, fields, cuda_ops,
                                          "parity plain" if plain else "parity kernels")[0])
-        finally:
-            ediff.fused_A_dots, cuda_ops.orbit_contract = saved
     _compare_solves(f"parity 64x64x{NZ} kernels vs plain", outs)
 
 
@@ -820,15 +889,10 @@ def phase_urban_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, Buildings, sundi
     for plain in (False, True):
         solver, fields, _ = make_urban_solver(64, 64, seed, opp, Grid, PprtsSolver, Buildings,
                                               sundir)
-        saved = ediff.diffuse_apply_dense
-        if plain:
-            ediff.diffuse_apply_dense = cuda_ops.diffuse_apply_dense_plain
-        try:
+        with kernels_or_plain(cuda_ops, ediff, plain):
             o, it = solve_and_report(solver, fields, cuda_ops,
                                      "urban parity plain" if plain else "urban parity kernel",
                                      albedo=URBAN_ALBEDO)
-        finally:
-            ediff.diffuse_apply_dense = saved
         outs.append(o)
         iters.append(it)
     _compare_solves(f"urban parity 64x64x{URBAN_NZ} K3 vs plain", outs)
@@ -881,9 +945,10 @@ def _band_niters(solver) -> dict:
     return out
 
 
-def spectral_solve(spec, lwc, cuda_ops, label, report_chunks=True):
-    """One spectral call through `specint_pprts`: its wall, its kernel
-    launches, the per-chunk iterations and the lane checks."""
+def spectral_solve(spec, lwc, cuda_ops, label, report_chunks=True, **kw):
+    """One spectral call through `specint_pprts` (`kw`: its other inputs):
+    its wall, its kernel launches, the per-chunk iterations and the lane
+    checks."""
     from tenstream_tpu_torch.spectral import specint_pprts
 
     solver, atm, _, gas = spec
@@ -891,7 +956,7 @@ def spectral_solve(spec, lwc, cuda_ops, label, report_chunks=True):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = specint_pprts(solver, atm, albedo=0.15, lthermal=True, lsolar=True, specint=gas,
-                        lwc=lwc, band_chunk=CHUNK)
+                        lwc=lwc, band_chunk=CHUNK, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: cuda_ops.LAUNCHES[k] - before[k] for k in before}
@@ -991,18 +1056,10 @@ def phase_spectral_parity(cuda_ops, ediff, opp, seed):
     outs, iters = [], []
     for plain in (False, True):
         spec = make_spectral_solver(64, 64, seed, opp)
-        saved = (ediff.fused_A_dots, cuda_ops.orbit_contract)
-        if plain:
-            ediff.fused_A_dots = (lambda scheme, idx, orb, u, w, alb:
-                                  cuda_ops.fused_A_dots_plain(scheme, idx, orb, u, w, alb))
-            cuda_ops.orbit_contract = (lambda scheme, idx, orb, src:
-                                       cuda_ops.orbit_contract_plain(idx, orb, src))
-        try:
+        with kernels_or_plain(cuda_ops, ediff, plain):
             res, _, launches = spectral_solve(
                 spec, spec[2], cuda_ops, "spectral parity " + ("plain" if plain else "kernels"),
                 report_chunks=False)
-        finally:
-            ediff.fused_A_dots, cuda_ops.orbit_contract = saved
         if plain != (launches["fused_A_dots"] == 0):
             raise AssertionError("spectral parity: K1 launched where it should not, or not at all")
         outs.append(tuple(res))
@@ -1013,6 +1070,306 @@ def phase_spectral_parity(cuda_ops, ediff, opp, seed):
         f"{len(iters[0]) - len(differ)}" + (f"; differ {differ}" if differ else ""))
     if differ or iters[0].keys() != iters[1].keys():
         raise AssertionError(f"spectral parity: per-band iterations differ {differ}")
+
+
+# ---------------------------------------------------------------------------
+# the urban spectral path (K3 at band chunks of 8) and the 3-D options
+# ---------------------------------------------------------------------------
+
+def urban_spectral_zlev():
+    """The urban box's 40 layers of 10 m under 16 geometric layers from its
+    top (400 m) to 20 km, TOA -> surface: 56 layers."""
+    z_sky = np.geomspace(URBAN_NZ * URBAN_DZ, 20e3, URBAN_SKY + 1)
+    return np.concatenate([z_sky[::-1], URBAN_DZ * np.arange(URBAN_NZ - 1, -1, -1)])
+
+
+def make_urban_spectral(nx, ny, seed, opp):
+    """Phase 6's street grid (its solid mask only) at the bottom of the
+    standard atmosphere on `urban_spectral_zlev`, building faces at 300 K,
+    the f32 warm cache, sun (250, 35)."""
+    from tenstream_tpu_torch.atm import setup_standard_atmosphere
+    from tenstream_tpu_torch.core.config import Options
+    from tenstream_tpu_torch.pprts.buildings import Buildings
+    from tenstream_tpu_torch.pprts.grid import Grid
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+    from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
+
+    atm = setup_standard_atmosphere(z_grid=urban_spectral_zlev())
+    solid = np.concatenate([np.zeros((URBAN_SKY, nx, ny), bool),
+                            build_urban_scene(nx, ny, seed)[2]])
+    grid = Grid.create(atm.nlay, nx, ny, URBAN_DX, URBAN_DX, atm.dz.astype(np.float32),
+                       device="cuda")
+    solver = PprtsSolver(grid, opp, options=Options({"specint_cache": "f32"}, read_env=False))
+    l1d = np.asarray(solver._l1d, bool)
+    if not (l1d[:URBAN_SKY].all() and not l1d[URBAN_SKY:].any()):
+        raise AssertionError(f"urban spectral column: expected {URBAN_SKY} 1-D layers over the "
+                             f"box's {URBAN_NZ} 3-D ones, got l1d {l1d.tolist()}")
+    solver.set_angles(sundir_from_angles(*SUN))
+    b = Buildings(solid=torch.as_tensor(solid, device="cuda"), albedo=BUILDING_ALBEDO,
+                  temp=BUILDING_T)
+    return (solver, atm, None, EcckdGasOptics(n_gpt=NGPT)), b, solid
+
+
+def check_urban_spectral(spec, b, solid, res, label, sun):
+    """TOA edir against the solar weights, and phase 6's urban checks on the
+    spectral result with the faces' broadband emission sum_g B_g(300 K)."""
+    solver, atm, _, gas = spec
+    mu = float(np.cos(np.deg2rad(sun[1])))
+    want = float(gas.solar(atm).weight.sum()) * mu
+    toa = res.edir[0].mean().item()
+    B_sum = float(gas.planck_at(BUILDING_T).astype(np.float64).sum())
+    log(f"{label}: TOA edir {toa:.3f} W/m2 vs sum of the solar weights x mu {want:.3f}; faces "
+        f"emit pi sum_g B_g(300 K) = {np.pi * B_sum:.2f} W/m2")
+    if abs(toa - want) > 0.01 * want:
+        raise AssertionError(f"{label}: TOA edir {toa} differs from {want} by more than 1%")
+    check_urban(solver, solid, tuple(res), label, fluxes=b.fluxes, B_face=B_sum,
+                box_top=URBAN_SKY)
+
+
+def phase_urban_spectral(cuda_ops, opp, seed, smi, k3):
+    """This slice's path: buildings inside specint_pprts at 256 x 256, ecCKD
+    32 + 32 in chunks of 8 through K3: a cold call, an identical warm call,
+    a call with the sun moved, and the sun moved back under torch.profiler."""
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    spec, b, solid = make_urban_spectral(NX, NY, seed, opp)
+    solver = spec[0]
+    log(f"urban spectral: {NX}x{NY}x{URBAN_SPEC_NZ} ({URBAN_NZ} layers of {URBAN_DZ:.0f} m under "
+        f"{URBAN_SKY} to 20 km, columns of {URBAN_DX:.0f} m), {100 * solid.any(axis=0).mean():.1f}% "
+        f"of the columns built on, ecCKD {NGPT}+{NGPT} in chunks of {CHUNK}, specint_cache f32, "
+        "no atm_collapse (buildings forbid it)")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launch_counts()
+    walls = {}
+    for tag, sun in (("cold", SUN), ("warm identical", SUN), ("sun moved", SUN_MOVED)):
+        solver.set_angles(sundir_from_angles(*sun))
+        res, walls[tag], _ = spectral_solve(spec, None, cuda_ops, f"urban spectral {tag}",
+                                            buildings=b)
+        check_urban_spectral(spec, b, solid, res, f"urban spectral {tag}", sun)
+    launches = dict(cuda_ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"urban spectral: walls " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in walls.items())
+        + f"; sun moved = {NX * NY / walls['sun moved']:.1f} columns/s ({smi}); launches "
+        f"{launches}; peak device memory {peak:.2f} GiB")
+    log(f"urban spectral: K3 at this chunk's shape (B={CHUNK}, nz={URBAN_SPEC_NZ}, {NX}x{NY}): "
+        f"{k3['ms']:.4f} ms per launch, byte bound {k3['bound_ms']:.4f} ms "
+        f"({100 * k3['bound_ms'] / k3['ms']:.1f}%), one einsum on gathered sources "
+        f"{k3['library_ms']:.4f} ms; bfloat16 coefficients {k3['ms_bf16']:.4f} ms (bound "
+        f"{k3['bound_ms_bf16']:.4f} ms, {100 * k3['bound_ms_bf16'] / k3['ms_bf16']:.1f}%); "
+        f"{launches['diffuse_apply_dense']} launches = "
+        f"{launches['diffuse_apply_dense'] * k3['ms'] / 1e3:.2f} s of K3 in the three calls")
+    if launches["diffuse_apply_dense"] == 0:
+        raise AssertionError("kernel diffuse_apply_dense was not launched on the urban "
+                             "spectral path")
+    if launches["fused_A_dots"] or launches["orbit_contract"]:
+        raise AssertionError("the urban spectral path launched an orbit kernel")
+
+    def sun_back():
+        solver.set_angles(sundir_from_angles(*SUN))
+        return spectral_solve(spec, None, cuda_ops, "urban spectral profiled (sun back)",
+                              buildings=b)
+
+    (_, wall_p, _), by_name = device_kernels(sun_back)
+    busy = sum(t for t, _ in by_name.values())
+    if busy == 0:
+        log("urban spectral profile: the profiler recorded no device time; busy share not "
+            "measured")
+    else:
+        log(f"urban spectral profile: device busy {busy:.1f} ms in "
+            f"{sum(n for _, n in by_name.values())} kernels = {100 * busy / (wall_p * 1e3):.1f}% "
+            f"of the profiled call's wall {wall_p * 1e3:.1f} ms (the unprofiled sun-moved call: "
+            f"{walls['sun moved'] * 1e3:.1f} ms)")
+        for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+            log(f"urban spectral profile   {t:9.2f} ms {n:6d} launches  {name[:100]}")
+    return launches
+
+
+def _compare_faces(label, faces):
+    err = max((faces[0][k][q] - faces[1][k][q]).abs().max().item()
+              for k in faces[0] for q in ("edir", "incoming", "outgoing"))
+    log(f"{label}: face fluxes max abs {err:.3e} W/m2")
+    if err > FLUX_ATOL:
+        raise AssertionError(f"{label}: face fluxes differ by {err} > {FLUX_ATOL} W/m2")
+
+
+def _compare_band_niters(label, iters):
+    differ = {k: (iters[0][k], iters[1].get(k)) for k in iters[0]
+              if iters[0][k] != iters[1].get(k)}
+    log(f"{label}: {len(iters[0])} bands, niter equal in {len(iters[0]) - len(differ)}"
+        + (f"; differ {differ}" if differ else ""))
+    if differ or iters[0].keys() != iters[1].keys():
+        raise AssertionError(f"{label}: per-band iterations differ {differ}")
+
+
+def phase_urban_spectral_parity(cuda_ops, ediff, opp, seed):
+    """The urban spectral scene at 64 x 64 through K3 and through its plain
+    version: fluxes, absorption, face fluxes and every band's niter."""
+    outs, iters, faces = [], [], []
+    for plain in (False, True):
+        spec, b, solid = make_urban_spectral(64, 64, seed, opp)
+        with kernels_or_plain(cuda_ops, ediff, plain):
+            res, _, launches = spectral_solve(
+                spec, None, cuda_ops, "urban spectral parity " + ("plain" if plain else "K3"),
+                report_chunks=False, buildings=b)
+        if plain != (launches["diffuse_apply_dense"] == 0):
+            raise AssertionError("urban spectral parity: K3 launched where it should not, or not "
+                                 "at all")
+        outs.append(tuple(res))
+        iters.append(_band_niters(spec[0]))
+        faces.append(b.fluxes)
+    _compare_solves(f"urban spectral parity 64x64x{URBAN_SPEC_NZ} K3 vs plain", outs)
+    _compare_faces("urban spectral parity", faces)
+    _compare_band_niters("urban spectral parity", iters)
+
+
+def phase_options(cuda_ops, ediff, opp, seed):
+    """The 3-D options at 64 x 64, each through the kernels and through their
+    plain versions with phase 13's gates: McICA on bench.py's scene with a
+    partial cloud fraction, the adaptive spectral skip over three steps
+    (equal skip counts), and one 8_10 solve on the committed production
+    table; before them the McICA draws on the card against the same draws
+    on the CPU."""
+    from tenstream_tpu_torch.core.prng import Threefry
+    from tenstream_tpu_torch.optprop.facade import OptProp
+    from tenstream_tpu_torch.optprop.lut import LUT
+    from tenstream_tpu_torch.pprts.grid import Grid
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    key = Threefry.from_seed(712).fold_in(1)
+    shape = (NGPT, NZ, 64, 64)
+    got = {dev: (sha256(key.bits(shape, dev)), sha256(key.uniform(shape, dev)))
+           for dev in ("cuda", "cpu")}
+    log(f"options threefry: {shape} bits and uniforms on the card {got['cuda'][0][:16]} / "
+        f"{got['cuda'][1][:16]}, on the CPU {got['cpu'][0][:16]} / {got['cpu'][1][:16]}")
+    if got["cuda"] != got["cpu"]:
+        raise AssertionError("threefry: the draws on the card differ from those on the CPU")
+
+    outs, iters, cf = [], [], None
+    for plain in (False, True):
+        spec = make_spectral_solver(64, 64, seed, opp)
+        lwc = spec[2]
+        if cf is None:  # partly cloudy cells: 30-100% of each cloudy cell
+            rng = np.random.default_rng(seed)
+            cf = np.where(lwc > 0, rng.uniform(0.3, 1.0, lwc.shape), 0.0).astype(np.float32)
+        with kernels_or_plain(cuda_ops, ediff, plain):
+            res, _, launches = spectral_solve(
+                spec, lwc, cuda_ops, "options McICA " + ("plain" if plain else "kernels"),
+                report_chunks=False, cld_frac=cf)
+        if plain != (launches["fused_A_dots"] == 0):
+            raise AssertionError("options McICA: K1 launched where it should not, or not at all")
+        outs.append(tuple(res))
+        iters.append(_band_niters(spec[0]))
+    _compare_solves(f"options McICA 64x64x{NZ} kernels vs plain", outs)
+    _compare_band_niters("options McICA", iters)
+
+    runs = []
+    for plain in (False, True):
+        spec = make_spectral_solver(64, 64, seed, opp)
+        steps = []
+        with kernels_or_plain(cuda_ops, ediff, plain):
+            for t in (0.0, 60.0, 120.0):
+                res, wall, _ = spectral_solve(
+                    spec, spec[2], cuda_ops, f"options adaptive {'plain' if plain else 'kernels'} "
+                    f"t={t:.0f}", report_chunks=False, time=t, max_solution_err=1.0,
+                    max_solution_time=3600.0)
+                steps.append((tuple(res), spec[0]._spectral_skips, wall))
+        runs.append(steps)
+    for (ra, na, wa), (rb, nb, wb) in zip(*runs):
+        _compare_solves("options adaptive kernels vs plain", (ra, rb))
+        if na != nb:
+            raise AssertionError(f"options adaptive: skip counts differ, {na} vs {nb}")
+    log(f"options adaptive: skips after each step {[n for _, n, _ in runs[0]]} (kernels) = "
+        f"{[n for _, n, _ in runs[1]]} (plain); walls with the kernels "
+        + ", ".join(f"{w * 1e3:.1f} ms" for _, _, w in runs[0]))
+    if runs[0][-1][1] == 0:
+        raise AssertionError("options adaptive: the identical third step skipped no chunk")
+
+    opp810 = OptProp(LUT.load(LUT_8_10_PATH, device="cuda"), device="cuda")
+    outs, iters = [], []
+    for plain in (False, True):
+        solver, fields = make_solver(64, 64, seed, opp810, Grid, PprtsSolver,
+                                     sundir_from_angles(*SUN))
+        cuda_ops.reset_launch_counts()
+        with kernels_or_plain(cuda_ops, ediff, plain):
+            o, it = solve_and_report(solver, fields, cuda_ops,
+                                     "options 8_10 " + ("plain" if plain else "kernels"))
+        if plain != (cuda_ops.LAUNCHES["fused_A_dots"] == 0):
+            raise AssertionError("options 8_10: K1 launched where it should not, or not at all")
+        outs.append(o)
+        iters.append(it)
+    _compare_solves(f"options 8_10 64x64x{NZ} kernels vs plain", outs)
+    if iters[0] != iters[1]:
+        raise AssertionError(f"options 8_10: iteration counts differ, {iters[0]} vs {iters[1]}")
+
+
+def gaussian_hill(nz, nx, ny, dx, ztop, hill_height, hill_sigma):
+    """`examples/ex_pprts_hill.py`'s terrain: sigma-coordinate layer
+    thicknesses (nz equal layers between the surface and ztop) over a
+    Gaussian hill, its height field and gradients."""
+    x = (np.arange(nx) - nx / 2.0) * dx
+    y = (np.arange(ny) - ny / 2.0) * dx
+    xx, yy = np.meshgrid(x, y, indexing="ij")
+    h = hill_height * np.exp(-(xx ** 2 + yy ** 2) / (2.0 * hill_sigma ** 2))
+    dz3d = np.broadcast_to((ztop - h)[None] / nz, (nz, nx, ny)).astype(np.float32)
+    return dz3d, h.astype(np.float32), np.gradient(h, dx, axis=0), np.gradient(h, dx, axis=1)
+
+
+def phase_terrain(cuda_ops, ediff, opp):
+    """`ex_pprts_hill.py`'s scene at 64 x 64 columns of 100 m (20 sigma
+    layers to 2 km over an 800 m hill, every layer 3-D) with
+    pprts_geometric_coeffs, sun from +x at 50 degrees: the kernels against
+    their plain versions, and the slope-corrected surface direct beam."""
+    from tenstream_tpu_torch.core.config import Options
+    from tenstream_tpu_torch.pprts.grid import Grid
+    from tenstream_tpu_torch.pprts.postprocess import slope_correction_srfc_edir
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    nz, n, dx = 20, 64, 100.0
+    dz3d, h, hx, hy = gaussian_hill(nz, n, n, dx, 2000.0, 800.0, 400.0)
+    sun = sundir_from_angles(90.0, 50.0)
+    outs, iters = [], []
+    for plain in (False, True):
+        solver = PprtsSolver(Grid.create(nz, n, n, dx, dx, dz3d, device="cuda"), opp,
+                             options=Options({"pprts_geometric_coeffs": True}, read_env=False))
+        if np.asarray(solver._l1d).any():
+            raise AssertionError("terrain: a 1-D layer; the geometric blocks would not be used")
+        solver.set_optical_properties(0.2, np.full((nz, n, n), 5e-5, np.float32),
+                                      np.full((nz, n, n), 2e-4, np.float32),
+                                      np.full((nz, n, n), 0.4, np.float32))
+        solver.set_terrain(h)
+        solver.set_angles(sun)
+        cuda_ops.reset_launch_counts()
+        with kernels_or_plain(cuda_ops, ediff, plain):
+            sol = solver.solve(lthermal=False, lsolar=True, edirTOA=1364.0)
+            res = solver.get_result()
+        if plain != (cuda_ops.LAUNCHES["fused_A_dots"] == 0):
+            raise AssertionError("terrain: K1 launched where it should not, or not at all")
+        if not np.isfinite(sol.diff_res) or sol.diff_res > 1.5 * sol.diff_tol:
+            raise AssertionError(f"terrain: residual {sol.diff_res} > 1.5 x tol {sol.diff_tol}")
+        abso = res[3]
+        outs.append((res[0], res[1], res[2], abso))
+        iters.append(sol.niter_diff)
+    _compare_solves(f"terrain 64x64x{nz} geometric coefficients kernels vs plain", outs)
+    if iters[0] != iters[1]:
+        raise AssertionError(f"terrain: iteration counts differ, {iters[0]} vs {iters[1]}")
+    edir = outs[0][0][-1]
+    corr = slope_correction_srfc_edir(edir, hx, hy, sun)
+    mid, w = n // 2, n // 8
+    log(f"terrain: surface edir across the hill at y = {mid}: flat / slope-corrected "
+        + ", ".join(f"x={i} {edir[i, mid].item():.1f}/{corr[i, mid].item():.1f}"
+                    for i in range(max(0, mid - 12), min(n, mid + 13), 4)) + " W/m2")
+    # the flank facing the sun (+x) brightens, the other dims (test_topography.py)
+    flank = lambda a, lo, hi: a[lo:hi, mid].sum().item()
+    sunny = flank(corr, mid + 1, mid + 1 + w) / flank(edir, mid + 1, mid + 1 + w)
+    shady = flank(corr, mid - w, mid) / max(flank(edir, mid - w, mid), 1e-30)
+    log(f"terrain: slope correction over {w} cells of each flank: x {sunny:.3f} facing the sun, "
+        f"x {shady:.3f} facing away")
+    if not (sunny > 1.05 and shady < 0.95):
+        raise AssertionError(f"terrain: the slope correction does not brighten the flank facing "
+                             f"the sun ({sunny:.3f}) and dim the other ({shady:.3f})")
 
 
 # ---------------------------------------------------------------------------
@@ -1222,19 +1579,25 @@ def main():
     idx = opp._solver_orbit_idx
     sundir = sundir_from_angles(*SUN)
     report = phase_kernels(cuda_ops, opp.scheme, idx, NX, NY)
-    report["diffuse_apply_dense"] = phase_kernel_dense(cuda_ops, opp.scheme, URBAN_NZ, NX, NY)
+    report["diffuse_apply_dense"] = phase_kernel_dense(cuda_ops, opp.scheme, NX, NY)
     phase_main(cuda_ops, opp, Grid, PprtsSolver, sundir, args.seed)
     phase_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, sundir, args.seed)
-    urban = phase_urban(cuda_ops, opp, Grid, PprtsSolver, Buildings, sundir_from_angles, args.seed)
+    phase_urban(cuda_ops, opp, Grid, PprtsSolver, Buildings, sundir_from_angles, args.seed)
     phase_urban_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, Buildings, sundir, args.seed)
     phase_dense_vs_orbit(cuda_ops, opp, Grid, PprtsSolver, Options, sundir, args.seed)
     launches, spec = phase_spectral(cuda_ops, opp, args.seed, smi)
-    launches["diffuse_apply_dense"] = urban["diffuse_apply_dense"]
     phase_spectral_parity(cuda_ops, ediff, opp, args.seed)
     profile_main(opp, Grid, PprtsSolver, sundir, args.seed)
     profile_urban(opp, Grid, PprtsSolver, Buildings, sundir_from_angles, args.seed)
     profile_spectral(spec)
     del spec
+    torch.cuda.empty_cache()
+    launches["diffuse_apply_dense"] = phase_urban_spectral(
+        cuda_ops, opp, args.seed, smi, report["diffuse_apply_dense"])["diffuse_apply_dense"]
+    torch.cuda.empty_cache()
+    phase_urban_spectral_parity(cuda_ops, ediff, opp, args.seed)
+    phase_options(cuda_ops, ediff, opp, args.seed)
+    phase_terrain(cuda_ops, ediff, opp)
     report["boxmc_trace"] = phase_boxmc(cuda_tracer, lutgen, args.seed)
     launches["boxmc_trace"] = phase_lut(cuda_ops, cuda_tracer, lutgen, LUT, OptProp, Grid,
                                         PprtsSolver, sundir, args.seed)

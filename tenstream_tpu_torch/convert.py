@@ -8,7 +8,8 @@ solve with identical tables; the tables pass through unchanged, a
 diff2diff table that is not symmetrized included (the port's `OptProp`
 then keeps the dense coefficient form, as the JAX one does).
 `buildings_from_arrays` does the same for the fields of a JAX
-`Buildings`, and `atmosphere_from_arrays` for an `Atmosphere` (the
+`Buildings` (`buildings_from_object` reads them off the object, `temp`
+included), and `atmosphere_from_arrays` for an `Atmosphere` (the
 spectral driver's input, host float64 arrays that pass through as
 copies).
 """
@@ -48,6 +49,14 @@ def buildings_from_arrays(solid, albedo, planck=None, temp=None, device="cuda") 
     f = lambda v: None if v is None else torch.as_tensor(np.array(v, np.float32), device=device)
     return Buildings(torch.as_tensor(np.array(solid, bool), device=device), float(albedo),
                      f(planck), f(temp))
+
+
+def buildings_from_object(obj, device="cuda") -> Buildings:
+    """The port's `Buildings` from any object with the JAX `Buildings`'
+    fields (`solid`, `albedo`, `planck`, `temp`): the face temperature the
+    spectral integration reads carries over, as does a static Planck."""
+    return buildings_from_arrays(obj.solid, obj.albedo, planck=obj.planck, temp=obj.temp,
+                                 device=device)
 
 
 def atmosphere_from_arrays(obj) -> Atmosphere:

@@ -1,0 +1,82 @@
+"""A counter-based threefry2x32 generator equal, bit for bit, to the JAX
+package's `jax.random` with the default `threefry2x32` implementation in
+its partitionable mode (`jax_threefry_partitionable=True`, the default of
+the JAX versions the package runs under).
+
+    key = Threefry.from_seed(712).fold_in(0)
+    u = key.uniform((ngpt, nlay, nx, ny), device="cuda")  # float32 in [0, 1)
+
+- `from_seed(s)` is `PRNGKey(s)`: the key words (s >> 32, s & 0xffffffff).
+- `fold_in(d)` is threefry2x32(key, (0, d)).
+- `bits(shape)` hashes the 64-bit counter i = 0..prod(shape)-1 of each
+  element in row-major order as the word pair (i >> 32, i & 0xffffffff)
+  and returns the xor of the two output words (the partitionable layout;
+  the classic layout hashed the two halves of the flat counter range).
+- `uniform(shape)` maps 32 random bits to float32 as JAX does: the top 23
+  bits become the mantissa of a number in [1, 2), minus 1.
+
+The words are held in int64 tensors masked to 32 bits, so the generator
+runs on the CPU and the card alike with torch's integer ops.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(k0: int, k1: int, x0: torch.Tensor,
+                 x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 20-round threefry2x32 hash of the word pairs (x0, x1) (int64
+    tensors holding uint32 values) under the key (k0, k1)."""
+    ks = (k0 & _MASK, k1 & _MASK, (k0 ^ k1 ^ 0x1BD11BDA) & _MASK)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+class Threefry:
+    """An immutable threefry2x32 key (two uint32 words)."""
+
+    def __init__(self, k0: int, k1: int):
+        self.key = (int(k0) & _MASK, int(k1) & _MASK)
+
+    @classmethod
+    def from_seed(cls, seed: int) -> "Threefry":
+        """`jax.random.PRNGKey(seed)`."""
+        seed = int(seed)
+        return cls((seed >> 32) & _MASK if seed >= 0 else 0, seed & _MASK)
+
+    def fold_in(self, data: int) -> "Threefry":
+        """`jax.random.fold_in(key, data)`."""
+        x0 = torch.zeros(1, dtype=torch.int64)
+        x1 = torch.full((1,), int(data) & _MASK, dtype=torch.int64)
+        y0, y1 = threefry2x32(*self.key, x0, x1)
+        return Threefry(int(y0[0]), int(y1[0]))
+
+    def bits(self, shape: Sequence[int], device="cuda") -> torch.Tensor:
+        """`jax.random.bits(key, shape, uint32)` as int64 values in [0, 2^32)."""
+        n = math.prod(shape)
+        count = torch.arange(n, dtype=torch.int64, device=device)
+        y0, y1 = threefry2x32(*self.key, count >> 32, count & _MASK)
+        return (y0 ^ y1).reshape(tuple(shape))
+
+    def uniform(self, shape: Sequence[int], device="cuda") -> torch.Tensor:
+        """`jax.random.uniform(key, shape, float32)`: float32 in [0, 1)."""
+        mant = (self.bits(shape, device) >> 9) | 0x3F800000
+        return mant.to(torch.int32).view(torch.float32) - 1.0

@@ -47,7 +47,11 @@ class Buildings:
         return self.solid.device
 
     def to(self, device) -> "Buildings":
-        """The same buildings with their tensors on `device`."""
+        """The same buildings with their tensors on `device` (self when
+        they are there already)."""
+        dev, here = torch.device(device), self.solid.device
+        if dev.type == here.type and dev.index in (None, here.index):
+            return self
         mv = lambda t: None if t is None else t.to(device)
         return Buildings(mv(self.solid), self.albedo, mv(self.planck), mv(self.temp), self.fluxes)
 
@@ -158,7 +162,7 @@ def building_incoming_from_fields(
 def building_sources(
     scheme: StreamScheme,
     b: Buildings,
-    edir: Optional[torch.Tensor],  # (ndir, Nz+1, Nx, Ny) [W]
+    edir: Optional[torch.Tensor],  # ([B,] ndir, Nz+1, Nx, Ny) [W]
     az: float,
     dz3d: Optional[torch.Tensor] = None,  # (Nz, Nx, Ny) layer thickness [m]
     dx: float = 0.0,
@@ -167,11 +171,14 @@ def building_sources(
     yinc: int = 1,
     planck: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Diffuse source from building faces: reflection of the direct beam
-    and thermal emission -- roofs plus, when the scheme carries side
-    streams and `dz3d` is given, the exposed vertical walls.  `planck`
-    overrides `b.planck` (a per-band emission); None with `b.planck` None
-    means no emission."""
+    """Diffuse source ([B,] ndiff, Nz+1, Nx, Ny) from building faces:
+    reflection of the direct beam and thermal emission -- roofs plus, when
+    the scheme carries side streams and `dz3d` is given, the exposed
+    vertical walls.  `planck` ([B,] Nz, Nx, Ny) overrides `b.planck` (a
+    per-band emission); None with `b.planck` None means no emission.  A
+    leading lane dim B on `edir` or `planck` gives one source per lane (a
+    band chunk); the face masks do not depend on the lane and are built
+    once."""
     b_planck = planck if planck is not None else b.planck
     inward = scheme.diff_inward()
     ntd = scheme.dirtop.dof
@@ -180,8 +187,13 @@ def building_sources(
     roof = b.exposed_top()  # (Nz, Nx, Ny): roof at z-face index k
     nz = roof.shape[0]
     zero = torch.zeros((), dtype=ireals, device=roof.device)
+    lead = ()
+    if edir is not None and edir.dim() == 5:
+        lead = tuple(edir.shape[:1])
+    elif b_planck is not None and b_planck.dim() == 4:
+        lead = tuple(b_planck.shape[:1])
 
-    out = torch.zeros((scheme.ndiff, nz + 1) + tuple(roof.shape[1:]), dtype=ireals,
+    out = torch.zeros(lead + (scheme.ndiff, nz + 1) + tuple(roof.shape[1:]), dtype=ireals,
                       device=roof.device)
     wtop = scheme.difftop_weights()
     for d in range(scheme.difftop.dof):
@@ -189,10 +201,11 @@ def building_sources(
             continue  # only upward dofs are emitted / reflected at roofs
         w = float(wtop[d])
         if edir is not None:
-            edir_dn = edir[:ntd, :-1].sum(0)  # direct arriving at face k
-            out[d, :-1] += torch.where(roof, edir_dn * b.albedo * w, zero)
+            edir_dn = edir[..., :ntd, :-1, :, :].sum(-4)  # direct arriving at face k
+            out[..., d, :-1, :, :] += torch.where(roof, edir_dn * b.albedo * w, zero)
         if b_planck is not None:
-            out[d, :-1] += torch.where(roof, b_planck * (1.0 - b.albedo) * PI * az * w, zero)
+            out[..., d, :-1, :, :] += torch.where(roof, b_planck * (1.0 - b.albedo) * PI * az * w,
+                                                  zero)
 
     if scheme.diffside.dof == 0 or dz3d is None:
         return out
@@ -200,12 +213,14 @@ def building_sources(
     # vertical walls: side stream fields store the dof of x-face i (between
     # columns i-1, i) at column index i, layer slot k; a wall contribution
     # of cell (k, i, j) therefore lands at column i (low wall, outward
-    # dofs) or i+1 (high wall, inward dofs; periodic roll)
+    # dofs) or i+1 (high wall, inward dofs; periodic roll).  `ax` 1 / 2 is
+    # the x / y axis of a cell field, dim ax - 3 counted from the end.
     wside = scheme.diffside_weights()
     nt, ns = scheme.difftop.dof, scheme.diffside.dof
     wall_len = {1: dy, 2: dx}
 
     for ax in (1, 2):
+        dim = ax - 3
         low_wall = b.exposed_side(ax, True)  # a beam moving +axis hits this wall
         high_wall = b.exposed_side(ax, False)
         beam_pos = (xinc == 1) if ax == 1 else (yinc == 1)
@@ -213,9 +228,10 @@ def building_sources(
             # direct power crossing the wall face: the face value at column
             # i is the flux at x-face i; the beam-facing wall sits at face
             # i (beam +x) or i+1 (beam -x)
-            side_dir = sum(edir[d, :-1] for d in range(scheme.ndir) if dir_axis[d] == ax)
+            side_dir = sum(edir[..., d, :-1, :, :] for d in range(scheme.ndir)
+                           if dir_axis[d] == ax)
             hit_low = torch.where(low_wall, side_dir, zero)
-            hit_high = torch.where(high_wall, torch.roll(side_dir, -1, dims=ax), zero)
+            hit_high = torch.where(high_wall, torch.roll(side_dir, -1, dims=dim), zero)
         emit = None
         if b_planck is not None:
             emit = b_planck * (1.0 - b.albedo) * PI * (wall_len[ax] * dz3d)
@@ -223,19 +239,19 @@ def building_sources(
             if axis[d] != ax:
                 continue
             w = float(wside[(d - nt) % ns])
-            contrib = torch.zeros(tuple(roof.shape), dtype=ireals, device=roof.device)
+            contrib = torch.zeros(lead + tuple(roof.shape), dtype=ireals, device=roof.device)
             if not inward[d]:
                 # outward dof (moving -axis): sourced by the low wall at face i
                 if edir is not None and beam_pos:
                     contrib = contrib + hit_low * b.albedo * w
                 if emit is not None:
                     contrib = contrib + torch.where(low_wall, emit * w, zero)
-                out[d, :-1] += contrib
+                out[..., d, :-1, :, :] += contrib
             else:
                 # inward dof: sourced by the high wall at face i+1
                 if edir is not None and not beam_pos:
                     contrib = contrib + hit_high * b.albedo * w
                 if emit is not None:
                     contrib = contrib + torch.where(high_wall, emit * w, zero)
-                out[d, :-1] += torch.roll(contrib, 1, dims=ax)
+                out[..., d, :-1, :, :] += torch.roll(contrib, 1, dims=dim)
     return out

@@ -20,8 +20,9 @@ products and sums are float32.  BiCGStab and Richardson both apply it on
 dense coefficients.
 
 All take a leading batch dim B (K1 returns per-batch dots), and are built
-for the 3_10 scheme's 10 diffuse dofs (the plain versions take any
-scheme).  K1 is compiled for 3_10's orbit and shift tables: they are code
+for the 10 diffuse dofs of 3_10 and 8_10 (the plain versions take any
+scheme).  K1 is compiled for 3_10's orbit and shift tables, which 8_10
+shares, and refuses a scheme whose tables differ: they are code
 in `csrc/orbit_3_10.h`, which `orbit_header_text` generates from the same
 Python tables the plain version uses, and `load_extension` refuses to build
 from a header that differs from it.  A wrapper
@@ -286,10 +287,14 @@ def fused_A_dots_plain(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
 
 
 def _k1_refusal(scheme: StreamScheme, idx: np.ndarray, norb: int) -> None:
-    """K1 is compiled for 3_10's orbit tables; raise for any other."""
-    k_idx, k_norb = _k1_tables()[:2]
-    if (scheme.name != "3_10" or norb != k_norb or np.shape(idx) != k_idx.shape
-            or not np.array_equal(idx, k_idx)):
+    """K1 is compiled for 3_10's orbit, shift and surface-closure tables;
+    raise for a scheme whose tables differ.  The check is by tables, not by
+    name: 8_10's diffuse layout and orbits equal 3_10's."""
+    k_idx, k_norb, _, k_cshift, k_gshift, k_dn, k_up = _k1_tables()
+    same = (norb == k_norb and np.shape(idx) == k_idx.shape and np.array_equal(idx, k_idx)
+            and _shift_tables(scheme) == (k_cshift, k_gshift)
+            and surface_closure_rows(scheme) == (k_dn, k_up))
+    if not same:
         raise ValueError(f"K1 is compiled for the 3_10 scheme's orbit tables "
                          f"({HEADER_3_10}); got scheme {scheme.name} with {norb} channels")
 

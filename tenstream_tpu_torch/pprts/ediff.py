@@ -231,6 +231,11 @@ def _keep_lanes(new: torch.Tensor, old: torch.Tensor, frozen: List[int]) -> torc
     return new
 
 
+# the polish gives up on a lane whose residual grows past this multiple of
+# its first residual (see solve_richardson)
+POLISH_DIVERGED = 10.0
+
+
 def solve_richardson(
     scheme: StreamScheme,
     coeff,
@@ -251,7 +256,15 @@ def solve_richardson(
     `tol` replaces the relative-to-first-residual stop with an absolute
     residual target (the polish after BiCGStab).  As in the JAX loop, the
     residual tested is that of the iterate before the step, so a lane
-    that is already converged still takes one step."""
+    that is already converged still takes one step.
+
+    A polish can diverge where BiCGStab converged: on buildings, a warm
+    start left a lane's true residual just above its target, and the
+    iteration grew it to NaN in 573 steps (phase 14 of `chip_smoke.py`, an
+    H100; the JAX loop has no guard either).  So in polish mode a lane
+    whose residual exceeds `POLISH_DIVERGED` times its first one stops and
+    returns its starting iterate, residual and omega; a polish that
+    converges is untouched."""
     coeff, b, x0, lanes = _lanes(coeff, b, x0)
     nb = b.shape[0]
     x = torch.zeros_like(b) if x0 is None else x0
@@ -266,11 +279,13 @@ def solve_richardson(
     it = [0] * nb
     res, res0, res_prev2 = [math.inf] * nb, [1.0] * nb, [math.inf] * nb
     omega = lane_list(omega0)
+    omega_start = list(omega)
     omega_dir, omega_step, log_rate_prev = [1.0] * nb, [0.05] * nb, [0.0] * nb
     syncs = 0
+    x_start, diverged = x, [False] * nb
 
     def running(i):
-        if it[i] >= max_iter:
+        if it[i] >= max_iter or diverged[i]:
             return False
         if tols is not None:
             return res[i] >= tols[i]
@@ -290,6 +305,11 @@ def solve_richardson(
             rn = res_new[i]
             if it[i] == 0:
                 res0[i] = max(rn, 1e-30)
+            elif tols is not None and not rn <= POLISH_DIVERGED * res0[i]:
+                # a diverging polish (NaN included): back to where it began
+                diverged[i], active[i] = True, False
+                res[i], omega[i], it[i] = res0[i], omega_start[i], it[i] + 1
+                continue
             # adaptive omega controller (log-rate feedback)
             if it[i] >= 2 and rn > 0 and res_prev2[i] > 0:
                 log_rate = 0.5 * math.log(max(rn, 1e-30) / max(res_prev2[i], 1e-30))
@@ -302,6 +322,8 @@ def solve_richardson(
                 log_rate_prev[i] = log_rate
             it[i], res_prev2[i], res[i] = it[i] + 1, res[i], rn
             active[i] = running(i)
+    if any(diverged):
+        x = torch.where(_per_lane(_lane_tensor(diverged, torch.bool, x.device)), x_start, x)
     if lanes:
         return x, it, omega, res, syncs
     return x[0], it[0], omega[0], res[0], syncs

@@ -59,14 +59,21 @@ from tenstream_tpu_torch.pprts.coeffs import (
 )
 from tenstream_tpu_torch.pprts.ediff import solve_bicgstab, solve_richardson
 from tenstream_tpu_torch.pprts.edir import inner_iter_policy, solve_edir
+from tenstream_tpu_torch.pprts.geometric import dir2dir_geometric, zlev_from_dz
 from tenstream_tpu_torch.pprts.grid import Grid
 from tenstream_tpu_torch.pprts.operators import dir2diff_source, direct_surface_reflection
 from tenstream_tpu_torch.pprts.sources import thermal_source
 from tenstream_tpu_torch.pprts.sun import SunInfo, suninfo_from_sundir
 
-# option -> ROADMAP item that ports it
+# option -> ROADMAP item that ports it: a bool option raises when on, an
+# integer option when it is set at all
 _UNPORTED_BOOL_OPTIONS = {
-    "pprts_geometric_coeffs": "M13",
+    "debug_nans": "M4 remainder",
+}
+_UNPORTED_SET_OPTIONS = {
+    # the JAX package's z-slab assembly only bounds memory; the port always
+    # assembles in one call, with the same result
+    "pprts_assembly_z_slab": "M4 remainder",
 }
 
 
@@ -169,12 +176,7 @@ class PprtsSolver:
         self.scheme = optprop.scheme
         self.solver_type = solver_type or self.scheme.name
         self.options = options or Options()
-        for key, item in _UNPORTED_BOOL_OPTIONS.items():
-            if self.options.get_bool(key, False):
-                raise NotImplementedError(f"option {key} is not ported (ROADMAP {item})")
-        if self.options.get("diff_solver", "bicgstab") not in ("bicgstab", "richardson"):
-            raise ValueError("diff_solver must be 'bicgstab' or 'richardson', got "
-                             f"{self.options.get('diff_solver')!r}")
+        self._refuse_unported_options()
         self.sun: Optional[SunInfo] = None
         self.solutions: Dict[Any, Solution] = {}
         self._pending_convergence: Dict[Any, Tuple[int, float, float]] = {}
@@ -187,10 +189,36 @@ class PprtsSolver:
         self._band_order: Dict[str, np.ndarray] = {}
         self._band_rows: Dict[str, Dict[int, Tuple[Any, int]]] = {}
         self._extrap_states: Dict[Any, torch.Tensor] = {}
+        # the adaptive spectral skip: per chunk key, the host copies of the
+        # last (edir, ediff, abso) contributions and the error tracker
+        self._spectral_cache: Dict[Any, tuple] = {}
+        self._spectral_trackers: Dict[Any, Any] = {}
+        self._spectral_skips = 0
+
+    def _refuse_unported_options(self) -> None:
+        """Raise for an option the port does not read (checked at
+        construction and again at every solve, as options may be set
+        later)."""
+        for key, item in _UNPORTED_BOOL_OPTIONS.items():
+            if self.options.get_bool(key, False):
+                raise NotImplementedError(f"option {key} is not ported (ROADMAP {item})")
+        for key, item in _UNPORTED_SET_OPTIONS.items():
+            if key in self.options:
+                raise NotImplementedError(f"option {key} is not ported (ROADMAP {item})")
+        if self.options.get("diff_solver", "bicgstab") not in ("bicgstab", "richardson"):
+            raise ValueError("diff_solver must be 'bicgstab' or 'richardson', got "
+                             f"{self.options.get('diff_solver')!r}")
 
     # ------------------------------------------------------------------
     def set_angles(self, sundir) -> None:
         self.sun = suninfo_from_sundir(sundir)
+        self._sundir_raw = torch.as_tensor(np.asarray(sundir), dtype=ireals, device=self.device)
+
+    def set_terrain(self, h_srfc) -> None:
+        """Surface height field (Nx, Ny) [m] of a terrain-following grid.
+        With `pprts_geometric_coeffs` the direct transfer blocks of the
+        3-D layers are computed on the tilted cells (`pprts/geometric.py`)."""
+        self._h_srfc = torch.as_tensor(h_srfc, dtype=ireals, device=self.device)
 
     def set_mesh(self, mesh) -> None:
         raise NotImplementedError("multi-device solves are not ported (ROADMAP M19)")
@@ -280,7 +308,8 @@ class PprtsSolver:
 
     def solve_lanes(self, lthermal: bool, lsolar: bool, kabs, ksca, g, albedo2d,
                     planck=None, planck_srfc=None, edirTOA=None,
-                    x0: Optional[torch.Tensor] = None, omega0=None) -> LaneSolution:
+                    x0: Optional[torch.Tensor] = None, omega0=None,
+                    planck_bldg=None) -> LaneSolution:
         """One solve of a chunk of B bands (lanes), the counterpart of the
         JAX package's `jax.vmap` of its solve program.
 
@@ -288,10 +317,14 @@ class PprtsSolver:
         Ny); planck (B, Nz+1, Nx, Ny) and planck_srfc (B, Nx, Ny) for a
         thermal solve; edirTOA (B,) per-lane TOA irradiance [W/m2] for a
         solar one; x0 (B, ndiff, nz_solve+1, Nx, Ny) and omega0 (B,) warm
-        starts.  Every stage runs on the whole chunk; the diffuse solve
-        iterates each lane until it converges or stalls, then freezes it.
+        starts; planck_bldg (B, Nz, Nx, Ny) the building faces' per-lane
+        Planck emission [W/m2/sr] of a thermal solve with `Buildings.temp`
+        (the JAX package's 10th vmapped input).  Every stage runs on the
+        whole chunk; the diffuse solve iterates each lane until it
+        converges or stalls, then freezes it.
         """
-        atm = dict(kabs=kabs, ksca=ksca, g=g, planck=planck, planck_srfc=planck_srfc)
+        atm = dict(kabs=kabs, ksca=ksca, g=g, planck=planck, planck_srfc=planck_srfc,
+                   planck_bldg=planck_bldg)
         dev = self.device
         for k, v in atm.items():
             if v is not None:
@@ -307,6 +340,7 @@ class PprtsSolver:
              edirTOA: torch.Tensor, x0: Optional[torch.Tensor], omega0) -> LaneSolution:
         """The solve of a chunk: (collapse), assembly, edir, sources,
         diffuse solve, absorption; fields carry a leading lane dim."""
+        self._refuse_unported_options()
         scheme, grid, sun, opts = self.scheme, self.grid, self.sun, self.options
         kabs, ksca, g, planck = atm["kabs"], atm["ksca"], atm["g"], atm["planck"]
         nb = kabs.shape[0]
@@ -373,6 +407,15 @@ class PprtsSolver:
                 coeffs.dir2dir[..., 0, :, :] = dd0
                 coeffs.dir2diff[..., 0, :, :] = df0
             coeffs = CoeffFields(coeffs.dir2dir, coeffs.dir2diff, ff)
+        if (opts.get_bool("pprts_geometric_coeffs", False) and lsolar and sun is not None
+                and sun.sun_up and coeffs.dir2dir is not None and scheme.dirtop.dof == 1):
+            # terrain-tilted analytic direct transport replaces the LUT's
+            # dir2dir outside the 1-D layers
+            zlev = zlev_from_dz(grid.dz3d, getattr(self, "_h_srfc", None))
+            dd_geo = dir2dir_geometric(zlev, grid.dx, grid.dy, self._sundir_raw, kabs + ksca)
+            mask = torch.as_tensor(l1d, device=self.device)[None, None, None, :, None, None]
+            coeffs = CoeffFields(torch.where(mask, coeffs.dir2dir, dd_geo), coeffs.dir2diff,
+                                 coeffs.diff2diff)
         if buildings is not None:
             coeffs = mask_coeffs(coeffs, buildings)
 
@@ -399,18 +442,20 @@ class PprtsSolver:
 
         if buildings is not None:
             # emission is on with a static face Planck, or (thermal) with a
-            # face temperature, whose per-band Planck the spectral
+            # face temperature, whose per-lane Planck the spectral
             # integration supplies; a mono solve has none and emits zero
             emit = buildings.planck is not None or (lthermal and buildings.temp is not None)
-            planck_bldg = buildings.planck if buildings.planck is not None else (
-                torch.zeros_like(dz_full) if emit else None)
+            planck_bldg = atm.get("planck_bldg")
+            if planck_bldg is None:
+                planck_bldg = buildings.planck if buildings.planck is not None else (
+                    torch.zeros_like(dz_full) if emit else None)
             with_sun = sun is not None and lsolar
-            # the face sources are built lane by lane: buildings solve one
-            # band at a time (`specint_pprts` refuses them, ROADMAP M10)
-            b = b + torch.stack([building_sources(
-                scheme, buildings, None if edir is None else edir[i], grid.az, dz3d=grid.dz3d,
-                dx=grid.dx, dy=grid.dy, xinc=sun.xinc if with_sun else 1,
-                yinc=sun.yinc if with_sun else 1, planck=planck_bldg) for i in range(nb)])
+            # one call for the chunk: the face masks are built once, the
+            # reflected beam and the emission carry the lane dim
+            b = b + building_sources(
+                scheme, buildings, edir, grid.az, dz3d=grid.dz3d, dx=grid.dx, dy=grid.dy,
+                xinc=sun.xinc if with_sun else 1, yinc=sun.yinc if with_sun else 1,
+                planck=planck_bldg if emit else None)
 
         b_th = None
         if lthermal and planck is not None:
@@ -443,7 +488,9 @@ class PprtsSolver:
             ediff, niter_p, omega, res_p, s2 = solve_richardson(
                 scheme, diff2diff, b, albedo2d, x0=ediff, omega0=omega0, rtol=rtol,
                 atol=atol, max_iter=max_iter, precond=precond, tol=tol)
-            res = [min(a, c) for a, c in zip(res, res_p)]
+            # NaN-propagating, as jnp.minimum: Python's min(a, nan) is a
+            res = [math.nan if math.isnan(a) or math.isnan(c) else min(a, c)
+                   for a, c in zip(res, res_p)]
             syncs += s + s2
         else:
             niter_b = [0] * nb

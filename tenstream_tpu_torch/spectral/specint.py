@@ -17,10 +17,18 @@ bands are regrouped by their measured iteration counts (hard with hard)
 and the grouping is frozen; a regrouped chunk gathers its warm states
 band by band from the previous chunks.
 
-Not ported (each raises NotImplementedError naming its ROADMAP item):
-McICA (`cld_frac`) and the adaptive spectral skip (M13), buildings (the
-M10 remainder), the 1-D solver types (M12), the rrtmg_sw and repwvl
-backends (M14).
+Buildings (`buildings=` or attached to the solver) put the solve on
+dense coefficients (kernel K3 on the card); their faces emit the per-band
+Planck of `Buildings.temp`, and `buildings.fluxes` receives the spectrally
+integrated face fluxes.  Partial cloudiness (`cld_frac` or `atm.cfrac`)
+goes through McICA subcolumns drawn by the port's copy of JAX's threefry
+(`core/prng.py`), so both packages draw the same subcolumns.  With `time`
+and positive `max_solution_err` / `max_solution_time`, band chunks whose
+extrapolated absorption error stays small are skipped and their cached
+contribution reused (the adaptive spectral skip).
+
+Not ported (each raises NotImplementedError naming its ROADMAP item): the
+1-D solver types (M12), the rrtmg_sw and repwvl backends (M14).
 """
 
 from __future__ import annotations
@@ -31,8 +39,11 @@ import numpy as np
 import torch
 
 from tenstream_tpu_torch.atm import Atmosphere
-from tenstream_tpu_torch.core.types import ireals
+from tenstream_tpu_torch.core.prng import Threefry
+from tenstream_tpu_torch.core.types import PI, ireals
 from tenstream_tpu_torch.ops.delta_scale import delta_scale
+from tenstream_tpu_torch.pprts.adaptive import SolutionErrorTracker, abso_change_maxnorm
+from tenstream_tpu_torch.pprts.buildings import building_incoming_from_fields, face_masks
 from tenstream_tpu_torch.pprts.solver import PprtsSolver, Solution
 from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
 from tenstream_tpu_torch.spectral.gasoptics import (
@@ -41,6 +52,7 @@ from tenstream_tpu_torch.spectral.gasoptics import (
     SyntheticCKD,
     cloud_optprops,
 )
+from tenstream_tpu_torch.spectral.mcica import mcica_subcolumns
 
 _BACKENDS = {"gray": GrayGasOptics, "synthck": SyntheticCKD, "ecckd": EcckdGasOptics}
 _UNPORTED_BACKENDS = {"rrtmg_sw": "M14", "repwvl": "M14"}
@@ -79,21 +91,12 @@ def resolve_cache_mode(mode: str, ngpt: int, ndiff: int, nz_solve: int, nx: int,
     return "f32" if f32_bytes_total < 1.5e9 else "bf16" if f32_bytes_total < 4e9 else "off"
 
 
-def _refuse_unported(solver, atm, specint, cld_frac, time, max_solution_err,
-                     max_solution_time, buildings):
+def _refuse_unported(solver, specint):
     if isinstance(specint, str) and specint in _UNPORTED_BACKENDS:
         raise NotImplementedError(f"gas optics {specint!r} is not ported "
                                   f"(ROADMAP {_UNPORTED_BACKENDS[specint]})")
     if solver.solver_type in ("2str", "schwarzschild", "disort"):
         raise NotImplementedError("the 1-D spectral path is not ported (ROADMAP M12)")
-    if cld_frac is not None or atm.cfrac is not None:
-        raise NotImplementedError("partial cloudiness (McICA, cld_frac) is not ported "
-                                  "(ROADMAP M13)")
-    if time is not None and max_solution_err > 0 and max_solution_time > 0:
-        raise NotImplementedError("the adaptive spectral skip is not ported (ROADMAP M13)")
-    if buildings is not None or solver._buildings is not None:
-        raise NotImplementedError("buildings in specint_pprts are not ported yet "
-                                  "(ROADMAP M10 remainder)")
 
 
 def specint_pprts(
@@ -116,6 +119,8 @@ def specint_pprts(
     max_solution_err: float = 0.0,
     max_solution_time: float = 0.0,
     cld_frac=None,
+    mcica_seed: int = 712,
+    overlap: str = "maxrand",
     buildings=None,
     bands: Optional[Tuple[int, int]] = None,
 ) -> SpectralResult:
@@ -127,13 +132,20 @@ def specint_pprts(
     ny) default to the atmosphere's fields.  `bands=(lo, hi)` restricts
     the loop to g-points [lo, hi) (a partial spectral integral).
 
+    `buildings` (a `pprts.buildings.Buildings` with `temp`, not `planck`)
+    is attached to the solver; its face fluxes land in `buildings.fluxes`.
+    `cld_frac` (nlay, nx, ny) in [0, 1] (default `atm.cfrac`) turns on
+    McICA with `overlap` ('maxrand', 'max', 'random') and the subcolumns
+    of `mcica_seed`.  `time` [s] with positive `max_solution_err` /
+    `max_solution_time` turns on the adaptive spectral skip (which keeps
+    the natural band order: no difficulty regroup).
+
     Solver options read here: `specint_cache` (auto | f32 | bf16 | off |
     host), `specint_band_group` (regroup by difficulty, default on),
     `specint_band_seed` (seed a cold chunk from the previous chunk) and
     `specint_warm_extrapolate` (x0 = 2 x(t-1) - x(t-2), with the f32
     cache)."""
-    _refuse_unported(solver, atm, specint, cld_frac, time, max_solution_err, max_solution_time,
-                     buildings)
+    _refuse_unported(solver, specint)
     backend = _BACKENDS[specint]() if isinstance(specint, str) else specint
     grid = solver.grid
     scheme = solver.scheme
@@ -143,12 +155,52 @@ def specint_pprts(
     if atm.nlay != nz:
         raise ValueError(f"atmosphere layers {atm.nlay} != grid nz {nz}")
     opts = solver.options
-    tdev = lambda a: torch.as_tensor(np.asarray(a), dtype=ireals, device=dev)
+    tdev = lambda a: torch.as_tensor(a, dtype=ireals, device=dev)
+
+    # buildings: attached, with a per-g-point face Planck from their
+    # temperature (reference `ecckd/ecckd_pprts.F90:339-448`)
+    if buildings is None:
+        buildings = solver._buildings
+    pb_gpt = None  # (ngpt_thermal,) or (ngpt_thermal, nz, nx, ny)
+    if buildings is not None:
+        if buildings.planck is not None:
+            raise ValueError("specint_pprts computes the per-band building emission from "
+                             "buildings.temp; provide temperatures, not planck (reference "
+                             "CHKERR, ecckd/ecckd_pprts.F90:350-352)")
+        solver.set_buildings(buildings)
+        if lthermal and buildings.temp is not None:
+            if not hasattr(backend, "planck_at"):
+                raise NotImplementedError(
+                    f"backend {type(backend).__name__} has no planck_at(); thermal building "
+                    "emission needs a per-g-point Planck function (use specint='ecckd')")
+            pb_gpt = tdev(backend.planck_at(buildings.temp.cpu().numpy()))
 
     if lwc is None and atm.lwc is not None:
         lwc, reliq = atm.lwc, atm.reliq
     if iwc is None and atm.iwc is not None:
         iwc, reice = atm.iwc, atm.reice
+    if cld_frac is None and atm.cfrac is not None:
+        cld_frac = atm.cfrac
+
+    # McICA: the condensate becomes its in-cloud value, and per-g-point
+    # binary masks scale the cloud optical depths in batched_fields (cloud
+    # tau is linear in condensate at a fixed effective radius)
+    mcica_masks: Dict[str, torch.Tensor] = {}
+    if cld_frac is not None:
+        f_cld = torch.clamp(tdev(cld_frac), 0.0, 1.0)
+        f_safe = torch.clamp(f_cld, min=1e-6)
+        if lwc is not None:
+            lwc = tdev(lwc) / f_safe
+        if iwc is not None:
+            iwc = tdev(iwc) / f_safe
+
+    def mcica_mask(kind: str, ngpt: int):
+        """The whole spectrum's (ngpt, nz, nx, ny) subcolumn masks of one
+        kind, drawn once per call."""
+        if kind not in mcica_masks:
+            key = Threefry.from_seed(mcica_seed).fold_in(0 if kind == "sw" else 1)
+            mcica_masks[kind] = mcica_subcolumns(key, f_cld, ngpt, overlap=overlap).to(ireals)
+        return mcica_masks[kind]
 
     dz3d = grid.dz3d
     a2d = (torch.full((nx, ny), float(albedo), dtype=ireals, device=dev) if albedo_2d is None
@@ -185,9 +237,14 @@ def specint_pprts(
             tc, wc, gc = backend.cloud_optprops_gpt(kind, lwc, reff_cells, dz3d, gsel=gsel)
         else:
             tc, wc, gc = tau_c, w0_c, g_c
+        mcmask = None if cld_frac is None else pick(mcica_mask(kind, sp.tau.shape[0]), gsel)
+        if mcmask is not None and lwc is not None:
+            tc = tc * mcmask
         tau, w0, g = _merge_cloud(tau, w0, g, tc, wc, gc)
         if has_gpt_ice:
             ti, wi, gi = backend.ice_optprops_gpt(kind, iwc, reice_cells, dz3d, gsel=gsel)
+            if mcmask is not None:
+                ti = ti * mcmask
             tau, w0, g = _merge_cloud(tau, w0, g, ti, wi, gi)
         if extra_tau is not None:
             # spectrally gray extra optical properties (aerosols, canopies)
@@ -199,6 +256,7 @@ def specint_pprts(
 
     acc: Dict[str, torch.Tensor] = {}
     host_pending: List[tuple] = []
+    adaptive = time is not None and max_solution_err > 0 and max_solution_time > 0
 
     def add(name, contrib):
         acc[name] = contrib if name not in acc else acc[name] + contrib
@@ -224,8 +282,10 @@ def specint_pprts(
 
         # difficulty-grouped chunks: a chunk's lanes share the loop, so
         # after the first solve the bands are reordered by their niter and
-        # the grouping is frozen (chunk cache keys stay stable)
-        group_opt = band_chunk > 1 and opts.get_bool("specint_band_group", True)
+        # the grouping is frozen (chunk cache keys stay stable); off under
+        # the adaptive skip, whose trackers are kept per chunk
+        group_opt = (band_chunk > 1 and not adaptive
+                     and opts.get_bool("specint_band_group", True))
         order = solver._band_order.get(uid_tag) if group_opt else None
         band_rows = solver._band_rows.setdefault(uid_tag, {})
         gids_all = np.arange(g_lo, g_hi)
@@ -264,6 +324,19 @@ def specint_pprts(
             cache_key = ((uid_tag, lo) if natural and order is None
                          else (uid_tag, tuple(int(gg) for gg in gsel_ids)))
             prev = solver.solutions.get(cache_key)
+            diff_name, abso_name = ("ediff_solar", "abso_solar") if solar else (
+                "ediff_thermal", "abso_thermal")
+
+            if adaptive and cache_key in solver._spectral_cache:
+                tracker = solver._spectral_trackers.setdefault(cache_key, SolutionErrorTracker())
+                if not tracker.need_new_solution(time, max_solution_err, max_solution_time):
+                    c_edir, c_ediff, c_abso = solver._spectral_cache[cache_key]
+                    if c_edir is not None:
+                        add("edir", tdev(c_edir))
+                    add(diff_name, tdev(c_ediff))
+                    add(abso_name, tdev(c_abso))
+                    solver._spectral_skips += 1
+                    continue
 
             warm = prev is not None and prev.ediff is not None
             om0 = list(prev.diff_omega) if prev is not None else [1.0] * nb
@@ -290,9 +363,15 @@ def specint_pprts(
                 psrfc_b = ps if ps.dim() == 3 else ps[:, None, None].expand(nb, nx, ny)
             toa_b = pick(sp.weight, gsel) if solar else None
             kabs_b, ksca_b, g_b = batched_fields(sp, "sw" if solar else "lw", gsel)
+            pb_b = None
+            if pb_gpt is not None and has_planck:
+                pb_b = pick(pb_gpt, gsel)
+                if pb_b.dim() == 1:  # one building temperature
+                    pb_b = pb_b[:, None, None, None].expand(nb, nz, nx, ny)
             r = solver.solve_lanes(has_planck, solar, kabs_b, ksca_b, g_b, a2d, planck=planck_b,
-                                   planck_srfc=psrfc_b, edirTOA=toa_b, x0=x0, omega0=om0)
-            del kabs_b, ksca_b, g_b, planck_b
+                                   planck_srfc=psrfc_b, edirTOA=toa_b, x0=x0, omega0=om0,
+                                   planck_bldg=pb_b)
+            del kabs_b, ksca_b, g_b, planck_b, pb_b
             # the per-lane counts are host numbers already; the convergence
             # check runs once at the end of the call
             solver._pending_convergence[cache_key] = (r.niter, r.res, r.tol)
@@ -325,10 +404,19 @@ def specint_pprts(
                                                        r.res, diff_tol=r.tol)
 
             # accumulate in [W], convert at the end
-            if r.edir is not None:
-                add("edir", r.edir.sum(0))
-            add("ediff_solar" if solar else "ediff_thermal", r.ediff.sum(0))
-            add("abso_solar" if solar else "abso_thermal", r.abso.sum(0))
+            contrib = (None if r.edir is None else r.edir.sum(0), r.ediff.sum(0), r.abso.sum(0))
+            if contrib[0] is not None:
+                add("edir", contrib[0])
+            add(diff_name, contrib[1])
+            add(abso_name, contrib[2])
+            if adaptive:
+                # host copies: the skip cache would otherwise pin three
+                # flux fields per chunk in device memory
+                host = tuple(None if c is None else c.cpu().numpy() for c in contrib)
+                tracker = solver._spectral_trackers.setdefault(cache_key, SolutionErrorTracker())
+                old = solver._spectral_cache.get(cache_key)
+                tracker.record(time, 0.0 if old is None else abso_change_maxnorm(host[2], old[2]))
+                solver._spectral_cache[cache_key] = host
 
         # freeze the difficulty grouping from the first solve's per-band
         # iteration counts (a stable sort, as in the JAX package)
@@ -375,4 +463,32 @@ def specint_pprts(
     if "edir" in acc:
         e = acc["edir"] * solver._dir_scale_to_wm2()
         edir = e[: scheme.dirtop.dof].sum(0) / scheme.dirtop.area_divider * mu
+    if buildings is not None:
+        fluxes = _building_fluxes(solver, acc, mu, pb_gpt)
+        buildings.fluxes = fluxes
+        solver._buildings.fluxes = fluxes
     return SpectralResult(edir, edn_s + edn_t, eup_s + eup_t, abso)
+
+
+def _building_fluxes(solver: PprtsSolver, acc: Dict[str, torch.Tensor], mu: float,
+                     pb_gpt: Optional[torch.Tensor]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Per-face fluxes [W/m2] from the spectrally accumulated [W] fields:
+    incoming is linear in the fields, so one extraction equals the
+    reference's per-band accumulation (`ecckd_pprts.F90:440-448`); the
+    faces emit the sum of the per-g-point Planck values."""
+    b, grid, scheme, sun = solver._buildings, solver.grid, solver.scheme, solver.sun
+    zeros = torch.zeros((scheme.ndiff, grid.nz + 1, grid.nx, grid.ny), dtype=ireals,
+                        device=solver.device)
+    ediff_tot = acc.get("ediff_solar", zeros) * mu + acc.get("ediff_thermal", zeros)
+    edir_tot = acc["edir"] * mu if "edir" in acc else None
+    ef, inc = building_incoming_from_fields(
+        scheme, b, ediff_tot, edir_tot, grid.az, grid.dx, grid.dy, grid.dz3d,
+        xinc=sun.xinc if sun is not None else 1, yinc=sun.yinc if sun is not None else 1)
+    B_tot = 0.0 if pb_gpt is None else pb_gpt.sum(0)
+    out = {}
+    for k, m in face_masks(b).items():
+        zero = torch.zeros_like(inc[k])
+        outgoing = b.albedo * inc[k] + (1.0 - b.albedo) * PI * B_tot
+        out[k] = dict(edir=torch.where(m, ef[k], zero), incoming=torch.where(m, inc[k], zero),
+                      outgoing=torch.where(m, outgoing, zero))
+    return out

@@ -356,3 +356,58 @@ def test_cuda_spectral_host_cache_matches_f32(cuda_device):
         assert nf == nh
         for a, b in zip(rf, rh):
             assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+def _solve_8_10(device, plain):
+    """The 5x6x6 box-cloud scene of `tests/test_torch_8_10.py` on the
+    committed 8_10 production table, solar, through K1/K2 or their plain
+    versions; returns the result and the kernel launches."""
+    import os
+
+    from tenstream_tpu_torch.optprop.facade import OptProp
+    from tenstream_tpu_torch.optprop.lut import LUT
+    from tenstream_tpu_torch.pprts import ediff
+    from tenstream_tpu_torch.pprts.grid import Grid
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    lut = LUT.load(os.path.join(here, "..", "data", "luts", "LUT_8_10_production.npz"),
+                   device=device)
+    nz, nx, ny = 5, 6, 6
+    ka = np.full((nz, nx, ny), 1e-5, np.float32)
+    ks = np.full((nz, nx, ny), 2e-5, np.float32)
+    g = np.zeros((nz, nx, ny), np.float32)
+    ka[1:3, 2:4, 1:4], ks[1:3, 2:4, 1:4], g[1:3, 2:4, 1:4] = 2e-3, 1.5e-2, 0.85
+    s = PprtsSolver(Grid.create(nz, nx, ny, 100.0, 100.0, 100.0, device=device),
+                    OptProp(lut, device=device))
+    s.set_optical_properties(0.15, ka, ks, g)
+    s.set_angles(sundir_from_angles(210.0, 60.0))
+    saved = (ediff.fused_A_dots, cuda_ops.orbit_contract)
+    if plain:
+        ediff.fused_A_dots = lambda scheme, idx, orb, u, w, a: cuda_ops.fused_A_dots_plain(
+            scheme, idx, orb, u, w, a)
+        cuda_ops.orbit_contract = lambda scheme, idx, orb, src: cuda_ops.orbit_contract_plain(
+            idx, orb, src)
+    try:
+        cuda_ops.reset_launch_counts()
+        sol = s.solve(lthermal=False, lsolar=True, edirTOA=1000.0)
+        res = s.get_result()
+        torch.cuda.synchronize()
+        return sol, res, dict(cuda_ops.LAUNCHES)
+    finally:
+        ediff.fused_A_dots, cuda_ops.orbit_contract = saved
+
+
+@pytest.mark.cuda
+def test_cuda_8_10_solve_through_k1_matches_plain(cuda_device):
+    """8_10 shares 3_10's diffuse tables, so K1 (compiled for them) and K2
+    run its diffuse solve: the same iterations and fields as the plain
+    versions (the CPU parity with JAX: `tests/test_torch_8_10.py`)."""
+    sol, res, launches = _solve_8_10(cuda_device, plain=False)
+    psol, pres, plain_launches = _solve_8_10(cuda_device, plain=True)
+    assert launches["fused_A_dots"] > 0 and launches["orbit_contract"] > 0
+    assert plain_launches["fused_A_dots"] == plain_launches["orbit_contract"] == 0
+    assert sol.niter_diff == psol.niter_diff
+    for a, b in zip(res, pres):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

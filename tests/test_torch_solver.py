@@ -222,11 +222,12 @@ def test_coeff_bf16_on_orbit_coefficients_raises(jlut):
         solver.solve(lthermal=True, lsolar=False)
 
 
-@pytest.mark.parametrize("opts", [{"atm_collapse": 4}, {"pprts_geometric_coeffs": True}])
+@pytest.mark.parametrize("opts", [{"atm_collapse": 4}, {"debug_nans": True}])
 def test_unported_options_raise(jlut, opts):
     """Unported options raise and name their ROADMAP item.  atm_collapse is
     ported: over this scene's 3-D layers it raises the JAX package's
-    ValueError at solve time."""
+    ValueError at solve time.  (pprts_geometric_coeffs, once checked here,
+    is ported: `tests/test_torch_terrain.py`.)"""
     opp = OptProp(lut_from_arrays(jlut, "cpu"), device="cpu")
     grid = Grid.create(NZ, NX, NY, 100.0, 100.0, 100.0, device="cpu")
     if "atm_collapse" in opts:

@@ -74,6 +74,10 @@ def test_port_sources_walk_finds_kernels_and_scripts():
               "tenstream_tpu_torch/boxmc/cuda_tracer.py", "tenstream_tpu_torch/optprop/lut.py",
               "tenstream_tpu_torch/tools/create_lut.py", "tenstream_tpu_torch/csrc/bind.cpp",
               "tenstream_tpu_torch/csrc/orbit_3_10.h",
+              "tenstream_tpu_torch/core/prng.py", "tenstream_tpu_torch/spectral/mcica.py",
+              "tenstream_tpu_torch/pprts/adaptive.py", "tenstream_tpu_torch/pprts/geometric.py",
+              "tenstream_tpu_torch/pprts/postprocess.py",
+              "tenstream_tpu_torch/spectral/vegetation.py", "tenstream_tpu_torch/convert.py",
               "chip_smoke.py"):
         assert f in rel, f
 
@@ -116,7 +120,7 @@ def test_entry_points_default_to_the_card():
     from tenstream_tpu_torch.pprts.grid import Grid
 
     for fn in (Grid.create, lut.LUT.load, OptProp.__init__, convert.lut_from_arrays,
-               convert.buildings_from_arrays, lut.create_lut, lut.create_production_lut,
+               convert.buildings_from_arrays, convert.buildings_from_object, lut.create_lut, lut.create_production_lut,
                lut.compose_production_lut, lut.load_or_create_lut, cuda_tracer.run_boxmc_cuda):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
