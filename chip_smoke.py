@@ -17,7 +17,11 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  the collapsed solve grid) and at a single band of 39 layers;
                  times them, their plain versions and, beside K2 and K3, the
                  one einsum that computes the contraction each contains; K3 also
-                 at the urban spectral path's band chunk (B = 8, 56 layers).
+                 at the urban spectral path's band chunk (B = 8, 56 layers) and at
+                 ragged shapes, each call right after a NaN-filled block of
+                 its output's size was freed (a face K3 never writes shows),
+                 with its launch configuration (threads, shared memory,
+                 blocks per SM).
   4. cloud    -- the single-band cloud path (orbit coefficients, K1 and K2): the 3_10
                  PprtsSolver on a 100 m LES column (bench.py's vertical
                  structure, nz = 39) at 256 x 256 columns with the
@@ -115,8 +119,9 @@ Phases, each printing its lines; any failure raises (non-zero exit):
 
 With --seed 7 (the default), phases 10 and 11 also hold K4's results (each
 launch's tallies and photon-steps, the generated table) against sha256
-digests recorded from the earlier K4 design: they must be equal bit for
-bit.
+digests recorded from the earlier K4 design, and phase 3 holds K3's
+outputs at every (type, shape) it checks against digests recorded from
+the first K3 design: they must be equal bit for bit.
 
 The phases run in the order 1-8, 12, 13, 9, 14-17, 10, 11.  Each path resets
 the kernel launch counts before it runs and reads them after; the kernels
@@ -171,7 +176,7 @@ CSRC = "tenstream_tpu_torch/csrc/"
 KERNELS = {
     "fused_A_dots": ("K1", CSRC + "orbit_ops.cu", 163, "tenstream_tpu/pprts/pallas_ops.py:264"),
     "orbit_contract": ("K2", CSRC + "orbit_ops.cu", 90, "tenstream_tpu/pprts/pallas_ops.py:100"),
-    "diffuse_apply_dense": ("K3", CSRC + "dense_ops.cu", 54,
+    "diffuse_apply_dense": ("K3", CSRC + "dense_ops.cu", 159,
                             "tenstream_tpu/pprts/pallas_ops.py:64"),
     "boxmc_trace": ("K4", CSRC + "boxmc_ops.cu", 189, "tenstream_tpu/boxmc/pallas_tracer.py:118"),
 }
@@ -214,6 +219,37 @@ LUT_DIGESTS = {
     "dir2diff": "d497d376c61bb167543f7cfbdccb34b5416f0eb184267db202966515f87eefac",
     "diff2diff": "1b4a534250dbf4408aefc7f3d1775717d4f848bb8233520fc0ddf6c55670d641",
 }
+# K3's phase-3 cases (B, nz, nx, ny): odd and ragged shapes (nx, ny not multiples of
+# the tile or of the vector width, nz = 1, B = 3), one band of the urban path, the urban
+# spectral path's band chunk
+K3_CASES = ((2, 5, 6, 10), (3, 7, 13, 130), (1, 1, 9, 67), (1, URBAN_NZ, NX, NY),
+            (CHUNK, URBAN_SPEC_NZ, NX, NY))
+# sha256 of K3's outputs on phase 3's inputs with --seed 7, recorded from the first K3
+# design (one thread per face and dst dof) before the 2.5-D redesign: the redesigned K3
+# must give them bit for bit, since each output is still one chain of float32 multiply-adds
+# over the sources in order.
+K3_DIGESTS = {
+    "f32 B=2 nz=5 nx=6 ny=10":
+        "30e1a8764c7025bb896d3478e1e0b0fedea50374f5aeeec93c9e935ba83d91c5",
+    "f32 B=3 nz=7 nx=13 ny=130":
+        "30b73273f4456e8440029fc25438ca25a429339073bc07f9c90e62baf7b1ff76",
+    "f32 B=1 nz=1 nx=9 ny=67":
+        "967f44ad45fc33d9dc947f3d8d70c7ad6c3bf65663760eddd36922ba0c8d5449",
+    "f32 B=1 nz=40 nx=256 ny=256":
+        "44301905dffc2a9d4d9b1d7bf110fba99a84c2e88cbf639fb8cd0117783d127f",
+    "f32 B=8 nz=56 nx=256 ny=256":
+        "836f26ce7cf771d031b1b747b50cd970cc372b0773c31f38b9d504f4797171cf",
+    "bf16 B=2 nz=5 nx=6 ny=10":
+        "22f00b2a28d247e3ae190bde1a47e57ec05f0c0110f91f0fd1ba082b9cbb4ba4",
+    "bf16 B=3 nz=7 nx=13 ny=130":
+        "26e0b5b1f0b137f5d9171082ba236793323bc73249f9c21632e48f407410c1cb",
+    "bf16 B=1 nz=1 nx=9 ny=67":
+        "aef9c465f0a2871219e93f40253a93f22b4a5719cea2eb51be48676fc824eec1",
+    "bf16 B=1 nz=40 nx=256 ny=256":
+        "5d6aa73e796c148fd359ae4b023d940490bda5492da67a40b8ddf671474841ea",
+    "bf16 B=8 nz=56 nx=256 ny=256":
+        "50055738fc31280a21b159ef66a1134e8cf16fd8b7cc94e6317087ded6cc8675",
+}
 
 
 def log(*a):
@@ -224,15 +260,16 @@ def sha256(t: torch.Tensor) -> str:
     return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
-def check_digests(label: str, got: dict, want: dict, seed: int) -> None:
+def check_digests(label: str, got: dict, want: dict, seed: int,
+                  earlier: str = "the earlier K4") -> None:
     """Hold results against the recorded digests (only for DIGEST_SEED)."""
     if seed != DIGEST_SEED or not want:
         log(f"{label} digests (not checked: seed {seed}): {json.dumps(got)}")
         return
-    bad = [k for k in want if got[k] != want[k]]
-    log(f"{label} digests: {'all equal to the earlier K4' if not bad else 'DIFFER in ' + str(bad)}")
+    bad = [k for k in want if got.get(k) != want[k]]
+    log(f"{label} digests: {'all equal to ' + earlier if not bad else 'DIFFER in ' + str(bad)}")
     if bad:
-        raise AssertionError(f"{label}: results differ from the earlier K4 ({bad}): "
+        raise AssertionError(f"{label}: results differ from {earlier} ({bad}): "
                              f"{json.dumps(got)}")
 
 
@@ -518,27 +555,46 @@ def phase_kernels(cuda_ops, scheme, idx, nx, ny):
     return report
 
 
-def phase_kernel_dense(cuda_ops, scheme, nx, ny):
+def k3_inputs(B, nz, nx, ny, dtype, seed):
+    """Phase 3's K3 inputs: coefficients in [0, 0.1) as `dtype`, sources in [0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + nz + nx)
+    c = (torch.rand((B, 10, 10, nz, nx, ny), device="cuda", generator=g) * 0.1).to(dtype)
+    x = torch.rand((B, 10, nz + 1, nx, ny), device="cuda", generator=g)
+    return c, x
+
+
+def k3_on_nan(cuda_ops, scheme, c, x):
+    """K3 right after a NaN-filled block of the output's size was freed: the
+    caching allocator hands K3 that block, so a face it never wrote shows
+    as NaN."""
+    torch.full_like(x, float("nan"))
+    return cuda_ops.diffuse_apply_dense(scheme, c, x)
+
+
+def phase_kernel_dense(cuda_ops, scheme, nx, ny, seed):
     """K3 against its plain version, with float32 and bfloat16 coefficients,
-    at the urban spectral path's band chunk (B = 8, 56 layers: K3's main
-    path), at the single-band urban path's shape (B = 1, 40 layers) and at
-    an odd batched shape.  The bound counts the coefficient field, x and the
-    result once each.  Beside it the one PyTorch call that computes the
-    contraction K3 contains, on sources gathered beforehand and without the
-    scatter: the einsum (float32 coefficients only; it is used nowhere in
-    the package).  The JSON entry is the chunk's float32 reading; the
-    single-band and bfloat16 readings ride along under their own keys."""
+    at K3_CASES: the urban spectral path's band chunk (B = 8, 56 layers: K3's
+    main path), the single-band urban path's shape (B = 1, 40 layers) and
+    odd and ragged batched shapes; each output's sha256 against K3_DIGESTS.
+    The bound counts the coefficient field, x and the result once each.
+    Beside it the one PyTorch call that computes the contraction K3
+    contains, on sources gathered beforehand and without the scatter: the
+    einsum (float32 coefficients only; it is used nowhere in the package).
+    The JSON entry is the chunk's float32 reading; the single-band and
+    bfloat16 readings ride along under their own keys."""
     nd = scheme.ndiff
-    entry = {}
+    entry, digests, config = {}, {}, {}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        for (B, z, x_, y) in ((2, 5, 6, 10), (1, URBAN_NZ, nx, ny), (CHUNK, URBAN_SPEC_NZ, nx, ny)):
-            g = torch.Generator(device="cuda").manual_seed(z + x_)
-            c = (torch.rand((B, nd, nd, z, x_, y), device="cuda", generator=g) * 0.1).to(dtype)
-            x = torch.rand((B, nd, z + 1, x_, y), device="cuda", generator=g)
-            out = cuda_ops.diffuse_apply_dense(scheme, c, x)
+        config[tag] = cfg = cuda_ops.dense_launch_config(dtype)
+        log(f"kernels K3 launch {tag}: {cfg['threads']} threads and {cfg['smem_bytes']} bytes of "
+            f"shared memory per block, {cfg['blocks_per_sm']} blocks per SM")
+        for (B, z, x_, y) in K3_CASES:
+            c, x = k3_inputs(B, z, x_, y, dtype, seed)
+            out = k3_on_nan(cuda_ops, scheme, c, x)
             ref = cuda_ops.diffuse_apply_dense_plain(scheme, c, x)
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
+            digests[f"{tag} B={B} nz={z} nx={x_} ny={y}"] = sha256(out)
             del out, ref
             log(f"kernels K3 {tag} B={B} nz={z} nx={x_} ny={y}: max abs {err:.3e}")
             if not err <= FIELD_ATOL:
@@ -560,10 +616,11 @@ def phase_kernel_dense(cuda_ops, scheme, nx, ny):
                     nbytes, flops, lib_ms)
             del c, x
             torch.cuda.empty_cache()
+    check_digests("kernels K3", digests, K3_DIGESTS, seed, "the first K3 design")
     report = dict(entry["f32", CHUNK])
     one = entry["f32", 1]
     report.update(single_band_ms=one["ms"], single_band_bound_ms=one["bound_ms"],
-                  single_band_library_ms=one["library_ms"])
+                  single_band_library_ms=one["library_ms"], launch_config=config)
     for B, key in ((CHUNK, ""), (1, "single_band_")):
         bf = entry["bf16", B]
         report.update({f"{key}{k}_bf16": bf[k] for k in ("ms", "bound_ms", "max_abs_err")})
@@ -1579,7 +1636,8 @@ def main():
     idx = opp._solver_orbit_idx
     sundir = sundir_from_angles(*SUN)
     report = phase_kernels(cuda_ops, opp.scheme, idx, NX, NY)
-    report["diffuse_apply_dense"] = phase_kernel_dense(cuda_ops, opp.scheme, NX, NY)
+    report["diffuse_apply_dense"] = phase_kernel_dense(cuda_ops, opp.scheme, NX, NY,
+                                                       args.seed)
     phase_main(cuda_ops, opp, Grid, PprtsSolver, sundir, args.seed)
     phase_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, sundir, args.seed)
     phase_urban(cuda_ops, opp, Grid, PprtsSolver, Buildings, sundir_from_angles, args.seed)

@@ -119,13 +119,26 @@ DenseTables make_dense_tables(const std::vector<int64_t>& itab) {
   DenseTables t;
   size_t q = 0;
   t.nd = (int)itab[q++];
-  for (int* row : {t.gz, t.gx, t.gy, t.cz, t.cx, t.cy})
+  for (int* row : {t.gz, t.gx, t.gy})
     for (size_t s = 0; s < D; ++s) {
       row[s] = (int)itab[q++];
-      TORCH_CHECK(row[s] >= -1 && row[s] <= 1, "dense tables: shift out of range");
+      TORCH_CHECK(row[s] == 0 || row[s] == 1, "dense tables: K3 takes gshift in {0, 1} only");
+    }
+  for (int* row : {t.cz, t.cx, t.cy})
+    for (size_t s = 0; s < D; ++s) {
+      row[s] = (int)itab[q++];
+      TORCH_CHECK(row[s] == -1 || row[s] == 0, "dense tables: K3 takes cshift in {-1, 0} only");
     }
   TORCH_CHECK(t.nd == TS_DENSE_MAXD, "the kernel is built for the 3_10 scheme (nd = 10)");
   return t;
+}
+
+// K3's launch configuration: (threads per block, shared memory bytes per
+// block, blocks per SM) for float32 (bf16 = false) or bfloat16 coefficients
+std::vector<int64_t> dense_config(bool bf16) {
+  int threads = 0, smem = 0, per_sm = 0;
+  C10_CUDA_CHECK(diffuse_apply_dense_config(bf16 ? 1 : 0, &threads, &smem, &per_sm));
+  return {threads, smem, per_sm};
 }
 
 torch::Tensor diffuse_apply_dense(torch::Tensor x, torch::Tensor c, std::vector<int64_t> itab) {
@@ -144,6 +157,7 @@ torch::Tensor diffuse_apply_dense(torch::Tensor x, torch::Tensor c, std::vector<
               "c must be (B, nd, nd, nz, nx, ny)");
   TORCH_CHECK(c.device() == x.device(), "x and c on different devices");
   TORCH_CHECK((nz + 1) * nx * ny < (int64_t)1 << 31, "field too large for int indexing");
+  TORCH_CHECK(B < 65536, "batch too large for the grid");
   const c10::cuda::CUDAGuard guard(x.device());
   auto out = torch::empty_like(x);
   if (B == 0 || nx == 0 || ny == 0) return out;
@@ -214,6 +228,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fused_A_dots", &fused_A_dots, "K1: A(u) = u - S(u) plus two dots (CUDA)");
   m.def("diffuse_apply_dense", &diffuse_apply_dense,
         "K3: S(x) on dense [src, dst] coefficients, float32 or bfloat16 (CUDA)");
+  m.def("diffuse_apply_dense_config", &dense_config,
+        "K3's launch configuration on the current device: threads, shared memory bytes and "
+        "blocks per SM");
   m.def("boxmc_trace", &boxmc_trace,
         "K4: BoxMC photon tracing, a photon queue over the launch and a fixed-order reduction per "
         "entry; rows [T | S], photon-steps and warp loop trips (CUDA)");

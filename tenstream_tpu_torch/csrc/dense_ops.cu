@@ -12,100 +12,369 @@
 //
 // What bounds it on an H100: bytes.  Per cell it reads the 100 (src, dst)
 // coefficients once and does 100 multiply-adds on them: 0.5 flop per byte
-// in float32 (1 with bfloat16 coefficients), far below the card's balance.
-// The coefficient field is 10x the in- and output together, so the goal is
-// to stream it through exactly once and to keep enough loads in flight.
+// in float32, 1 with bfloat16 coefficients, far below the card's balance.
+// The coefficient field is 10x (5x in bfloat16) the in- and output
+// together, so the goal is that every coefficient and every source value
+// comes from device memory once, with as few load instructions per byte as
+// the card allows.
 //
-// Design: one thread per (face position, dst dof), threads of a block
-// contiguous in y.  c[:, d, cell] feeds only dst d of the one face that
-// cell + cshift[d] maps to, so every coefficient is loaded by exactly one
-// thread, once, coalesced along y.  A thread holds 10 coefficients and 10
-// source values (40 registers), so an SM keeps many warps' loads in
-// flight; one thread per face looping over its 10 dofs needs 172 registers,
-// runs one block per SM and takes 1.6x as long on an H100 (256x256x40).
-// Only the source values are shared: the 10 threads of a face and their
-// neighbours read the same lines of x.  The dof is the fastest block
-// index, so the 10 blocks of one tile of faces run close together in time
-// and x (a tenth of the coefficient field) is served from L1/L2.  The TPU
-// kernel's x-major halo-padded copies, its accumulation in cell space and
-// its lane rolls were Mosaic's constraints; here the solver's own (B, src,
-// dst, z, x, y) and (B, dof, z, x, y) layouts are read in place and the
-// +-1 shifts come from indices, so no re-laid copy of the coefficient
-// field exists.  bfloat16 coefficients are converted to float on load;
-// products and sums are float32.
+// Why the first design (one thread per face and dst dof) lost bfloat16's
+// gain: each thread issued 10 scalar coefficient loads and 10 scalar source
+// loads, so a cell cost 100 coefficient and 100 source load instructions,
+// and the 10 dst threads of a face fetched the same sources again from
+// L1/L2 (as many bytes per launch as the float32 coefficient field).  A
+// bfloat16 scalar load moves half the bytes of a float32 one for the same
+// instruction, so halving the coefficient bytes saved no time.
+//
+// The design, part by part:
+// - Sources once, in shared memory.  A block owns a tile of kTX x kTY =
+//   8 x 128 cells (y fastest) and marches down a range of z planes.  For
+//   cell plane k it stages, for each source dof s, the face plane
+//   k + gshift_z[s] over the tile and, where gshift_x[s] or gshift_y[s] is
+//   1, a one-cell high halo row or column (indices wrap: x and y are
+//   periodic, which TMA cannot do).  Each (dof, face plane) pair is read at
+//   exactly one cell plane, so there is nothing to keep from one step to
+//   the next: the ring is two steps deep, cp.async filling step k + 1 while
+//   step k computes.  A tile of 4 x 256 cells (whole rows at ny = 256) was
+//   no faster.
+// - Coefficients in 16-byte vectors.  A thread owns kVec consecutive y
+//   cells of one x row (4 in float32, 8 in bfloat16) and, for each dst dof
+//   d, loads the 10 (s, d) vectors of its cells straight from the solver's
+//   (B, s, d, z, x, y) layout: 25 load instructions per cell in float32,
+//   12.5 in bfloat16, against 100 before; a warp's load covers 512
+//   contiguous bytes.  The loads stream past L1 and are marked evict-first
+//   in L2 (__ldcs), which keeps x's planes there for the neighbouring
+//   tiles' halos.  Where ny is not a multiple of kVec or the field's base
+//   is not 16-byte aligned, the same kernel is instantiated with
+//   element loads and a mask (kVector = false).
+// - Cell space, as the TPU kernel.  A cell's contribution to dst d goes to
+//   face cell - cshift[d], so every output face is written exactly once, by
+//   the block that owns its producing cell; the faces no cell produces
+//   (face 0 of the dsts with cshift_z = -1, face nz of the others) are
+//   written as 0 by the block that owns the cell plane next to them.  No
+//   face is left for a memset: the binding allocates the output with
+//   empty_like.  Dsts with cshift_y = 0 are stored as 16-byte vectors,
+//   the others (their faces one column over) element by element.
+// - The same sums.  Each output is one chain of multiply-adds over s = 0..9
+//   starting from 0, as the first design's `acc += c * x`, and bfloat16 is
+//   widened exactly, so the results equal the first design's bit for bit.
+//   Compiled without fast-math.
+// - No re-laid copy of the coefficient field (11.7 GB at a band chunk of
+//   8 x 56 layers), any batch and any nz, nx, ny >= 1.
+//
+// The shift tables come at run time.  The design needs gshift in {0, 1}
+// and cshift in {-1, 0} on every axis (a source read at most one step
+// along the axis: only high halos; a face made by its own cell or the one
+// before it); the wrapper and the binding refuse other tables.  3_10 and
+// 8_10 meet this.  Unlike K1, K3 needs no rule for the z dsts' columns: it
+// writes each cell's contributions where they land.
+//
+// Resources (`nvcc -Xptxas -v` and the occupancy query, printed by
+// chip_smoke.py's phases 2 and 3): 95,040 bytes of dynamic shared memory
+// per block (2 steps x 10 dofs x 9 rows x 132 floats) and two blocks per
+// SM.  float32: 256 threads per block (512 per SM), 128 registers (the
+// launch bounds' cap).  bfloat16: 128 threads per block (256 per SM), 252
+// registers (255 with element loads).  No variant spills.  One barrier per
+// z step.
 
 #include <cuda_bf16.h>
+
+#include <algorithm>
+#include <atomic>
 
 #include "dense_ops.h"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kTX = 8, kTY = 128;      // a block's tile of cells, y fastest
+constexpr int kRows = kTX + 1;         // staged rows: the tile and a high halo row
+constexpr int kRS = kTY + 4;           // staged row stride in floats (16-byte rows, halo column)
+constexpr int kSlice = kRows * kRS;    // floats of one staged dof
+constexpr int kSteps = 2;              // staged steps: k computing, k + 1 arriving
+constexpr int kMinPlanes = 4;          // the fewest cell planes a block marches over
+constexpr int kWaves = 4;              // blocks per resident slot the z split aims at
+constexpr int kBlocksPerSM = 2;
+constexpr int kMaxDevices = 64;        // device ordinals whose occupancy is cached
 
-__device__ __forceinline__ int wrap(int i, int n) {
-  return i < 0 ? i + n : (i >= n ? i - n : i);
+template <typename CT>
+struct Elem {
+  static constexpr int kVec = 16 / sizeof(CT);          // cells per thread
+  static constexpr int kThreads = kTX * kTY / kVec;     // 256 (float), 128 (bfloat16)
+};
+
+template <int ND>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (size_t)kSteps * ND * kSlice;
 }
+static_assert(kTY % 32 == 0 && kRS % 4 == 0, "staged rows must stay 16-byte aligned");
+static_assert(smem_bytes<10>() * kBlocksPerSM <= 228 * 1024, "two blocks must fit an SM");
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned saddr = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(saddr), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned saddr = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
-template <typename CT, int ND>
-__global__ void __launch_bounds__(kThreads)
-diffuse_apply_dense_kernel(const float* __restrict__ x, const CT* __restrict__ c,
-                           float* __restrict__ out, const DenseTables t, int nz, int nx,
-                           int ny) {
-  const int b = blockIdx.y;
-  const int d = blockIdx.x % ND;
-  const int nxy = nx * ny;
-  const size_t nface = (size_t)(nz + 1) * nxy;
-  const size_t ncell = (size_t)nz * nxy;
-  const size_t f = (size_t)(blockIdx.x / ND) * blockDim.x + threadIdx.x;
-  if (f >= nface) return;
-  const int k = (int)(f / nxy);
-  const int r = (int)(f - (size_t)k * nxy);
-  const int i = r / ny;
-  const int j = r - i * ny;
+// bfloat16 -> float is exact: the 16 bits are the float's high half
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
 
-  float acc = 0.f;
-  const int kc = k + t.cz[d];
-  if (kc >= 0 && kc < nz) {  // zero beyond z
-    const int ic = wrap(i + t.cx[d], nx);
-    const int jc = wrap(j + t.cy[d], ny);
-    const float* xb = x + (size_t)b * ND * nface;
-    const CT* cc = c + ((size_t)b * ND * ND + d) * ncell + (size_t)kc * nxy + ic * ny + jc;
-    float cv[ND], sv[ND];
+// kVec coefficients of consecutive cells, widened to float
+template <bool V>
+__device__ __forceinline__ void load_coeffs(const float* p, int nvalid, float* v) {
+  if (V) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
 #pragma unroll
-    for (int s = 0; s < ND; ++s) cv[s] = to_f32(cc[(size_t)s * ND * ncell]);
-#pragma unroll
-    for (int s = 0; s < ND; ++s) {
-      const int kf = kc + t.gz[s];
-      const int xf = wrap(ic + t.gx[s], nx);
-      const int yf = wrap(jc + t.gy[s], ny);
-      sv[s] = xb[(size_t)s * nface + (size_t)kf * nxy + xf * ny + yf];
-    }
-#pragma unroll
-    for (int s = 0; s < ND; ++s) acc += cv[s] * sv[s];
+    for (int q = 0; q < 4; ++q) v[q] = q < nvalid ? __ldcs(p + q) : 0.f;
   }
-  out[((size_t)b * ND + d) * nface + f] = acc;
+}
+template <bool V>
+__device__ __forceinline__ void load_coeffs(const __nv_bfloat16* p, int nvalid, float* v) {
+  if (V) {
+    const uint4 a = __ldcs(reinterpret_cast<const uint4*>(p));
+    const unsigned w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      v[2 * h] = bf16_lo(w[h]);
+      v[2 * h + 1] = bf16_hi(w[h]);
+    }
+  } else {
+    const unsigned short* ps = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = q < nvalid ? bf16_lo(__ldcs(ps + q)) : 0.f;
+  }
 }
 
-template <typename CT, int ND>
+// x, out: (B, ND, nz+1, nx, ny); c: (B, ND, ND, nz, nx, ny) [src, dst].
+// Block x = (tile, z chunk) with the z chunk fastest; block y = batch.
+template <typename CT, int ND, bool kVector>
+__global__ void __launch_bounds__(Elem<CT>::kThreads, kBlocksPerSM)
+diffuse_apply_dense_kernel(const float* __restrict__ x, const CT* __restrict__ c,
+                           float* __restrict__ out, const DenseTables t, int nz, int nx, int ny,
+                           int zsplit, int xvec) {
+  constexpr int kVec = Elem<CT>::kVec, kNT = Elem<CT>::kThreads;
+  constexpr int kLanesPerRow = kTY / kVec;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);  // [kSteps][ND][kRows][kRS]
+  __shared__ int s_row[kRows];                    // staged row a -> x offset (i0 + a, wrapped) * ny
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int tiles_y = (ny + kTY - 1) / kTY;
+  const int tile = blockIdx.x / zsplit, zc = blockIdx.x - tile * zsplit;
+  const int i0 = (tile / tiles_y) * kTX, j0 = (tile % tiles_y) * kTY;
+  const int hv = min(kTX, nx - i0), wv = min(kTY, ny - j0);  // cells of the tile in x and y
+  const int per = (nz + zsplit - 1) / zsplit;
+  const int k0 = zc * per, k1 = min(k0 + per, nz);  // cell planes of this block
+
+  const int nplanes = nz + 1;
+  const int nxy = nx * ny;
+  const size_t nface = (size_t)nplanes * nxy, ncell = (size_t)nz * nxy;
+  const float* xb = x + (size_t)b * ND * nface;
+  const CT* cb = c + (size_t)b * ND * ND * ncell;
+  float* ob = out + (size_t)b * ND * nface;
+
+  if (tid <= hv) s_row[tid] = (i0 + tid < nx ? i0 + tid : i0 + tid - nx) * ny;
+  const int jhalo = j0 + wv < ny ? j0 + wv : j0 + wv - ny;
+  __syncthreads();
+
+  // step k's sources: dof s from face plane k + gz[s], its tile rows and
+  // columns, plus the high halo row / column where gx[s] / gy[s] is 1
+  auto stage = [&](int k) {
+    float* dst = smem + (k % kSteps) * (ND * kSlice);
+    for (int s = 0; s < ND; ++s) {
+      const float* src = xb + (size_t)s * nface + (size_t)(k + t.gz[s]) * nxy + j0;
+      float* ds = dst + s * kSlice;
+      const int rows = hv + t.gx[s];
+      if (xvec) {
+        const int nch = wv >> 2;
+        for (int e = tid; e < rows * nch; e += kNT) {
+          const int a = e / nch, ch = e - a * nch;
+          cp_async16(ds + a * kRS + 4 * ch, src + s_row[a] + 4 * ch);
+        }
+      } else {
+        for (int e = tid; e < rows * wv; e += kNT) {
+          const int a = e / wv, q = e - a * wv;
+          cp_async4(ds + a * kRS + q, src + s_row[a] + q);
+        }
+      }
+      if (t.gy[s])
+        for (int a = tid; a < rows; a += kNT)
+          cp_async4(ds + a * kRS + wv, src - j0 + s_row[a] + jhalo);
+    }
+  };
+
+  // this thread's cells: row ta, columns c0 .. c0 + kVec - 1 of the tile
+  const int ta = tid / kLanesPerRow, c0 = (tid - ta * kLanesPerRow) * kVec;
+  const int i = i0 + ta, j = j0 + c0;
+  const int nvalid = min(kVec, ny - j);
+  const bool active = ta < hv && nvalid > 0;
+
+  if (k0 < k1) stage(k0);
+  cp_async_commit();
+  for (int k = k0; k < k1; ++k) {
+    cp_async_wait_all();  // step k's sources are here ...
+    __syncthreads();      // ... from every thread, and step k - 1's slot is free
+    if (k + 1 < k1) stage(k + 1);
+    cp_async_commit();
+
+    if (active) {
+      const float* st = smem + (k % kSteps) * (ND * kSlice);
+      float sv[ND][kVec];
+#pragma unroll
+      for (int s = 0; s < ND; ++s) {
+        const float* row = st + s * kSlice + (ta + t.gx[s]) * kRS + c0;
+        float r[kVec + 1];
+#pragma unroll
+        for (int h = 0; h < kVec / 4; ++h) {
+          const float4 v = reinterpret_cast<const float4*>(row)[h];
+          r[4 * h] = v.x; r[4 * h + 1] = v.y; r[4 * h + 2] = v.z; r[4 * h + 3] = v.w;
+        }
+        r[kVec] = row[kVec];
+        const bool sh = t.gy[s] != 0;
+#pragma unroll
+        for (int q = 0; q < kVec; ++q) sv[s][q] = sh ? r[q + 1] : r[q];
+      }
+
+      const CT* ck = cb + (size_t)k * nxy + (size_t)i * ny + j;
+      // float32 keeps the dst loop rolled: unrolled, the loads hoisted
+      // across dsts spill at the 128 registers two blocks per SM allow
+      // (5.38 against 4.72 ms at the band chunk on an H100 SXM at 700 W);
+      // the bfloat16 vector kernel has 255 and unrolls
+#pragma unroll (sizeof(CT) == 2 && kVector ? ND : 1)
+      for (int d = 0; d < ND; ++d) {
+        float cv[ND][kVec];
+#pragma unroll
+        for (int s = 0; s < ND; ++s)
+          load_coeffs<kVector>(ck + (size_t)(s * ND + d) * ncell, nvalid, cv[s]);
+        float acc[kVec];
+#pragma unroll
+        for (int q = 0; q < kVec; ++q) {
+          acc[q] = 0.f;
+#pragma unroll
+          for (int s = 0; s < ND; ++s) acc[q] += cv[s][q] * sv[s][q];
+        }
+        // the face this cell makes for dst d, and the face no cell makes
+        // next to it (plane 0 below a cz = -1 dst, plane nz for the others)
+        const int cz = t.cz[d];
+        const int kf = k - cz;
+        const bool edge = cz == -1 ? k == 0 : k == nz - 1;
+        const int kz = cz == -1 ? 0 : nz;
+        const int fi = i - t.cx[d] < nx ? i - t.cx[d] : 0;
+        float* od = ob + (size_t)d * nface + (size_t)fi * ny;
+        if (kVector && t.cy[d] == 0) {
+#pragma unroll
+          for (int h = 0; h < kVec / 4; ++h) {
+            reinterpret_cast<float4*>(od + (size_t)kf * nxy + j)[h] =
+                make_float4(acc[4 * h], acc[4 * h + 1], acc[4 * h + 2], acc[4 * h + 3]);
+            if (edge)
+              reinterpret_cast<float4*>(od + (size_t)kz * nxy + j)[h] =
+                  make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < kVec; ++q) {
+            if (q < nvalid) {
+              const int fj = j + q - t.cy[d] < ny ? j + q - t.cy[d] : 0;
+              od[(size_t)kf * nxy + fj] = acc[q];
+              if (edge) od[(size_t)kz * nxy + fj] = 0.f;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// (SMs, blocks of this kernel resident per SM) on the current card, (0, 0)
+// on an error.  The shared-memory limit is an attribute of each device's
+// context, so it is raised, and the occupancy read, once per device ordinal.
+struct Slots {
+  int nsm, per_sm;
+};
+template <typename CT, int ND, bool V>
+Slots slots() {
+  static std::atomic<int> cached_nsm[kMaxDevices], cached_per_sm[kMaxDevices];
+  int dev = 0, nsm = 0, optin = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return {0, 0};
+  if (dev < kMaxDevices && cached_per_sm[dev].load() > 0)  // stored after cached_nsm
+    return {cached_nsm[dev].load(), cached_per_sm[dev].load()};
+  auto fn = diffuse_apply_dense_kernel<CT, ND, V>;
+  if (cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess ||
+      (size_t)optin < smem_bytes<ND>() ||
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem_bytes<ND>()) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, Elem<CT>::kThreads,
+                                                    smem_bytes<ND>()) != cudaSuccess ||
+      nsm < 1 || per_sm < 1)
+    return {0, 0};
+  if (dev < kMaxDevices) {
+    cached_nsm[dev].store(nsm);
+    cached_per_sm[dev].store(per_sm);
+  }
+  return {nsm, per_sm};
+}
+
+template <typename CT, int ND, bool V>
 cudaError_t apply_nd(const float* x, const CT* c, float* out, const DenseTables* t, int batch,
-                     int nz, int nx, int ny, cudaStream_t stream) {
-  const size_t nface = (size_t)(nz + 1) * nx * ny;
-  dim3 grid((unsigned)((nface + kThreads - 1) / kThreads) * ND, batch);
-  diffuse_apply_dense_kernel<CT, ND><<<grid, kThreads, 0, stream>>>(x, c, out, *t, nz, nx, ny);
+                     int nz, int nx, int ny, int xvec, cudaStream_t stream) {
+  const Slots sl = slots<CT, ND, V>();
+  if (sl.per_sm == 0) {
+    const cudaError_t err = cudaGetLastError();
+    return err != cudaSuccess ? err : cudaErrorInvalidConfiguration;
+  }
+  // z chunks per tile: enough blocks for kWaves waves over the card, at
+  // least kMinPlanes cell planes each (one wave left a single band of 40
+  // layers 7% slower, the band chunk the same)
+  const long tiles = (long)((nx + kTX - 1) / kTX) * ((ny + kTY - 1) / kTY);
+  const long tb = tiles * std::max(batch, 1);
+  const long fill = std::max(1L, ((long)kWaves * sl.nsm * sl.per_sm + tb - 1) / tb);
+  const int zsplit = (int)std::min<long>(fill, std::max(1, nz / kMinPlanes));
+  dim3 grid((unsigned)(tiles * zsplit), batch);
+  diffuse_apply_dense_kernel<CT, ND, V><<<grid, Elem<CT>::kThreads, smem_bytes<ND>(), stream>>>(
+      x, c, out, *t, nz, nx, ny, zsplit, xvec);
   return cudaGetLastError();
 }
+
+bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 
 }  // namespace
 
 extern "C" cudaError_t launch_diffuse_apply_dense(const float* x, const void* c, int c_is_bf16,
                                                   float* out, const DenseTables* t, int batch,
                                                   int nz, int nx, int ny, cudaStream_t stream) {
-  if (t->nd != 10) return cudaErrorInvalidValue;  // built for 3_10 only
-  if (c_is_bf16)
-    return apply_nd<__nv_bfloat16, 10>(x, (const __nv_bfloat16*)c, out, t, batch, nz, nx, ny,
-                                       stream);
-  return apply_nd<float, 10>(x, (const float*)c, out, t, batch, nz, nx, ny, stream);
+  if (t->nd != 10) return cudaErrorInvalidValue;  // built for 10 diffuse dofs only
+  const int xvec = ny % 4 == 0 && aligned16(x) && aligned16(out);
+  if (c_is_bf16) {
+    const __nv_bfloat16* cb = (const __nv_bfloat16*)c;
+    if (ny % 8 == 0 && xvec && aligned16(c))
+      return apply_nd<__nv_bfloat16, 10, true>(x, cb, out, t, batch, nz, nx, ny, xvec, stream);
+    return apply_nd<__nv_bfloat16, 10, false>(x, cb, out, t, batch, nz, nx, ny, xvec, stream);
+  }
+  const float* cf = (const float*)c;
+  if (ny % 4 == 0 && xvec && aligned16(c))
+    return apply_nd<float, 10, true>(x, cf, out, t, batch, nz, nx, ny, xvec, stream);
+  return apply_nd<float, 10, false>(x, cf, out, t, batch, nz, nx, ny, xvec, stream);
+}
+
+extern "C" cudaError_t diffuse_apply_dense_config(int c_is_bf16, int* threads, int* smem,
+                                                  int* blocks_per_sm_out) {
+  *smem = (int)smem_bytes<10>();
+  *threads = c_is_bf16 ? Elem<__nv_bfloat16>::kThreads : Elem<float>::kThreads;
+  *blocks_per_sm_out =
+      c_is_bf16 ? slots<__nv_bfloat16, 10, true>().per_sm : slots<float, 10, true>().per_sm;
+  if (*blocks_per_sm_out == 0) {
+    const cudaError_t err = cudaGetLastError();
+    return err != cudaSuccess ? err : cudaErrorInvalidConfiguration;
+  }
+  return cudaSuccess;
 }

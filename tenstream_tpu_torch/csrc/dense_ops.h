@@ -22,10 +22,18 @@ extern "C" {
 // out[b, d, face] = sum_s c[b, s, d, cell] * x[b, s, cell + g(s)] with
 // cell = face + c(d); periodic in x and y, zero beyond z.
 // x, out: (B, nd, nz+1, nx, ny) float32; c: (B, nd, nd, nz, nx, ny)
-// [src, dst], float32 or (c_is_bf16 != 0) bfloat16.
+// [src, dst], float32 or (c_is_bf16 != 0) bfloat16.  Every face of out is
+// written.  The tables must have nd = 10 (else cudaErrorInvalidValue) and
+// every shift in g in {0, 1}, c in {-1, 0} (the binding checks them).
 cudaError_t launch_diffuse_apply_dense(const float* x, const void* c, int c_is_bf16,
                                        float* out, const DenseTables* t, int batch, int nz,
                                        int nx, int ny, cudaStream_t stream);
+
+// The launch configuration of the vector-load kernel for float32 or
+// bfloat16 coefficients on the current device: threads per block, dynamic
+// shared memory per block (bytes) and resident blocks per SM.
+cudaError_t diffuse_apply_dense_config(int c_is_bf16, int* threads, int* smem_bytes,
+                                       int* blocks_per_sm);
 
 #ifdef __cplusplus
 }

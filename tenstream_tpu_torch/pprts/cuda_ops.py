@@ -17,7 +17,10 @@ K3 `diffuse_apply_dense` replaces `pallas_ops.py::_kernel`
 (src, dst) coefficient field, which buildings and
 `pprts_orbit_coeffs=False` force; the coefficients may be bfloat16,
 products and sums are float32.  BiCGStab and Richardson both apply it on
-dense coefficients.
+dense coefficients.  It is 2.5-D blocked (sources staged once per block in
+shared memory, coefficients in 16-byte vectors, writes in cell space) and
+takes shift tables with gshift in {0, 1} and cshift in {-1, 0} only
+(`_k3_shift_refusal`); `dense_launch_config` reports its blocks per SM.
 
 All take a leading batch dim B (K1 returns per-batch dots), and are built
 for the 10 diffuse dofs of 3_10 and 8_10 (the plain versions take any
@@ -317,6 +320,18 @@ def fused_A_dots(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _k3_shift_refusal(name: str, cshift, gshift) -> None:
+    """K3 stages only high source halos and writes each cell's contributions
+    to its own face or the next one along an axis: it takes gshift in
+    {0, 1} and cshift in {-1, 0} on every axis, and refuses other tables."""
+    bad_g = [s for s, g in enumerate(gshift) if any(v not in (0, 1) for v in g)]
+    bad_c = [d for d, c in enumerate(cshift) if any(v not in (-1, 0) for v in c)]
+    if bad_g or bad_c:
+        raise ValueError(f"K3 takes shift tables with gshift in {{0, 1}} and cshift in "
+                         f"{{-1, 0}}; scheme {name} has gshift outside at dofs {bad_g}, "
+                         f"cshift outside at dofs {bad_c}")
+
+
 @functools.lru_cache(maxsize=None)
 def _dense_tables(scheme: StreamScheme):
     """[nd] + gz + gx + gy + cz + cx + cy: src s is read at cell + g*[s],
@@ -326,7 +341,15 @@ def _dense_tables(scheme: StreamScheme):
         raise ValueError(f"the kernels are built for the 3_10 scheme ({_TS_MAXD} diffuse "
                          f"dofs); scheme {scheme.name} has {nd}")
     cshift, gshift = _shift_tables(scheme)
+    _k3_shift_refusal(scheme.name, cshift, gshift)
     return [nd] + [sh[a][q] for sh in (gshift, cshift) for q in range(3) for a in range(nd)]
+
+
+def dense_launch_config(dtype: torch.dtype) -> Dict[str, int]:
+    """K3's launch configuration on the current CUDA device for float32 or
+    bfloat16 coefficients: threads and shared memory per block, blocks per SM."""
+    threads, smem, per_sm = load_extension().diffuse_apply_dense_config(dtype == torch.bfloat16)
+    return {"threads": threads, "smem_bytes": smem, "blocks_per_sm": per_sm}
 
 
 def diffuse_apply_dense_plain(scheme: StreamScheme, coeff: torch.Tensor,

@@ -83,8 +83,13 @@ def test_cuda_kernels_match_plain(cuda_device, name, B, nz, nx, ny):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,nz,nx,ny", [(2, 5, 6, 10), (1, 40, 64, 64), (1, 4, 3, 33),
-                                        (1, 1, 1, 1)])
+                                        (1, 1, 1, 1), (3, 7, 13, 130), (1, 1, 9, 67),
+                                        (2, 3, 9, 136)])
 def test_cuda_dense_apply_matches_plain(cuda_device, dtype, B, nz, nx, ny):
+    """Ragged shapes too (nx, ny not multiples of K3's 8 x 128 tile or of its
+    vector width, nz = 1, B = 3).  Each call runs right after a NaN-filled
+    block of the output's size was freed: the caching allocator hands K3
+    that block, so a face the kernel never writes shows as NaN."""
     ts = get_scheme("3_10")
     rng = np.random.default_rng(3)
     c = torch.as_tensor((rng.random((B, 10, 10, nz, nx, ny)) * 0.1).astype(np.float32),
@@ -92,6 +97,7 @@ def test_cuda_dense_apply_matches_plain(cuda_device, dtype, B, nz, nx, ny):
     x = torch.as_tensor(rng.random((B, 10, nz + 1, nx, ny)).astype(np.float32),
                         device=cuda_device)
     cuda_ops.reset_launch_counts()
+    torch.full_like(x, float("nan"))
     out = cuda_ops.diffuse_apply_dense(ts, c, x)
     torch.cuda.synchronize()
     assert cuda_ops.LAUNCHES["diffuse_apply_dense"] == 1
@@ -117,6 +123,37 @@ def test_cuda_dense_apply_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="3_10"):  # the kernel is built for 3_10 only
         cuda_ops.diffuse_apply_dense(ts6, torch.zeros((1, 6, 6, 2, 3, 4), device=cuda_device),
                                      torch.zeros((1, 6, 3, 3, 4), device=cuda_device))
+    itab = list(cuda_ops._dense_tables(ts))
+    itab[1] = -1  # gshift_z[0] outside {0, 1}: the binding refuses it too
+    with pytest.raises(RuntimeError, match="gshift"):
+        cuda_ops.load_extension().diffuse_apply_dense(x, c, itab)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_apply_unaligned_views(cuda_device):
+    """Fields whose base is not 16-byte aligned (contiguous views one element
+    into a larger buffer) take K3's element loads and match the plain version."""
+    ts = get_scheme("3_10")
+    rng = np.random.default_rng(5)
+    B, nz, nx, ny = 2, 3, 9, 128
+    nc, nf = B * 100 * nz * nx * ny, B * 10 * (nz + 1) * nx * ny
+    for dtype in (torch.float32, torch.bfloat16):
+        cbuf = torch.as_tensor((rng.random(nc + 1) * 0.1).astype(np.float32),
+                               device=cuda_device).to(dtype)
+        xbuf = torch.as_tensor(rng.random(nf + 1).astype(np.float32), device=cuda_device)
+        c = cbuf[1:].view(B, 10, 10, nz, nx, ny)
+        x = xbuf[1:].view(B, 10, nz + 1, nx, ny)
+        out = cuda_ops.diffuse_apply_dense(ts, c, x)
+        ref = cuda_ops.diffuse_apply_dense_plain(ts, c, x)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=FIELD_ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_launch_config(cuda_device):
+    """K3 runs two blocks per SM (the shared memory of its two staged steps)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = cuda_ops.dense_launch_config(dtype)
+        assert cfg["blocks_per_sm"] >= 2 and cfg["smem_bytes"] > 48 * 1024, cfg
 
 
 @pytest.mark.cuda

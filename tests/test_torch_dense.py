@@ -5,10 +5,11 @@ preconditioners, thermal source and absorption on a dense field.
 
 K3 on the CPU is its plain PyTorch version; it is held against the JAX
 Pallas kernel in interpret mode and against the JAX XLA path
-(`diffuse_scatter` on the dense field), and the shift tables the CUDA
-kernel indexes by are checked by a numpy emulation of its indexing.  The
-CUDA kernel itself is compared with the plain version in
-`test_torch_cuda.py`.
+(`diffuse_scatter` on the dense field).  The shift tables the CUDA kernel
+indexes by, and its blocking (tiles, the z march, halo staging with wrap,
+cell-to-face writes, the zero faces), are checked by numpy emulations at
+ragged shapes, and its shift-range refusal by altered tables.  The CUDA
+kernel itself is compared with the plain version in `test_torch_cuda.py`.
 
 Tolerances: S(x) sums 10 float32 products per value in another order
 (atol 3e-6 on O(1) values, float32).  With bfloat16 coefficients both
@@ -18,6 +19,7 @@ coefficients agree to a few float32 ulps (atol 2e-6); solver tolerances as
 in `test_torch_ediff.py`."""
 
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -182,6 +184,107 @@ def test_dense_kernel_tables_emulated(name):
     emu = _emulate_dense_apply(itab, c.astype(np.float64), x.astype(np.float64))
     out = cuda_ops.diffuse_apply_dense_plain(ts, torch.as_tensor(c), torch.as_tensor(x))
     np.testing.assert_allclose(out.numpy(), emu, atol=FIELD_ATOL)
+
+
+def _k3_tile():
+    """K3's tile of cells (kTX x kTY), read from its source."""
+    src = open(os.path.join(REPO, "tenstream_tpu_torch", "csrc", "dense_ops.cu")).read()
+    m = re.search(r"constexpr int kTX = (\d+), kTY = (\d+);", src)
+    return int(m.group(1)), int(m.group(2))
+
+
+def _emulate_k3_blocks(itab, c, x, tx, ty, vec, zsplit):
+    """numpy replica of the decomposition of dense_ops.cu's
+    diffuse_apply_dense_kernel: blocks over (tile, z chunk, batch), the z
+    march, each step's sources staged with their high halo (indices
+    wrapped; what is not staged is NaN), threads of vec cells, each cell's
+    contributions written to its faces and the faces no cell makes written
+    as 0.  Returns the output (NaN where never written) and the number of
+    writes per output element."""
+    nd = itab[0]
+    gz, gx, gy, cz, cx, cy = (itab[1 + nd * q: 1 + nd * (q + 1)] for q in range(6))
+    B, _, nz1, nx, ny = x.shape
+    nz = nz1 - 1
+    out = np.full(x.shape, np.nan)
+    writes = np.zeros(x.shape, np.int64)
+    tiles_y = -(-ny // ty)
+    tiles = -(-nx // tx) * tiles_y
+    per = -(-nz // zsplit)
+    lanes = ty // vec
+    tid = np.arange(tx * ty // vec)
+    ta, c0 = tid // lanes, (tid % lanes) * vec
+    for b, blk in np.ndindex(B, tiles * zsplit):
+        tile, zc = divmod(blk, zsplit)
+        i0, j0 = (tile // tiles_y) * tx, (tile % tiles_y) * ty
+        hv, wv = min(tx, nx - i0), min(ty, ny - j0)
+        rows = np.array([i0 + a if i0 + a < nx else i0 + a - nx for a in range(hv + 1)])
+        jhalo = j0 + wv if j0 + wv < ny else j0 + wv - ny
+        # the thread's cells: row ta, columns c0 + q of the tile
+        a_, col = np.repeat(ta, vec), (c0[:, None] + np.arange(vec)).ravel()
+        live = (a_ < hv) & (col < wv)
+        a_, col = a_[live], col[live]
+        i, j = i0 + a_, j0 + col
+        for k in range(zc * per, min(zc * per + per, nz)):
+            st = np.full((nd, tx + 1, ty + 4), np.nan)
+            for s in range(nd):
+                r = rows[:hv + gx[s]]
+                st[s, :len(r), :wv] = x[b, s, k + gz[s]][r][:, j0:j0 + wv]
+                if gy[s]:
+                    st[s, :len(r), wv] = x[b, s, k + gz[s], r, jhalo]
+            sv = np.stack([st[s, a_ + gx[s], col + gy[s]] for s in range(nd)])
+            for d in range(nd):
+                acc = sum(c[b, s, d, k, i, j] * sv[s] for s in range(nd))
+                fi = np.where(i - cx[d] < nx, i - cx[d], 0)
+                fj = np.where(j - cy[d] < ny, j - cy[d], 0)
+                np.add.at(writes[b, d], (k - cz[d], fi, fj), 1)
+                out[b, d, k - cz[d], fi, fj] = acc
+                if (k == 0) if cz[d] == -1 else (k == nz - 1):
+                    kz = 0 if cz[d] == -1 else nz
+                    np.add.at(writes[b, d], (kz, fi, fj), 1)
+                    out[b, d, kz, fi, fj] = 0.0
+    return out, writes
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,nz,nx,ny", [(3, 7, 13, 130), (1, 1, 9, 67), (2, 5, 6, 10),
+                                        (1, 1, 1, 1), (3, 1, 17, 129)])
+def test_dense_kernel_blocks_emulated(B, nz, nx, ny, bf16):
+    """K3's blocking at ragged shapes (nx, ny not multiples of the tile or
+    of the vector width, nz = 1, B = 3), with the kernel's tile and with
+    small tiles that make many blocks, over several z splits (one leaving a
+    block no plane): every output element is written exactly once, and the
+    result is the plain version's."""
+    ts = tget("3_10")
+    itab = cuda_ops._dense_tables(ts)
+    c, x, _ = _inputs("3_10", B, nz, nx, ny, seed=nz + nx, bf16=bf16)
+    ref = cuda_ops.diffuse_apply_dense_plain(ts, torch.as_tensor(c), torch.as_tensor(x)).numpy()
+    vec = 8 if bf16 else 4
+    kx, ky = _k3_tile()
+    for tx, ty in ((kx, ky), (2, 2 * vec), (3, 4 * vec)):
+        for zsplit in sorted({1, 2, 3, 5, max(1, nz // 4)}):  # 5 at nz = 7: an empty z chunk
+            out, writes = _emulate_k3_blocks(itab, c.astype(np.float64), x.astype(np.float64),
+                                             tx, ty, vec, zsplit)
+            assert (writes == 1).all(), (tx, ty, zsplit, np.argwhere(writes != 1)[:5])
+            np.testing.assert_allclose(out, ref, atol=FIELD_ATOL)
+
+
+@pytest.mark.parametrize("name", ["3_10", "8_10"])
+def test_dense_kernel_shift_range_accepts(name):
+    cshift, gshift = cuda_ops._shift_tables(tget(name))
+    cuda_ops._k3_shift_refusal(name, cshift, gshift)
+    assert len(cuda_ops._dense_tables(tget(name))) == 61
+
+
+@pytest.mark.parametrize("table,dof,shift", [("g", 0, (-1, 0, 0)), ("g", 2, (0, 2, 0)),
+                                             ("g", 6, (0, 0, -1)), ("c", 1, (1, 0, 0)),
+                                             ("c", 3, (0, -2, 0)), ("c", 7, (0, 0, 1))])
+def test_dense_kernel_shift_range_refuses(table, dof, shift):
+    """Tables outside gshift in {0, 1} / cshift in {-1, 0} are refused with
+    a message naming the dof."""
+    cshift, gshift = (list(t) for t in cuda_ops._shift_tables(tget("3_10")))
+    (gshift if table == "g" else cshift)[dof] = shift
+    with pytest.raises(ValueError, match=rf"{table}shift outside at dofs \[{dof}\]"):
+        cuda_ops._k3_shift_refusal("3_10 altered", tuple(cshift), tuple(gshift))
 
 
 # ---------------------------------------------------------------------------
