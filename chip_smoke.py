@@ -96,6 +96,27 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  (20 sigma layers) with pprts_geometric_coeffs, kernels
                  against plain; the slope-corrected surface direct beam
                  brightens the flank facing the sun and dims the other.
+ 18. gas optics -- phase 12's scene, solver and options at 256 x 256 with the
+                 other spectra, a fresh solver each: RRTMG_SW's 112 solar
+                 g-points with ecCKD's 32 longwave ones (two specint_pprts
+                 calls per step: milestone config (3)) and repwvl 15 + 15;
+                 a cold and a perturbed step.  Prints walls, columns/s, K1/K2
+                 launches, niter per chunk and peak memory; phase 12's gates
+                 (lanes converged, TOA edir, heating rates) and K1/K2
+                 launched.
+ 19. oned     -- the 1-D solvers: 2str columns through specint_pprts with
+                 RRTMG_SW + ecCKD LW on phase 18's scene at 256 x 256; a
+                 Schwarzschild (thermal) and a DISORT (8 streams per
+                 hemisphere, solar + thermal) solve of phase 4's band at
+                 256 x 256; DISORT through specint_pprts with ecCKD 32 + 32 at
+                 64 x 64.  Prints walls, peak memory, a batched inverse of
+                 the band's 8x8 operators and (not gated) 2str against 3_10
+                 and DISORT against 2str; gates finite fields, TOA edir, and
+                 each call on a 16 x 16 crop on the card against the CPU
+                 (fluxes within 5e-5 of their magnitude, absorption 1e-4
+                 W/m3), with DISORT's TF32 control printed beside it.
+ 20. gas optics parity -- phase 18's two spectra at 64 x 64 through K1/K2
+                 and through their plain versions: phase 13's gates.
  10. boxmc    -- K4 boxmc_trace, the BoxMC photon tracer: one launch of 4096
                  entries drawn with --seed from the production diffuse grid
                  for the orbit-representative sources 0 and 2 and one from
@@ -123,7 +144,7 @@ digests recorded from the earlier K4 design, and phase 3 holds K3's
 outputs at every (type, shape) it checks against digests recorded from
 the first K3 design: they must be equal bit for bit.
 
-The phases run in the order 1-8, 12, 13, 9, 14-17, 10, 11.  Each path resets
+The phases run in the order 1-8, 12, 13, 9, 14-20, 10, 11.  Each path resets
 the kernel launch counts before it runs and reads them after; the kernels
 JSON takes K1's and K2's launches from phase 12 (the main path), K3's from
 phase 14 (the urban spectral path, where its entry is timed) and K4's from
@@ -164,6 +185,15 @@ CHUNK = 8  # bands per batched solve (bench.py's band_chunk)
 NGPT = 32  # ecCKD g-points per spectrum (bench.py)
 SPECTRAL_SUN = (120.0, 40.0)  # bench.py's sun
 HR_MAX = 100.0  # K/day
+GAS_SETS = ("rrtmg_sw", "repwvl")  # phase 18's spectra: RRTMG_SW 112 (+ ecCKD 32 LW), repwvl
+REPWVL_NWVL = 15  # the UCLA-LES offline benchmark's `-specint repwvl` table
+DISORT_STREAMS = 8  # per hemisphere (PprtsSolver's `disort_streams` default)
+CROP = 16  # columns per side of phase 19's card-vs-CPU crops
+# card vs CPU on the crops: fluxes within 5e-5 of the field's largest magnitude (the float32
+# rounding of the 2str RRTMG_SW + ecCKD crop is 1.5e-5 of it, 1.4e-2 W/m2 against the same code
+# in float64: tools/torch_float32_rounding.py), absorption within 1e-4 W/m3
+CROP_FLUX_RTOL = 5e-5
+CROP_ABSO_ATOL = 1e-4  # W/m3
 URBAN_NZ, URBAN_DZ, URBAN_DX = 40, 10.0, 20.0  # the urban path: aspect 0.5, all layers 3-D
 URBAN_SKY = 16  # geometric layers from the urban box's top (400 m) to 20 km: all 1-D
 URBAN_SPEC_NZ = URBAN_NZ + URBAN_SKY  # the urban spectral path's column
@@ -1002,18 +1032,20 @@ def _band_niters(solver) -> dict:
     return out
 
 
-def spectral_solve(spec, lwc, cuda_ops, label, report_chunks=True, **kw):
-    """One spectral call through `specint_pprts` (`kw`: its other inputs):
-    its wall, its kernel launches, the per-chunk iterations and the lane
-    checks."""
+def spectral_solve(spec, lwc, cuda_ops, label, report_chunks=True, gas=None, lsolar=True,
+                   lthermal=True, **kw):
+    """One spectral call through `specint_pprts` (`kw`: its other inputs;
+    `gas` in place of the spec's backend): its wall, its kernel launches,
+    the per-chunk iterations and the lane checks."""
     from tenstream_tpu_torch.spectral import specint_pprts
 
-    solver, atm, _, gas = spec
+    solver, atm, _, spec_gas = spec
     before = dict(cuda_ops.LAUNCHES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = specint_pprts(solver, atm, albedo=0.15, lthermal=True, lsolar=True, specint=gas,
-                        lwc=lwc, band_chunk=CHUNK, **kw)
+    res = specint_pprts(solver, atm, albedo=0.15, lthermal=lthermal, lsolar=lsolar,
+                        specint=spec_gas if gas is None else gas, lwc=lwc, band_chunk=CHUNK,
+                        **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: cuda_ops.LAUNCHES[k] - before[k] for k in before}
@@ -1028,15 +1060,21 @@ def spectral_solve(spec, lwc, cuda_ops, label, report_chunks=True, **kw):
                 f"{max(a / b for a, b in zip(r, t)):.4f}")
         if bad:
             raise AssertionError(f"{label} chunk {key}: lanes {bad} above 1.5 tol or at maxiter")
-    for name, a in zip(("edir", "edn", "eup", "abso"), res):
-        if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"{label}: non-finite {name}")
+    check_finite(label, res)
+    edir = "" if res.edir is None else (
+        f"TOA edir {res.edir[0].mean().item():.3f}, surface edir "
+        f"{res.edir[-1].mean().item():.3f}, ")
     log(f"{label}: wall {wall * 1e3:.1f} ms, {len(niters)} bands, niter sum {sum(niters)} "
         f"(max {max(niters)}), launches K1 {launches['fused_A_dots']} K2 "
-        f"{launches['orbit_contract']} K3 {launches['diffuse_apply_dense']}; TOA SW down "
-        f"{res.edir[0].mean().item():.3f}, OLR+SW up {res.eup[0].mean().item():.3f}, surface edir "
-        f"{res.edir[-1].mean().item():.3f} W/m2")
+        f"{launches['orbit_contract']} K3 {launches['diffuse_apply_dense']}; {edir}TOA up "
+        f"{res.eup[0].mean().item():.3f} W/m2")
     return res, wall, launches
+
+
+def check_finite(label, res):
+    for name, a in zip(("edir", "edn", "eup", "abso"), res):
+        if a is not None and not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
 
 
 def heating_rates(res, atm, K):
@@ -1075,36 +1113,48 @@ def phase_spectral(cuda_ops, opp, seed, smi):
         pert.append(wall)
     launches = dict(cuda_ops.LAUNCHES)
     spec = (solver, atm, lwc, gas)
-    mu = float(np.cos(np.deg2rad(SPECTRAL_SUN[1])))
-    want = float(gas.solar(atm).weight.sum()) * mu
-    toa = res.edir[0].mean().item()
     log(f"spectral: walls " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in walls.items())
         + f", perturbed {pert[0] * 1e3:.1f} / {pert[1] * 1e3:.1f} ms = "
         f"{NX * NY / np.mean(pert):.1f} columns/s ({smi}); launches {launches}; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    hr = heating_rates(res, atm, K_COLLAPSE)
-    # cloud-top cells (cloud under clear air) cool through their top face by
-    # about 100 K/day; the JAX package reaches 104 K/day there on this scene
-    # at 64x64 (tools/torch_heating_rates.py): every other cell stays below
-    cloud = torch.as_tensor(lwc[K_COLLAPSE - 1:] > 0, device=hr.device)
-    top = cloud[1:] & ~cloud[:-1]
-    hr_lay = hr[1:].abs()
-    k, i, j = np.unravel_index(int(hr.abs().argmax()), tuple(hr.shape))
-    hr_other = max(hr_lay[~top].max().item(), hr[0].abs().max().item())
-    log(f"spectral: TOA edir {toa:.3f} W/m2 vs sum of the solar weights x mu {want:.3f}; heating "
-        f"rates max |{hr.abs().max().item():.2f}| K/day at solve layer {k} ({i}, {j}); cloud-top "
-        f"cells up to {hr_lay[top].max().item():.2f} K/day ({int((hr_lay[top] > HR_MAX).sum())} of "
-        f"{int(top.sum())} above {HR_MAX:.0f}), every other cell up to {hr_other:.2f} K/day; "
-        f"column mean at the surface layer {hr[-1].mean().item():.3f} K/day")
-    if abs(toa - want) > 0.01 * want:
-        raise AssertionError(f"spectral: TOA edir {toa} differs from {want} by more than 1%")
-    if not (bool(torch.isfinite(hr).all()) and hr_other < HR_MAX):
-        raise AssertionError(f"spectral: heating rates non-finite or above {HR_MAX} K/day "
-                             "outside the cloud tops")
+    check_spectral_result("spectral", res, atm, lwc, gas.solar(atm).weight)
     for name in ("fused_A_dots", "orbit_contract"):
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     return launches, spec
+
+
+def check_toa(label, edir, weight, mu):
+    """TOA direct irradiance = the sum of the solar weights x mu, within 1%."""
+    want = float(weight.sum()) * mu
+    toa = edir[0].mean().item()
+    log(f"{label}: TOA edir {toa:.3f} W/m2 vs sum of the solar weights x mu {want:.3f}")
+    if abs(toa - want) > 0.01 * want:
+        raise AssertionError(f"{label}: TOA edir {toa} differs from {want} by more than 1%")
+
+
+def check_spectral_result(label, res, atm, lwc, weight, K=K_COLLAPSE):
+    """Phase 12's gates on a solar+thermal result of bench.py's scene: the
+    TOA edir, and heating rates finite and below HR_MAX outside the cloud
+    tops."""
+    check_toa(label, res.edir, weight, float(np.cos(np.deg2rad(SPECTRAL_SUN[1]))))
+    hr = heating_rates(res, atm, K)
+    # cloud-top cells (cloud under clear air) cool through their top face by
+    # about 100 K/day; the JAX package reaches 104 K/day there on this scene
+    # at 64x64 (tools/torch_heating_rates.py): every other cell stays below
+    cloud = torch.as_tensor(lwc[max(K - 1, 0):] > 0, device=hr.device)
+    top = cloud[1:] & ~cloud[:-1]
+    hr_lay = hr[1:].abs()
+    k, i, j = np.unravel_index(int(hr.abs().argmax()), tuple(hr.shape))
+    hr_other = max(hr_lay[~top].max().item(), hr[0].abs().max().item())
+    log(f"{label}: heating rates max |{hr.abs().max().item():.2f}| K/day at solve layer {k} "
+        f"({i}, {j}); cloud-top cells up to {hr_lay[top].max().item():.2f} K/day "
+        f"({int((hr_lay[top] > HR_MAX).sum())} of {int(top.sum())} above {HR_MAX:.0f}), every "
+        f"other cell up to {hr_other:.2f} K/day; column mean at the surface layer "
+        f"{hr[-1].mean().item():.3f} K/day")
+    if not (bool(torch.isfinite(hr).all()) and hr_other < HR_MAX):
+        raise AssertionError(f"{label}: heating rates non-finite or above {HR_MAX} K/day "
+                             "outside the cloud tops")
 
 
 def phase_spectral_parity(cuda_ops, ediff, opp, seed):
@@ -1359,6 +1409,273 @@ def phase_options(cuda_ops, ediff, opp, seed):
     _compare_solves(f"options 8_10 64x64x{NZ} kernels vs plain", outs)
     if iters[0] != iters[1]:
         raise AssertionError(f"options 8_10: iteration counts differ, {iters[0]} vs {iters[1]}")
+
+
+# ---------------------------------------------------------------------------
+# the other gas optics and the 1-D solvers (phases 18-20)
+# ---------------------------------------------------------------------------
+
+def gas_calls(which: str):
+    """The specint_pprts calls of one radiation step: (backend, lsolar,
+    lthermal).  RRTMG_SW has no thermal spectrum, so its step pairs it
+    with ecCKD's longwave (milestone config (3), the JAX package's
+    `examples/ex_pprts_rrtmg_lw_sw.py`); repwvl does both."""
+    from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
+    from tenstream_tpu_torch.spectral.repwvl import RepwvlOptics
+    from tenstream_tpu_torch.spectral.rrtmg_sw import RrtmgSwOptics
+
+    if which == "rrtmg_sw":
+        return [("rrtmg_sw 112 SW", RrtmgSwOptics(), True, False),
+                (f"ecCKD {NGPT} LW", EcckdGasOptics(n_gpt=NGPT), False, True)]
+    return [(f"repwvl {REPWVL_NWVL}+{REPWVL_NWVL}", RepwvlOptics(n_wvl=REPWVL_NWVL), True, True)]
+
+
+def combine(parts):
+    """One SpectralResult from a solar call and a thermal call."""
+    from tenstream_tpu_torch.spectral.specint import SpectralResult
+
+    edir = next((p.edir for p in parts if p.edir is not None), None)
+    return SpectralResult(edir, *(sum(getattr(p, n) for p in parts) for n in ("edn", "eup", "abso")))
+
+
+def solar_weight(calls, atm):
+    return next(gas.solar(atm).weight for _, gas, lsolar, _ in calls if lsolar)
+
+
+def spectral_step(spec, lwc, calls, cuda_ops, label, report_chunks=True):
+    """One radiation step of `calls` through `spectral_solve`: the combined
+    result, the summed wall and launches."""
+    parts, wall, launches = [], 0.0, {}
+    for name, gas, lsolar, lthermal in calls:
+        res, w, l = spectral_solve(spec, lwc, cuda_ops, f"{label} {name}", report_chunks,
+                                   gas=gas, lsolar=lsolar, lthermal=lthermal)
+        parts.append(res)
+        wall += w
+        launches = {k: launches.get(k, 0) + v for k, v in l.items()}
+    return combine(parts), wall, launches
+
+
+def phase_gas_optics(cuda_ops, opp, seed, smi):
+    """Phase 18: phase 12's scene and solver set-up at 256 x 256 with the
+    RRTMG_SW (+ ecCKD LW) and the repwvl spectra, a fresh solver each: a
+    cold step and a perturbed step (the cloud field rolled by one cell)."""
+    out = {}
+    for which in GAS_SETS:
+        calls = gas_calls(which)
+        spec = make_spectral_solver(NX, NY, seed, opp)
+        solver, atm, lwc, _ = spec
+        label = f"gas optics {which}"
+        ngpt = {n: int(g.solar(atm).tau.shape[0] if ls else g.thermal(atm).tau.shape[0])
+                for n, g, ls, _ in calls}
+        log(f"{label}: {NX}x{NY}x{NZ}, atm_collapse {K_COLLAPSE}, chunks of {CHUNK}, "
+            f"specint_cache f32, g-points {ngpt}")
+        torch.cuda.reset_peak_memory_stats()
+        cuda_ops.reset_launch_counts()
+        _, cold, _ = spectral_step(spec, lwc, calls, cuda_ops, f"{label} cold")
+        lwc = np.roll(lwc, 1, axis=1)
+        res, pert, _ = spectral_step(spec, lwc, calls, cuda_ops, f"{label} perturbed")
+        launches = dict(cuda_ops.LAUNCHES)
+        log(f"{label}: cold {cold * 1e3:.1f} ms, perturbed {pert * 1e3:.1f} ms = "
+            f"{NX * NY / pert:.1f} columns/s ({smi}); launches {launches}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check_spectral_result(label, res, atm, lwc, solar_weight(calls, atm))
+        for name in ("fused_A_dots", "orbit_contract"):
+            if launches[name] == 0:
+                raise AssertionError(f"{label}: kernel {name} was not launched")
+        out[which] = tuple(float(a.mean()) for a in (res.eup[0], res.edn[-1], res.edir[-1]))
+        del spec, solver, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def oned_specint(solver, atm, lwc, calls, label=None):
+    """One radiation step of `calls` through specint_pprts on a 1-D solver:
+    the combined result and its wall."""
+    from tenstream_tpu_torch.spectral import specint_pprts
+
+    if solver.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = combine([specint_pprts(solver, atm, albedo=0.15, lthermal=lthermal, lsolar=lsolar,
+                                 specint=gas, lwc=lwc, band_chunk=CHUNK)
+                   for _, gas, lsolar, lthermal in calls])
+    if solver.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if label is not None:
+        check_finite(label, res)
+    return res, wall
+
+
+def crop_errors(outs):
+    """Max |card - CPU| of each field, and of the fluxes over their largest
+    magnitude."""
+    errs = [(a - b).abs().max().item() for a, b in zip(*outs)]
+    rel = max(e / max(b.abs().max().item(), 1e-30) for e, b in zip(errs[:-1], outs[1]))
+    return errs, rel
+
+
+def card_vs_cpu(label, run):
+    """`run(device)` on a 16 x 16 crop, on the card and on the CPU (the port
+    on both): fluxes within CROP_FLUX_RTOL of their largest magnitude,
+    absorption within CROP_ABSO_ATOL; TF32 or the device's linear algebra
+    would show here."""
+    outs = [tuple(a.cpu() for a in run(dev) if a is not None) for dev in ("cuda", "cpu")]
+    errs, rel = crop_errors(outs)
+    log(f"{label} {CROP}x{CROP} crop, card vs CPU: max abs "
+        + ", ".join(f"{e:.3e}" for e in errs[:-1]) + f" W/m2 ({rel:.2e} of the largest flux), "
+        f"abso {errs[-1]:.3e} W/m3")
+    if rel > CROP_FLUX_RTOL or errs[-1] > CROP_ABSO_ATOL:
+        raise AssertionError(f"{label}: card and CPU differ on the crop (flux rtol "
+                             f"{CROP_FLUX_RTOL}, abso atol {CROP_ABSO_ATOL})")
+    return outs[1]
+
+
+def oned_solver(solver_type, nz, nx, ny, dz, dx, device, sun):
+    from tenstream_tpu_torch.pprts.grid import Grid
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    s = PprtsSolver(Grid.create(nz, nx, ny, dx, dx, dz, device=device), solver_type=solver_type)
+    s.set_angles(sundir_from_angles(*sun))
+    return s
+
+
+def phase_oned(seed, smi, means_3d):
+    """Phase 19: the 1-D solvers.  (a) 2str through specint_pprts with
+    RRTMG_SW 112 + ecCKD 32 LW on phase 18's scene at 256 x 256; (b) a
+    Schwarzschild thermal solve and a DISORT solar+thermal solve of phase
+    4's band at 256 x 256; (c) DISORT through specint_pprts with ecCKD 32 +
+    32 at 64 x 64.  Each also on a 16 x 16 crop on the card and on the CPU."""
+    atm, lwc = build_bench_atm(NX, NY, seed)
+    lwc = np.roll(lwc, 1, axis=1)  # phase 18's perturbed field
+    dz = atm.dz.astype(np.float32)
+    calls = gas_calls("rrtmg_sw")
+    mu_spec = float(np.cos(np.deg2rad(SPECTRAL_SUN[1])))
+
+    # (a) the example's flow at bench width
+    torch.cuda.reset_peak_memory_stats()
+    solver = oned_solver("2str", atm.nlay, NX, NY, dz, 100.0, "cuda", SPECTRAL_SUN)
+    oned_specint(solver, atm, lwc, calls, "2str warm-up")
+    res, wall = oned_specint(solver, atm, lwc, calls, "2str rrtmg_sw")
+    log(f"oned 2str rrtmg_sw 112 + ecCKD {NGPT} LW at {NX}x{NY}x{NZ}: wall {wall * 1e3:.1f} ms = "
+        f"{NX * NY / wall:.1f} columns/s ({smi}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check_toa("oned 2str rrtmg_sw", res.edir, solar_weight(calls, atm), mu_spec)
+    m2 = tuple(float(a.mean()) for a in (res.eup[0], res.edn[-1], res.edir[-1]))
+    m3 = means_3d["rrtmg_sw"]
+    log(f"oned 2str vs 3_10 (phase 18 rrtmg_sw, perturbed step), domain means: TOA up {m2[0]:.3f}"
+        f" vs {m3[0]:.3f}, surface diffuse down {m2[1]:.3f} vs {m3[1]:.3f}, surface edir "
+        f"{m2[2]:.3f} vs {m3[2]:.3f} W/m2 (not gated)")
+    c = min(CROP, NX)
+    card_vs_cpu("oned 2str rrtmg_sw", lambda dev: oned_specint(
+        oned_solver("2str", atm.nlay, c, c, dz, 100.0, dev, SPECTRAL_SUN), atm,
+        lwc[:, :c, :c], calls)[0])
+    del solver, res
+
+    # (b) phase 4's band: Schwarzschild (thermal), DISORT (solar + thermal)
+    dz4, kabs, ksca, g, planck = build_scene(NX, NY, seed)
+    mu4 = float(np.cos(np.deg2rad(SUN[1])))
+    results = {}
+    for st, lsolar in (("schwarzschild", False), ("disort", True), ("2str", True)):
+        def band(dev, n=NX, st=st, lsolar=lsolar):
+            s = oned_solver(st, dz4.size, n, n, dz4, 100.0, dev, SUN)
+            s.set_optical_properties(0.15, *(a[:, :n, :n] for a in (kabs, ksca, g)),
+                                     planck=planck[:, :n, :n])
+            s.solve(lthermal=True, lsolar=lsolar, edirTOA=1000.0)
+            return s.get_result()
+
+        torch.cuda.reset_peak_memory_stats()
+        band("cuda")  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = band("cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_finite(f"oned {st} band", out)
+        results[st] = out
+        log(f"oned {st} band {'solar+thermal' if lsolar else 'thermal'} at {NX}x{NY}x{NZ}: wall "
+            f"{wall * 1e3:.1f} ms; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; TOA up "
+            f"{out[2][0].mean().item():.3f}, surface down {out[1][-1].mean().item():.3f} W/m2")
+        if lsolar:
+            check_toa(f"oned {st} band", out[0], np.array([1000.0]), mu4)
+        if st != "2str":
+            cpu = card_vs_cpu(f"oned {st} band", lambda dev: band(dev, min(CROP, NX)))
+        if st == "disort":
+            # the control: DISORT's products with TF32 allowed, against the CPU
+            import tenstream_tpu_torch.ops.disort as disort_mod
+
+            saved = disort_mod._true_float32, torch.backends.cuda.matmul.allow_tf32
+            disort_mod._true_float32 = contextlib.nullcontext
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = tuple(a.cpu() for a in band("cuda", min(CROP, NX)))
+            finally:
+                disort_mod._true_float32, torch.backends.cuda.matmul.allow_tf32 = saved
+            errs, rel = crop_errors((tf32, cpu))
+            log(f"oned disort band crop with TF32 allowed (the control), card vs CPU: "
+                f"{rel:.2e} of the largest flux, abso {errs[-1]:.3e} W/m3 (gate {CROP_FLUX_RTOL}: "
+                f"{'caught' if rel > CROP_FLUX_RTOL else 'not caught'}; not gated)")
+    d, t = results["disort"], results["2str"]
+    log(f"oned DISORT-{2 * DISORT_STREAMS} vs 2str, phase 4's band, domain means: TOA up "
+        f"{d[2][0].mean().item():.3f} vs {t[2][0].mean().item():.3f}, surface down "
+        f"{d[1][-1].mean().item():.3f} vs {t[1][-1].mean().item():.3f} W/m2 (not gated)")
+    del results, d, t
+    mats = torch.eye(8, device="cuda") - 0.1 * torch.rand((NZ * NX * NY, 8, 8), device="cuda")
+    rhs = torch.rand((NZ * NX * NY, 8, 1), device="cuda")
+    inv_ms = cuda_ms(lambda: torch.linalg.inv(mats), 3)
+    solve_ms = cuda_ms(lambda: torch.linalg.solve(mats, rhs), 3)
+    log(f"oned: batched torch.linalg.inv of {NZ * NX * NY} 8x8 float32 matrices {inv_ms:.3f} ms, "
+        f"torch.linalg.solve with one right-hand side {solve_ms:.3f} ms ({smi})")
+    del mats, rhs
+
+    # (c) DISORT through specint_pprts, ecCKD 32 + 32 at 64 x 64
+    from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
+
+    atm64, lwc64 = build_bench_atm(64, 64, seed)
+    ck = [(f"ecCKD {NGPT}+{NGPT}", EcckdGasOptics(n_gpt=NGPT), True, True)]
+    torch.cuda.reset_peak_memory_stats()
+    dz = atm64.dz.astype(np.float32)
+    solver = oned_solver("disort", atm64.nlay, 64, 64, dz, 100.0, "cuda", SPECTRAL_SUN)
+    oned_specint(solver, atm64, lwc64, ck, "disort warm-up")
+    res, wall = oned_specint(solver, atm64, lwc64, ck, "disort ecCKD")
+    log(f"oned disort ecCKD {NGPT}+{NGPT} at 64x64x{NZ} ({DISORT_STREAMS} streams per "
+        f"hemisphere): wall {wall * 1e3:.1f} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check_toa("oned disort ecCKD", res.edir, solar_weight(ck, atm64), mu_spec)
+    r2, _ = oned_specint(oned_solver("2str", atm64.nlay, 64, 64, dz, 100.0, "cuda",
+                                     SPECTRAL_SUN), atm64, lwc64, ck)
+    log(f"oned DISORT-{2 * DISORT_STREAMS} vs 2str, ecCKD {NGPT}+{NGPT} at 64x64, domain means: "
+        f"TOA up {res.eup[0].mean().item():.3f} vs {r2.eup[0].mean().item():.3f}, surface down "
+        f"{res.edn[-1].mean().item():.3f} vs {r2.edn[-1].mean().item():.3f} W/m2 (not gated)")
+    c = min(CROP, lwc64.shape[1])
+    card_vs_cpu("oned disort ecCKD", lambda dev: oned_specint(
+        oned_solver("disort", atm64.nlay, c, c, dz, 100.0, dev, SPECTRAL_SUN), atm64,
+        lwc64[:, :c, :c], ck)[0])
+    del solver, res, r2
+    torch.cuda.empty_cache()
+
+
+def phase_gas_optics_parity(cuda_ops, ediff, opp, seed):
+    """Phase 20: phase 18's two spectra at 64 x 64 through K1/K2 and through
+    their plain versions on the card, with phase 13's gates."""
+    for which in GAS_SETS:
+        outs, iters = [], []
+        for plain in (False, True):
+            spec = make_spectral_solver(64, 64, seed, opp)
+            with kernels_or_plain(cuda_ops, ediff, plain):
+                res, _, launches = spectral_step(
+                    spec, spec[2], gas_calls(which), cuda_ops,
+                    f"gas optics parity {which} " + ("plain" if plain else "kernels"),
+                    report_chunks=False)
+            if plain != (launches["fused_A_dots"] == 0):
+                raise AssertionError(f"gas optics parity {which}: K1 launched where it should "
+                                     "not, or not at all")
+            outs.append(tuple(res))
+            iters.append(_band_niters(spec[0]))
+        _compare_solves(f"gas optics parity {which} 64x64x{NZ} kernels vs plain", outs)
+        _compare_band_niters(f"gas optics parity {which}", iters)
 
 
 def gaussian_hill(nz, nx, ny, dx, ztop, hill_height, hill_sigma):
@@ -1656,6 +1973,10 @@ def main():
     phase_urban_spectral_parity(cuda_ops, ediff, opp, args.seed)
     phase_options(cuda_ops, ediff, opp, args.seed)
     phase_terrain(cuda_ops, ediff, opp)
+    torch.cuda.empty_cache()
+    means_3d = phase_gas_optics(cuda_ops, opp, args.seed, smi)
+    phase_oned(args.seed, smi, means_3d)
+    phase_gas_optics_parity(cuda_ops, ediff, opp, args.seed)
     report["boxmc_trace"] = phase_boxmc(cuda_tracer, lutgen, args.seed)
     launches["boxmc_trace"] = phase_lut(cuda_ops, cuda_tracer, lutgen, LUT, OptProp, Grid,
                                         PprtsSolver, sundir, args.seed)

@@ -1,6 +1,6 @@
-"""Planck emission (port of `b_eff_mu`, `b_eff` and
-`planck_radiance_wavenumber` from `tenstream_tpu/ops/planck.py`;
-reference `src/schwarzschild.F90:36-66`).
+"""Planck emission (port of `tenstream_tpu/ops/planck.py`: `b_eff_mu`,
+`b_eff`, `schwarzschild_radiance_step`, `planck_radiance_wavenumber` and
+`stefan_boltzmann_radiance`; reference `src/schwarzschild.F90:36-79`).
 """
 
 from __future__ import annotations
@@ -8,7 +8,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tenstream_tpu_torch.core.types import C_SPEED_OF_LIGHT, H_PLANCK, K_BOLTZMANN, ireals
+from tenstream_tpu_torch.core.types import (
+    C_SPEED_OF_LIGHT,
+    H_PLANCK,
+    K_BOLTZMANN,
+    PI,
+    STEFAN_BOLTZMANN,
+    ireals,
+)
 
 
 def gauss_legendre_01(n: int):
@@ -59,3 +66,21 @@ def planck_radiance_wavenumber(wvn_lo_cm: float, wvn_hi_cm: float, T, n_quad: in
         out = out + float(np.float32(wi * c1 * nui ** 3)) / torch.expm1(
             float(np.float32(c2 * nui)) / T)
     return out
+
+
+def schwarzschild_radiance_step(L, tau, b_near, b_far):
+    """Radiance L after a layer of slant optical depth tau; b_near is the
+    Planck value at the entry side, b_far at the exit side (reference
+    `schwarzschild_radiance`, `src/schwarzschild.F90:69-79`)."""
+    thin = tau < 1e-3
+    tau_safe = torch.where(thin, torch.ones_like(tau), tau)
+    tm1 = torch.expm1(-tau_safe)
+    full = L * (tm1 + 1.0) + (b_far - b_near) - (b_near - (b_far - b_near) / tau_safe) * tm1
+    lin = 0.5 * (b_near + b_far) * tau + L * (1.0 - tau)
+    return torch.where(thin, lin, full)
+
+
+def stefan_boltzmann_radiance(T):
+    """Total blackbody radiance sigma T^4 / pi [W/m2/sr]."""
+    T = torch.as_tensor(T, dtype=ireals)
+    return STEFAN_BOLTZMANN * T ** 4 / PI

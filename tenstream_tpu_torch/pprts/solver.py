@@ -1,5 +1,9 @@
 """The pprts solver driver: init / set optical properties / solve / result
-(port of `tenstream_tpu/pprts/solver.py`, restricted to the 3-D solve).
+(port of `tenstream_tpu/pprts/solver.py`).
+
+The 1-D solver types ("2str", "schwarzschild", "disort") solve every
+column at once through `pprts/oned.py` and `ops/disort.py` and need no
+OptProp; what follows is the 3-D solve.
 
 A solve runs on a chunk of B bands (lanes) at once, the counterpart of the
 JAX package's `jax.vmap` of its solve program: (atm_collapse) ->
@@ -37,6 +41,7 @@ import torch
 from tenstream_tpu_torch.core.config import Options
 from tenstream_tpu_torch.core.types import PI, TINY, ireals
 from tenstream_tpu_torch.ops.delta_scale import delta_scale
+from tenstream_tpu_torch.ops.disort import disort_fluxes
 from tenstream_tpu_torch.ops.eddington import eddington_coeff_ec
 from tenstream_tpu_torch.ops.planck import b_eff
 from tenstream_tpu_torch.ops.twostream import delta_eddington_twostream
@@ -61,9 +66,13 @@ from tenstream_tpu_torch.pprts.ediff import solve_bicgstab, solve_richardson
 from tenstream_tpu_torch.pprts.edir import inner_iter_policy, solve_edir
 from tenstream_tpu_torch.pprts.geometric import dir2dir_geometric, zlev_from_dz
 from tenstream_tpu_torch.pprts.grid import Grid
+from tenstream_tpu_torch.pprts.oned import solve_schwarzschild_columns, solve_twostream_columns
 from tenstream_tpu_torch.pprts.operators import dir2diff_source, direct_surface_reflection
 from tenstream_tpu_torch.pprts.sources import thermal_source
 from tenstream_tpu_torch.pprts.sun import SunInfo, suninfo_from_sundir
+from tenstream_tpu_torch.streams import get_scheme
+
+_ONED_SOLVERS = ("2str", "schwarzschild", "disort")
 
 # option -> ROADMAP item that ports it: a bool option raises when on, an
 # integer option when it is set at all
@@ -160,21 +169,28 @@ def _validate_optprops(fields: Dict[str, torch.Tensor]) -> None:
 
 
 class PprtsSolver:
-    """3-D solver for one stream scheme (3_10 on the main path)."""
+    """Solver driver.  `solver_type` selects the solver like the
+    reference's `-solver` option: a stream scheme name ("3_10", ...) runs
+    the 3-D solver on the OptProp's tables; "2str" runs delta-Eddington
+    two-stream columns ("schwarzschild", or the option `schwarzschild`,
+    takes the thermal part to Schwarzschild columns) and "disort" the
+    multi-stream columns (`disort_streams` per hemisphere, default 8);
+    the 1-D types need no OptProp."""
 
-    def __init__(self, grid: Grid, optprop: OptProp, options: Optional[Options] = None,
-                 solver_type: Optional[str] = None):
-        if optprop is None or (solver_type or optprop.scheme.name) in (
-                "2str", "disort", "schwarzschild"):
-            raise NotImplementedError(
-                "the 1-D column solvers (2str, disort, schwarzschild) are not ported (ROADMAP M12)")
-        if optprop.device != grid.device:
+    def __init__(self, grid: Grid, optprop: Optional[OptProp] = None,
+                 options: Optional[Options] = None, solver_type: Optional[str] = None):
+        if optprop is not None and optprop.device != grid.device:
             raise ValueError(f"OptProp on {optprop.device}, grid on {grid.device}")
         self.grid = grid
         self.opp = optprop
         self.device = grid.device
-        self.scheme = optprop.scheme
-        self.solver_type = solver_type or self.scheme.name
+        self.solver_type = solver_type or (optprop.scheme.name if optprop else "2str")
+        if optprop is not None:
+            self.scheme = optprop.scheme
+        else:
+            self.scheme = get_scheme("2str")
+            if self.solver_type not in _ONED_SOLVERS:
+                raise ValueError(f"solver_type {self.solver_type!r} needs an OptProp/LUT")
         self.options = options or Options()
         self._refuse_unported_options()
         self.sun: Optional[SunInfo] = None
@@ -184,6 +200,7 @@ class PprtsSolver:
         self._l1d = determine_1d_layers(grid.dz3d, grid.dx,
                                         self.options.get_float("twostr_ratio", 2.0))
         self._buildings: Optional[Buildings] = None
+        self._oned_results: Dict[Any, tuple] = {}  # uid -> (S, edn, eup, abso) of a 1-D solve
         # `specint_pprts` state: the frozen difficulty order per spectrum,
         # each band's (chunk key, row), the x(t-1) of the extrapolation
         self._band_order: Dict[str, np.ndarray] = {}
@@ -511,6 +528,8 @@ class PprtsSolver:
             raise RuntimeError("call set_optical_properties first")
         if lsolar and self.sun is None:
             raise RuntimeError("call set_angles before a solar solve")
+        if self.solver_type in _ONED_SOLVERS:
+            return self._solve_1d(lthermal, lsolar, edirTOA, uid)
         lsolar_eff = bool(lsolar and self.sun.sun_up)
         lthermal_eff = bool(lthermal and self._atm["planck"] is not None)
         if lsolar_eff and lthermal_eff:
@@ -520,6 +539,65 @@ class PprtsSolver:
             self.solutions[uid] = sol
             return sol
         return self._solve_mono(lthermal, lsolar, edirTOA, uid)
+
+    def _solve_1d(self, lthermal, lsolar, edirTOA, uid) -> Solution:
+        """The column solvers (reference `src/pprts.F90:2606-2652` through
+        `src/pprts_1D_solvers.F90`): fluxes in horizontal [W/m2], kept per
+        uid for `get_result`."""
+        atm, g = self._atm, self.grid
+        dz3d = g.dz3d
+        sun_on = bool(lsolar and self.sun is not None and self.sun.sun_up)
+        thermal_on = bool(lthermal and atm["planck"] is not None)
+        lvl = lambda: torch.zeros((g.nz + 1, g.nx, g.ny), dtype=ireals, device=self.device)
+        S = None
+        if self.solver_type == "disort":
+            kext = atm["kabs"] + atm["ksca"]
+            dtau = kext * dz3d
+            w0 = atm["ksca"] / torch.clamp(kext, min=TINY)
+            nstr = self.options.get_int("disort_streams", 8)
+            edn, eup = lvl(), lvl()
+            if sun_on:
+                S_t, edn_s, eup_s = disort_fluxes(dtau, w0, atm["g"], self.sun.mu, float(edirTOA),
+                                                  atm["albedo2d"], nstreams=nstr)
+                # S is in tilted-plane units, the diffuse fluxes horizontal
+                S = S_t * self.sun.mu
+                edn, eup = edn + edn_s, eup + eup_s
+            if thermal_on:
+                _, edn_t, eup_t = disort_fluxes(dtau, w0, atm["g"], None, 0.0, atm["albedo2d"],
+                                                planck=atm["planck"],
+                                                planck_srfc=atm["planck_srfc"], nstreams=nstr)
+                edn, eup = edn + edn_t, eup + eup_t
+            net = (edn - eup) + (S if S is not None else 0.0)
+            abso = (net[:-1] - net[1:]) / dz3d
+        else:
+            edn = eup = None
+            abso = torch.zeros((g.nz, g.nx, g.ny), dtype=ireals, device=self.device)
+            if sun_on:
+                S, edn_s, eup_s, abso_s = solve_twostream_columns(
+                    atm["kabs"], atm["ksca"], atm["g"], dz3d, self.sun.mu, float(edirTOA),
+                    atm["albedo2d"])
+                # tilted -> horizontal units here, so that thermal fluxes
+                # (absolute units) add in the same solve
+                mu = self.sun.mu
+                S, edn, eup, abso = S * mu, edn_s * mu, eup_s * mu, abso + abso_s * mu
+            if thermal_on:
+                if self.options.get_bool("schwarzschild", self.solver_type == "schwarzschild"):
+                    edn_t, eup_t, abso_t = solve_schwarzschild_columns(
+                        atm["kabs"], dz3d, atm["albedo2d"], atm["planck"],
+                        planck_srfc=atm["planck_srfc"])
+                else:
+                    _, edn_t, eup_t, abso_t = solve_twostream_columns(
+                        atm["kabs"], atm["ksca"], atm["g"], dz3d, -1.0, 0.0, atm["albedo2d"],
+                        planck=atm["planck"], planck_srfc=atm["planck_srfc"])
+                edn = edn_t if edn is None else edn + edn_t
+                eup = eup_t if eup is None else eup + eup_t
+                abso = abso + abso_t
+            if edn is None:
+                edn, eup = lvl(), lvl()
+        self._oned_results[uid] = (S, edn, eup, abso)
+        sol = Solution(S, edn, abso, 1.0, 0)
+        self.solutions[uid] = sol
+        return sol
 
     def _solve_mono(self, lthermal, lsolar, edirTOA, uid) -> Solution:
         """A single band: a chunk of one lane."""
@@ -609,6 +687,8 @@ class PprtsSolver:
     def get_result(self, uid: Any = 0):
         """(edir, edn, eup, abso): fluxes in [W/m2] on the (Nz+1, Nx, Ny)
         levels and absorption in [W/m3]; edir is None for thermal-only."""
+        if self.solver_type in _ONED_SOLVERS:
+            return self._oned_results[uid]
         self.check_convergence()
         sol = self.solutions[uid]
         s = self.scheme

@@ -23,8 +23,7 @@ import torch
 
 from tenstream_tpu_torch.atm import DATA_DIR, Atmosphere
 from tenstream_tpu_torch.core.types import GRAV, PI, ireals
-from tenstream_tpu_torch.ops.interp import fractional_index
-from tenstream_tpu_torch.spectral.gasoptics import SpectralOptProps
+from tenstream_tpu_torch.spectral.gasoptics import SpectralOptProps, particle_optprops_gpt
 
 MOLMASS_AIR = 28.9644e-3  # [kg/mol]
 
@@ -240,33 +239,12 @@ class EcckdGasOptics:
     def _ice_tables(self, kind: str):
         return self._particle_tables(kind, "fu-muskatel-rough_ice_scattering.npz")
 
-    @staticmethod
-    def _optprops_gpt(tables, water, reff_um, dz_m, gsel):
-        """(tau, w0, g) per gpt, shapes (ngpt_sel,) + grid, from a
-        condensate content [g/m3] and effective radius [um] on the
-        caller's device (float32, linear in the radius)."""
-        reff_grid, kext_g, w0_g, g_g = tables
-        dev = water.device
-        path = water * 1e-3 * dz_m  # kg/m2
-        fr = fractional_index(torch.as_tensor(np.asarray(reff_grid, np.float32), device=dev),
-                              reff_um.to(ireals))
-        i0 = torch.clamp(torch.floor(fr), 0, len(reff_grid) - 2).to(torch.int64)
-        w = (fr - i0.to(ireals))[None]
-        if not isinstance(gsel, slice):
-            gsel = torch.as_tensor(np.asarray(gsel), device=dev)
-
-        def gi(tbl):
-            t = torch.as_tensor(tbl, device=dev)[gsel]
-            return t[:, i0] * (1 - w) + t[:, i0 + 1] * w
-
-        return gi(kext_g) * path[None], gi(w0_g), gi(g_g)
-
     def cloud_optprops_gpt(self, kind: str, lwc_gm3: torch.Tensor, reff_um: torch.Tensor,
                            dz_m: torch.Tensor, gsel=slice(None)):
         """Per-gpoint water-cloud (tau, w0, g), shapes (ngpt_sel,) + grid."""
-        return self._optprops_gpt(self._cloud_tables(kind), lwc_gm3, reff_um, dz_m, gsel)
+        return particle_optprops_gpt(self._cloud_tables(kind), lwc_gm3, reff_um, dz_m, gsel)
 
     def ice_optprops_gpt(self, kind: str, iwc_gm3: torch.Tensor, reice_um: torch.Tensor,
                          dz_m: torch.Tensor, gsel=slice(None)):
         """Per-gpoint ice-cloud (tau, w0, g), shapes (ngpt_sel,) + grid."""
-        return self._optprops_gpt(self._ice_tables(kind), iwc_gm3, reice_um, dz_m, gsel)
+        return particle_optprops_gpt(self._ice_tables(kind), iwc_gm3, reice_um, dz_m, gsel)

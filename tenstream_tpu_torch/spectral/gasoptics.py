@@ -25,6 +25,7 @@ import torch
 
 from tenstream_tpu_torch.atm import Atmosphere
 from tenstream_tpu_torch.core.types import PI, SOLAR_CONSTANT, STEFAN_BOLTZMANN, ireals
+from tenstream_tpu_torch.ops.interp import fractional_index
 from tenstream_tpu_torch.ops.planck import planck_radiance_wavenumber
 
 
@@ -201,3 +202,27 @@ def cloud_optprops(lwc_gm3: torch.Tensor, reff_um: torch.Tensor,
     reff = torch.clamp(reff_um, min=2.0) * 1e-6
     tau = 1.5 * lwp / (1000.0 * reff)
     return tau, torch.full_like(tau, 0.9985), torch.full_like(tau, 0.86)
+
+
+def particle_optprops_gpt(tables, water: torch.Tensor, reff_um: torch.Tensor,
+                          dz_m: torch.Tensor, gsel=slice(None)):
+    """Per-g-point particle (tau, w0, g), shapes (ngpt_sel,) + grid, from
+    `tables` = (reff grid [um], kext, w0, g), each table (ngpt, nreff), a
+    condensate content [g/m3] and an effective radius [um], on the
+    caller's device: float32, linear in the radius (the ecCKD and RRTMG_SW
+    backends' droplet and ice optics)."""
+    reff_grid, kext_g, w0_g, g_g = tables
+    dev = water.device
+    path = water * 1e-3 * dz_m  # kg/m2
+    fr = fractional_index(torch.as_tensor(np.asarray(reff_grid, np.float32), device=dev),
+                          reff_um.to(ireals))
+    i0 = torch.clamp(torch.floor(fr), 0, len(reff_grid) - 2).to(torch.int64)
+    w = (fr - i0.to(ireals))[None]
+    if not isinstance(gsel, slice):
+        gsel = torch.as_tensor(np.asarray(gsel), device=dev)
+
+    def gi(tbl):
+        t = torch.as_tensor(tbl, dtype=ireals, device=dev)[gsel]
+        return t[:, i0] * (1 - w) + t[:, i0 + 1] * w
+
+    return gi(kext_g) * path[None], gi(w0_g), gi(g_g)

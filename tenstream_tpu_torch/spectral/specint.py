@@ -27,8 +27,13 @@ and positive `max_solution_err` / `max_solution_time`, band chunks whose
 extrapolated absorption error stays small are skipped and their cached
 contribution reused (the adaptive spectral skip).
 
-Not ported (each raises NotImplementedError naming its ROADMAP item): the
-1-D solver types (M12), the rrtmg_sw and repwvl backends (M14).
+On a 1-D solver ("2str", "schwarzschild", "disort") the g-points go through
+the batched column solvers instead (`_specint_1d`): two-stream columns, or
+DISORT columns for "disort", in chunks of `band_chunk` g-points whose sums
+add up in g-point order.  Like the JAX package, "schwarzschild" runs
+two-stream thermal columns here (Schwarzschild is reached through
+`PprtsSolver.solve`), no surface Planck is passed, and `bands`, the warm
+cache and the adaptive skip do not apply.
 """
 
 from __future__ import annotations
@@ -42,9 +47,11 @@ from tenstream_tpu_torch.atm import Atmosphere
 from tenstream_tpu_torch.core.prng import Threefry
 from tenstream_tpu_torch.core.types import PI, ireals
 from tenstream_tpu_torch.ops.delta_scale import delta_scale
+from tenstream_tpu_torch.ops.disort import disort_fluxes
+from tenstream_tpu_torch.ops.twostream import delta_eddington_twostream
 from tenstream_tpu_torch.pprts.adaptive import SolutionErrorTracker, abso_change_maxnorm
 from tenstream_tpu_torch.pprts.buildings import building_incoming_from_fields, face_masks
-from tenstream_tpu_torch.pprts.solver import PprtsSolver, Solution
+from tenstream_tpu_torch.pprts.solver import _ONED_SOLVERS, PprtsSolver, Solution
 from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
 from tenstream_tpu_torch.spectral.gasoptics import (
     GrayGasOptics,
@@ -53,9 +60,11 @@ from tenstream_tpu_torch.spectral.gasoptics import (
     cloud_optprops,
 )
 from tenstream_tpu_torch.spectral.mcica import mcica_subcolumns
+from tenstream_tpu_torch.spectral.repwvl import RepwvlOptics
+from tenstream_tpu_torch.spectral.rrtmg_sw import RrtmgSwOptics
 
-_BACKENDS = {"gray": GrayGasOptics, "synthck": SyntheticCKD, "ecckd": EcckdGasOptics}
-_UNPORTED_BACKENDS = {"rrtmg_sw": "M14", "repwvl": "M14"}
+_BACKENDS = {"gray": GrayGasOptics, "synthck": SyntheticCKD, "ecckd": EcckdGasOptics,
+             "rrtmg_sw": RrtmgSwOptics, "repwvl": RepwvlOptics}
 
 
 class SpectralResult(NamedTuple):
@@ -91,12 +100,63 @@ def resolve_cache_mode(mode: str, ngpt: int, ndiff: int, nz_solve: int, nx: int,
     return "f32" if f32_bytes_total < 1.5e9 else "bf16" if f32_bytes_total < 4e9 else "off"
 
 
-def _refuse_unported(solver, specint):
-    if isinstance(specint, str) and specint in _UNPORTED_BACKENDS:
-        raise NotImplementedError(f"gas optics {specint!r} is not ported "
-                                  f"(ROADMAP {_UNPORTED_BACKENDS[specint]})")
-    if solver.solver_type in ("2str", "schwarzschild", "disort"):
-        raise NotImplementedError("the 1-D spectral path is not ported (ROADMAP M12)")
+def _specint_1d(solver, backend, atm, a2d, lthermal: bool, lsolar: bool, band_chunk: int,
+                fields) -> "SpectralResult":
+    """The spectral integration through the batched column solvers: each
+    chunk of g-points is one more batch dimension of the two-stream (or,
+    for "disort", the DISORT) columns.  `fields(sp, kind, gsel)` gives the
+    chunk's delta-scaled (kabs, ksca, g), each (B, nz, nx, ny)."""
+    grid = solver.grid
+    dev = solver.device
+    dz = grid.dz3d[:, None]  # (nz, 1, nx, ny) against (nz, B, nx, ny)
+    nstr = solver.options.get_int("disort_streams", 8)
+    use_disort = solver.solver_type == "disort"
+    mu = solver.sun.mu if solver.sun is not None else 1.0
+    lanes = lambda a: a.movedim(0, 1)  # g-points to a batch dim after z
+
+    def spectrum(sp: SpectralOptProps, solar: bool):
+        """(S, Edn, Eup, abso) summed over the g-points in chunk order;
+        solar two-stream fluxes still in tilted-plane units."""
+        total = None
+        ngpt = sp.tau.shape[0]
+        for lo in range(0, ngpt, band_chunk):
+            gsel = slice(lo, min(lo + band_chunk, ngpt))
+            kabs, ksca, g = (lanes(a) for a in fields(sp, "sw" if solar else "lw", gsel))
+            kext = kabs + ksca
+            dtau = kext * dz
+            w0 = ksca / torch.clamp(kext, min=1e-30)
+            planck = None
+            if not solar:
+                planck = sp.planck[gsel].to(dev, ireals)
+                planck = lanes(planck[..., None, None].expand(tuple(planck.shape) + (
+                    grid.nx, grid.ny)) if planck.dim() == 2 else planck)
+            toa = sp.weight[gsel].to(dev, ireals)[:, None, None] if solar else 0.0
+            if use_disort:
+                S, Edn, Eup = disort_fluxes(dtau, w0, g, mu if solar else None, toa, a2d[None],
+                                            planck=planck, nstreams=nstr)
+                # S is in tilted-plane units, the diffuse fluxes horizontal
+                S = S * mu if solar else S
+            else:
+                S, Edn, Eup = delta_eddington_twostream(dtau, w0, g, mu if solar else -1.0, toa,
+                                                        a2d[None], planck=planck)
+            net = (S[:-1] - S[1:]) + (Edn[:-1] - Edn[1:]) + (Eup[1:] - Eup[:-1])
+            part = tuple(a.sum(1) for a in (S, Edn, Eup, net / dz))
+            total = part if total is None else tuple(a + b for a, b in zip(total, part))
+        return total
+
+    nz, nx, ny = grid.nz, grid.nx, grid.ny
+    edir = torch.zeros((nz + 1, nx, ny), dtype=ireals, device=dev)
+    edn, eup = torch.zeros_like(edir), torch.zeros_like(edir)
+    abso = torch.zeros((nz, nx, ny), dtype=ireals, device=dev)
+    if lsolar and solver.sun is not None and solver.sun.sun_up:
+        S, Edn, Eup, ab = spectrum(backend.solar(atm), True)
+        scale = 1.0 if use_disort else mu
+        edir, edn, eup, abso = (edir + S * scale, edn + Edn * scale, eup + Eup * scale,
+                                abso + ab * scale)
+    if lthermal:
+        _, Edn, Eup, ab = spectrum(backend.thermal(atm), False)
+        edn, eup, abso = edn + Edn, eup + Eup, abso + ab
+    return SpectralResult(edir, edn, eup, abso)
 
 
 def specint_pprts(
@@ -127,8 +187,9 @@ def specint_pprts(
     """Full-spectrum solve on the solver's device.  The solver's grid
     z-axis must match atm.nlay; sun angles must be set for solar.
 
-    `specint` is a backend name ("ecckd", "synthck", "gray") or a backend
-    object (`EcckdGasOptics(n_gpt=32)`).  lwc/reliq/iwc/reice (nlay, nx,
+    `specint` is a backend name ("ecckd", "rrtmg_sw", "repwvl", "synthck",
+    "gray") or a backend object (`EcckdGasOptics(n_gpt=32)`,
+    `RepwvlOptics(n_wvl=50)`); "rrtmg_sw" is solar only.  lwc/reliq/iwc/reice (nlay, nx,
     ny) default to the atmosphere's fields.  `bands=(lo, hi)` restricts
     the loop to g-points [lo, hi) (a partial spectral integral).
 
@@ -145,7 +206,6 @@ def specint_pprts(
     `specint_band_seed` (seed a cold chunk from the previous chunk) and
     `specint_warm_extrapolate` (x0 = 2 x(t-1) - x(t-2), with the f32
     cache)."""
-    _refuse_unported(solver, specint)
     backend = _BACKENDS[specint]() if isinstance(specint, str) else specint
     grid = solver.grid
     scheme = solver.scheme
@@ -253,6 +313,13 @@ def specint_pprts(
             ge = torch.zeros_like(te) if extra_g is None else tdev(extra_g)
             tau, w0, g = _merge_cloud(tau, w0, g, te[None], we[None], ge[None])
         return delta_scale(*_to_kfields(tau, w0, g, dz3d[None]))
+
+    if solver.solver_type in _ONED_SOLVERS:
+        if buildings is not None:
+            raise ValueError(f"buildings need a 3-D solver (got solver_type="
+                             f"{solver.solver_type!r})")
+        return _specint_1d(solver, backend, atm, a2d, lthermal, lsolar, band_chunk,
+                           batched_fields)
 
     acc: Dict[str, torch.Tensor] = {}
     host_pending: List[tuple] = []

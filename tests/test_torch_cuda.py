@@ -1,6 +1,7 @@
 """The CUDA kernels K1 (`fused_A_dots`), K2 (`orbit_contract`), K3
 (`diffuse_apply_dense`) and K4 (`boxmc_trace`) against their plain PyTorch
-versions, on the card.
+versions, on the card; and the 1-D column solvers (Schwarzschild, DISORT,
+`PprtsSolver`'s 1-D types) on the card against the CPU.
 
 These tests need an NVIDIA GPU (marker `cuda`) and skip without one.  The
 file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -448,3 +449,82 @@ def test_cuda_8_10_solve_through_k1_matches_plain(cuda_device):
     assert sol.niter_diff == psol.niter_diff
     for a, b in zip(res, pres):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _column_fields(nz=9, nx=5, ny=4, seed=21):
+    """Odd nz, several columns, albedo other than 0, a thick anisotropic
+    layer: the 1-D solvers' test scene."""
+    rng = np.random.default_rng(seed)
+    dtau = rng.uniform(0.01, 2.0, (nz, nx, ny)).astype(np.float32)
+    w0 = rng.uniform(0.0, 0.99, (nz, nx, ny)).astype(np.float32)
+    g = rng.uniform(0.0, 0.9, (nz, nx, ny)).astype(np.float32)
+    dtau[4], w0[4], g[4] = 30.0, 0.999, 0.85
+    albedo = rng.uniform(0.05, 0.5, (nx, ny)).astype(np.float32)
+    planck = rng.uniform(50.0, 150.0, (nz + 1, nx, ny)).astype(np.float32)
+    return dtau, w0, g, albedo, planck
+
+
+def _near(a, b, rtol):
+    """|card - CPU| <= rtol x max|CPU| over the field."""
+    a, b = a.cpu(), b.cpu()
+    assert float((a - b).abs().max()) <= rtol * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nstreams", [4, 8])
+def test_cuda_disort_matches_cpu(cuda_device, nstreams):
+    """DISORT's batched inverses, solves and products on the card (in true
+    float32: the process's TF32 setting is left as it was) against the
+    CPU, solar and thermal at once, within 1e-4 of each field's magnitude
+    (the bound the CPU holds against JAX, `tests/test_torch_oned.py`)."""
+    from tenstream_tpu_torch.ops.disort import disort_fluxes
+
+    dtau, w0, g, albedo, planck = _column_fields()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        outs = [disort_fluxes(*(torch.as_tensor(a, device=dev) for a in (dtau, w0, g)), 0.6,
+                              1000.0, torch.as_tensor(albedo, device=dev),
+                              planck=torch.as_tensor(planck, device=dev), nstreams=nstreams)
+                for dev in (cuda_device, "cpu")]
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for a, b in zip(*outs):
+        _near(a, b, 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_schwarzschild_matches_cpu(cuda_device):
+    from tenstream_tpu_torch.ops.schwarzschild import schwarzschild
+
+    dtau, _, _, albedo, planck = _column_fields()
+    outs = [schwarzschild(*(torch.as_tensor(a, device=dev) for a in (dtau * 0.3, albedo, planck)),
+                          nmu=3) for dev in (cuda_device, "cpu")]
+    for a, b in zip(*outs):
+        _near(a, b, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver_type", ["2str", "schwarzschild", "disort"])
+def test_cuda_1d_solver_types_match_cpu(cuda_device, solver_type):
+    """`PprtsSolver` with a 1-D solver type, no OptProp: a solar+thermal
+    solve on the card and on the CPU."""
+    from tenstream_tpu_torch.pprts.grid import Grid
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    dtau, w0, g, albedo, planck = _column_fields(seed=22)
+    dz = np.linspace(50.0, 400.0, dtau.shape[0]).astype(np.float32)
+    kext = dtau / dz[:, None, None]
+    results = []
+    for dev in (cuda_device, "cpu"):
+        s = PprtsSolver(Grid.create(dz.size, dtau.shape[1], dtau.shape[2], 100.0, 100.0, dz,
+                                    device=dev), solver_type=solver_type)
+        s.set_angles(sundir_from_angles(210.0, 35.0))
+        s.set_optical_properties(0.0, kext * (1 - w0), kext * w0, g, planck=planck,
+                                 albedo_2d=albedo)
+        s.solve(lthermal=True, lsolar=True, edirTOA=1000.0)
+        results.append(s.get_result())
+    for a, b in zip(*results):
+        _near(a, b, 1e-4 if solver_type == "disort" else 1e-5)

@@ -244,10 +244,12 @@ def test_unported_options_raise(jlut, opts):
 
 
 def test_unported_entry_points_raise(jlut):
+    """`set_mesh` (ROADMAP M19) raises; the 1-D solver types, which raised
+    here until they were ported, construct (their parity with JAX:
+    `test_torch_oned.py`); bad optical properties raise."""
     opp = OptProp(lut_from_arrays(jlut, "cpu"), device="cpu")
     grid = Grid.create(NZ, NX, NY, 100.0, 100.0, 100.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PprtsSolver(grid, opp, solver_type="2str")
+    assert PprtsSolver(grid, opp, solver_type="2str").solver_type == "2str"
     solver = PprtsSolver(grid, opp)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solver.set_mesh(None)

@@ -272,12 +272,13 @@ def test_thermal_3d_vs_reference(reference_scene):
     ("adaptive", "M13"), ("buildings", "M10 remainder"), ("attached_buildings", "M10 remainder"),
 ])
 def test_unported_options_name_their_roadmap_item(jlut, case, item):
-    """The backends and solver types still to port raise and name their
-    ROADMAP item.  McICA, the adaptive skip and buildings (M13, M10
-    remainder) are ported: their cases run a partial spectrum (two
-    g-points) and give finite fields; their parity with JAX is held in
-    `test_torch_mcica.py`, `test_torch_adaptive.py` and
-    `test_torch_urban_specint.py`."""
+    """Every backend and option of `specint_pprts` that once raised naming
+    its ROADMAP item is ported now: each case runs a partial spectrum (two
+    g-points) and gives finite fields (rrtmg_sw solar only: it has no
+    thermal spectrum).  Their parity with JAX is held in
+    `test_torch_specint_1d.py` and `test_torch_rrtmg_repwvl.py` (M14),
+    `test_torch_mcica.py`, `test_torch_adaptive.py` (M13) and
+    `test_torch_urban_specint.py` (M10 remainder)."""
     from tenstream_tpu_torch.pprts.buildings import Buildings
 
     jatm, lwc = bench_scene(2, 2)
@@ -301,11 +302,7 @@ def test_unported_options_name_their_roadmap_item(jlut, case, item):
         kw["buildings"] = Buildings(solid=solid, albedo=0.2, temp=290.0)
     else:
         ts.set_buildings(Buildings(solid=solid, albedo=0.2, temp=290.0))
-    if item in ("M14", "M12"):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            specint_pprts(ts, atm, albedo=0.15, lthermal=True, lsolar=True, lwc=lwc, **kw)
-        return
-    res = specint_pprts(ts, atm, albedo=0.15, lthermal=True, lsolar=True, lwc=lwc,
+    res = specint_pprts(ts, atm, albedo=0.15, lthermal=case != "rrtmg_sw", lsolar=True, lwc=lwc,
                         bands=(0, 2), **kw)
     assert all(bool(torch.isfinite(a).all()) for a in res)
     if "buildings" in case:
@@ -313,11 +310,20 @@ def test_unported_options_name_their_roadmap_item(jlut, case, item):
 
 
 def test_one_dimensional_solvers_name_their_roadmap_item(jlut):
+    """The 1-D solver types (ROADMAP M12) once raised here; they are ported
+    and run with an OptProp and without one (their parity with JAX:
+    `test_torch_oned.py`, `test_torch_specint_1d.py`)."""
     opp = OptProp(lut_from_arrays(jlut, "cpu"), device="cpu")
     grid = Grid.create(4, 2, 2, 100.0, 100.0, 100.0, device="cpu")
     for st in ("2str", "disort", "schwarzschild"):
-        with pytest.raises(NotImplementedError, match="ROADMAP M12"):
-            PprtsSolver(grid, opp, solver_type=st)
+        for o in (opp, None):
+            s = PprtsSolver(grid, o, solver_type=st)
+            s.set_optical_properties(0.1, np.full((4, 2, 2), 1e-3, np.float32),
+                                     np.full((4, 2, 2), 1e-3, np.float32),
+                                     np.zeros((4, 2, 2), np.float32),
+                                     planck=np.full((5, 2, 2), 100.0, np.float32))
+            s.solve(True, False)
+            assert all(bool(torch.isfinite(a).all()) for a in s.get_result()[1:])
 
 
 def test_jax_atmosphere_converts():
