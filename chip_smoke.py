@@ -117,6 +117,44 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  W/m3), with DISORT's TF32 control printed beside it.
  20. gas optics parity -- phase 18's two spectra at 64 x 64 through K1/K2
                  and through their plain versions: phase 13's gates.
+ 21. kernels by scheme -- K1, K2 and K3 (float32 and bfloat16) of every
+                 instantiation (the table sets of cuda_ops.ORBIT_SCHEMES: 3_10,
+                 3_6, 8_12, 3_16, 8_18, 3_24, 3_30) against their plain
+                 versions, at one band of 39 layers at 256 x 256, at a
+                 ragged batched shape and (K1, K2) at phase 24's band chunk
+                 (4, the 24 layers of the collapsed grid, 256 x 256), timed
+                 there too; at the band each one's time, bound,
+                 plain time and (K2, K3) the one einsum; each instantiation's
+                 registers, shared memory and spills (phase 2's ptxas lines)
+                 and K3's launch configuration.
+ 22. schemes  -- the other cube schemes (3_6, 3_16, 3_24, 3_30, 8_12, 8_16,
+                 8_18), each on its committed test table (tests/data/luts/,
+                 the JAX package's own scheme-test tables: coarse axes, tau
+                 up to 3 and aspect up to 2, so bench.py's cloud and upper
+                 layers are clamped), on phase 4's band at 256 x 256 x 39: a
+                 cold solar+thermal solve and a warm re-solve of the cloud
+                 field rolled one cell.  Prints walls, niter, res/tol, K1/K2
+                 launches and peak memory; gates finite results, res <= 1.5
+                 tol, niter < 3000, K1 and K2 launched (K3 not), and the
+                 JAX end-to-end energy balance of the solar part within 6%
+                 of the incoming beam.
+ 23. schemes parity -- each of those schemes on the 64 x 64 cloud scene
+                 through K1/K2, through their plain versions and on dense
+                 coefficients through K3: fluxes within 0.1 W/m2, absorption
+                 within 1e-4 W/m3, iterations per sub-solve within 4 of
+                 the plain versions' and within 12 of the orbit solve's
+                 (printed; NITER_SLACK says why not equal).
+ 24. spectral 3_30 -- phase 12's full-spectrum run (ecCKD 32 + 32, bench.py's
+                 scene at 256 x 256 x 39, atm_collapse 16, specint_cache
+                 f32) on a 3_30 solver with its test table in band chunks of
+                 4 (at 8 the cold call does not fit the card): a cold call
+                 and one perturbed step; walls, columns/s, niter per chunk,
+                 K1/K2 launches, peak memory; phase 12's gates, with every
+                 cloud cell exempt from the heating-rate bound where the
+                 clouds' solar w0 lies above the table's w0 axis (printed):
+                 the test table's axes end at w0 0.9, so its clouds absorb
+                 some 200-400 K/day, as the JAX package's do on the same
+                 table (tools/torch_heating_rates.py --lut).
  10. boxmc    -- K4 boxmc_trace, the BoxMC photon tracer: one launch of 4096
                  entries drawn with --seed from the production diffuse grid
                  for the orbit-representative sources 0 and 2 and one from
@@ -144,11 +182,14 @@ digests recorded from the earlier K4 design, and phase 3 holds K3's
 outputs at every (type, shape) it checks against digests recorded from
 the first K3 design: they must be equal bit for bit.
 
-The phases run in the order 1-8, 12, 13, 9, 14-20, 10, 11.  Each path resets
+The phases run in the order 1-8, 12, 13, 9, 14-24, 10, 11.  Each path resets
 the kernel launch counts before it runs and reads them after; the kernels
 JSON takes K1's and K2's launches from phase 12 (the main path), K3's from
 phase 14 (the urban spectral path, where its entry is timed) and K4's from
-the LUT pass.  The line before the last is a JSON
+the LUT pass; under "instantiations" K1-K3 list each table set or dof
+count with its phase-21 time and bound and its launches (3_10's on the
+paths above, the others' in phase 22 for K1/K2 and in phase 23's dense
+solves for K3; 3_30's K1/K2 also under "launches_spectral", phase 24's).  The line before the last is a JSON
 object describing each kernel; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -157,6 +198,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import glob
 import hashlib
 import json
 import os
@@ -204,9 +246,9 @@ SUN_MOVED = (253.0, 37.0)  # the urban warm solve's sun
 CSRC = "tenstream_tpu_torch/csrc/"
 # wrapper name -> (tag, CUDA source, line of the kernel in it, TPU kernel it replaces)
 KERNELS = {
-    "fused_A_dots": ("K1", CSRC + "orbit_ops.cu", 163, "tenstream_tpu/pprts/pallas_ops.py:264"),
-    "orbit_contract": ("K2", CSRC + "orbit_ops.cu", 90, "tenstream_tpu/pprts/pallas_ops.py:100"),
-    "diffuse_apply_dense": ("K3", CSRC + "dense_ops.cu", 159,
+    "fused_A_dots": ("K1", CSRC + "orbit_ops.cu", 199, "tenstream_tpu/pprts/pallas_ops.py:264"),
+    "orbit_contract": ("K2", CSRC + "orbit_ops.cu", 133, "tenstream_tpu/pprts/pallas_ops.py:100"),
+    "diffuse_apply_dense": ("K3", CSRC + "dense_ops.cu", 191,
                             "tenstream_tpu/pprts/pallas_ops.py:64"),
     "boxmc_trace": ("K4", CSRC + "boxmc_ops.cu", 189, "tenstream_tpu/boxmc/pallas_tracer.py:118"),
 }
@@ -465,7 +507,11 @@ def ptxas_report(cuda_ops) -> list:
                     m = re.search(r"_cu_[0-9a-f]{8}(\d+)", fn)  # <len><name> in the mangling
                     if m:
                         end = m.end() + int(m.group(1))
-                        fn = fn[m.end():end] + (fn[end:end + 14] if fn[end:end + 1] == "I" else "")
+                        targs = ""  # the template arguments, up to the end of the list
+                        if fn[end:end + 1] == "I":
+                            stop = fn.find("EEv", end)
+                            targs = fn[end:stop + 1] if stop > 0 else fn[end:end + 40]
+                        fn = fn[m.end():end] + targs
                     lines.append(f"{src} {fn}: {ln.split(':', 1)[1].strip()}; {spill}")
                     fn = None
     return lines
@@ -480,13 +526,14 @@ def phase_build(cuda_ops):
     log(f"build: kernels built and loaded in {time.time() - t0:.1f} s")
     for ln in lines:
         log(f"build ptxas {ln}")
+    return lines
 
 
-def _k_inputs(B, nz, nx, ny, norb, seed):
+def _k_inputs(B, nz, nx, ny, norb, seed, nd=10):
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *s: torch.rand(s, device="cuda", generator=g)
-    return (r(B, norb, nz, nx, ny) * 0.1, r(B, 10, nz + 1, nx, ny), r(B, 10, nz + 1, nx, ny),
-            r(B, nx, ny) * 0.8, r(B, 10, nz, nx, ny))
+    return (r(B, norb, nz, nx, ny) * 0.1, r(B, nd, nz + 1, nx, ny), r(B, nd, nz + 1, nx, ny),
+            r(B, nx, ny) * 0.8, r(B, nd, nz, nx, ny))
 
 
 def _kernel_cost(cuda_ops, scheme, idx, B, nz, nx, ny, norb):
@@ -585,11 +632,11 @@ def phase_kernels(cuda_ops, scheme, idx, nx, ny):
     return report
 
 
-def k3_inputs(B, nz, nx, ny, dtype, seed):
+def k3_inputs(B, nz, nx, ny, dtype, seed, nd=10):
     """Phase 3's K3 inputs: coefficients in [0, 0.1) as `dtype`, sources in [0, 1)."""
     g = torch.Generator(device="cuda").manual_seed(seed + nz + nx)
-    c = (torch.rand((B, 10, 10, nz, nx, ny), device="cuda", generator=g) * 0.1).to(dtype)
-    x = torch.rand((B, 10, nz + 1, nx, ny), device="cuda", generator=g)
+    c = (torch.rand((B, nd, nd, nz, nx, ny), device="cuda", generator=g) * 0.1).to(dtype)
+    x = torch.rand((B, nd, nz + 1, nx, ny), device="cuda", generator=g)
     return c, x
 
 
@@ -1033,7 +1080,7 @@ def _band_niters(solver) -> dict:
 
 
 def spectral_solve(spec, lwc, cuda_ops, label, report_chunks=True, gas=None, lsolar=True,
-                   lthermal=True, **kw):
+                   lthermal=True, chunk=CHUNK, **kw):
     """One spectral call through `specint_pprts` (`kw`: its other inputs;
     `gas` in place of the spec's backend): its wall, its kernel launches,
     the per-chunk iterations and the lane checks."""
@@ -1044,7 +1091,7 @@ def spectral_solve(spec, lwc, cuda_ops, label, report_chunks=True, gas=None, lso
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = specint_pprts(solver, atm, albedo=0.15, lthermal=lthermal, lsolar=lsolar,
-                        specint=spec_gas if gas is None else gas, lwc=lwc, band_chunk=CHUNK,
+                        specint=spec_gas if gas is None else gas, lwc=lwc, band_chunk=chunk,
                         **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1133,10 +1180,11 @@ def check_toa(label, edir, weight, mu):
         raise AssertionError(f"{label}: TOA edir {toa} differs from {want} by more than 1%")
 
 
-def check_spectral_result(label, res, atm, lwc, weight, K=K_COLLAPSE):
+def check_spectral_result(label, res, atm, lwc, weight, K=K_COLLAPSE, exempt_clouds=False):
     """Phase 12's gates on a solar+thermal result of bench.py's scene: the
     TOA edir, and heating rates finite and below HR_MAX outside the cloud
-    tops."""
+    tops (outside every cloud cell with `exempt_clouds`: a table whose axes
+    cannot represent the clouds, phase 24)."""
     check_toa(label, res.edir, weight, float(np.cos(np.deg2rad(SPECTRAL_SUN[1]))))
     hr = heating_rates(res, atm, K)
     # cloud-top cells (cloud under clear air) cool through their top face by
@@ -1144,17 +1192,19 @@ def check_spectral_result(label, res, atm, lwc, weight, K=K_COLLAPSE):
     # at 64x64 (tools/torch_heating_rates.py): every other cell stays below
     cloud = torch.as_tensor(lwc[max(K - 1, 0):] > 0, device=hr.device)
     top = cloud[1:] & ~cloud[:-1]
+    exempt = cloud[1:] if exempt_clouds else top
+    what = "cloud" if exempt_clouds else "cloud-top"
     hr_lay = hr[1:].abs()
     k, i, j = np.unravel_index(int(hr.abs().argmax()), tuple(hr.shape))
-    hr_other = max(hr_lay[~top].max().item(), hr[0].abs().max().item())
+    hr_other = max(hr_lay[~exempt].max().item(), hr[0].abs().max().item())
     log(f"{label}: heating rates max |{hr.abs().max().item():.2f}| K/day at solve layer {k} "
-        f"({i}, {j}); cloud-top cells up to {hr_lay[top].max().item():.2f} K/day "
-        f"({int((hr_lay[top] > HR_MAX).sum())} of {int(top.sum())} above {HR_MAX:.0f}), every "
-        f"other cell up to {hr_other:.2f} K/day; column mean at the surface layer "
+        f"({i}, {j}); {what} cells up to {hr_lay[exempt].max().item():.2f} K/day "
+        f"({int((hr_lay[exempt] > HR_MAX).sum())} of {int(exempt.sum())} above {HR_MAX:.0f}), "
+        f"every other cell up to {hr_other:.2f} K/day; column mean at the surface layer "
         f"{hr[-1].mean().item():.3f} K/day")
     if not (bool(torch.isfinite(hr).all()) and hr_other < HR_MAX):
         raise AssertionError(f"{label}: heating rates non-finite or above {HR_MAX} K/day "
-                             "outside the cloud tops")
+                             f"outside the {what} cells")
 
 
 def phase_spectral_parity(cuda_ops, ediff, opp, seed):
@@ -1930,6 +1980,332 @@ def phase_lut(cuda_ops, ct, L, LUT, OptProp, Grid, PprtsSolver, sundir, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the other cube schemes (phases 21-24)
+# ---------------------------------------------------------------------------
+
+# this slice's schemes; each runs on its committed test table (the table the JAX
+# package's own scheme tests use: tests/data/luts/LUT_<scheme>_*.npz)
+SCHEMES = ("3_6", "3_16", "3_24", "3_30", "8_12", "8_16", "8_18")
+SCHEME_LUT_DIR = os.path.join(REPO, "tests", "data", "luts")
+WIDE_FIELD_ATOL = 1e-5  # random fields at more than 10 dofs: up to 30 groups per dst
+BALANCE_RTOL = 0.06  # of the incoming beam: the JAX end-to-end gate (tests/test_scheme_e2e_all.py)
+# iterations per sub-solve, by comparison: the float32 sums of the larger contractions
+# round differently, and a BiCGStab residual that creeps along its tolerance crosses it a
+# few steps earlier or later.  Over seeds 7-14 the largest gap was 2 for kernels against
+# plain versions (in 56 scheme-seed pairs) and 6 for dense against orbit (3_30's thermal
+# solve at seed 10: 21 against 15, fields within 6.5e-3 W/m2; PERF.md section 6): each slack is
+# twice its largest reading
+NITER_SLACK = {("kernels", "plain"): 4, ("dense", "kernels"): 12}
+SPECTRAL_SCHEME = "3_30"  # phase 24's scheme: the widest
+# phase 24's band chunk: at 8 its cold call runs out of the card's 80 GB (61.8 GiB in use at
+# the failing allocation, PERF.md section 4)
+SCHEME_CHUNK = 4
+
+
+def scheme_opp(name, OptProp, LUT):
+    """An OptProp on the scheme's committed test table, on the card."""
+    (path,) = glob.glob(os.path.join(SCHEME_LUT_DIR, f"LUT_{name}_*.npz"))
+    opp = OptProp(LUT.load(path, device="cuda"), device="cuda")
+    if opp._solver_orbit_idx is None:
+        raise AssertionError(f"{name}: the test table is not symmetrized (no orbit path)")
+    return opp
+
+
+def phase_kernels_by_scheme(cuda_ops, ptx, seed):
+    """Phase 21: K1, K2 and K3 (float32 and bfloat16) of every instantiation
+    against their plain versions on the card, at one band of 39 layers at
+    256 x 256 and at a ragged batched shape, K1 and K2 also at phase 24's
+    band chunk; times, bounds, plain times and (K2, K3) the one einsum at the
+    band; registers, shared memory and spills."""
+    from tenstream_tpu_torch.optprop.facade import diff_pair_orbits
+    from tenstream_tpu_torch.streams import get_scheme
+
+    rows = {}
+    for name in cuda_ops.ORBIT_SCHEMES:
+        scheme = get_scheme(name)
+        idx, norb = diff_pair_orbits(scheme, with_mz=False)
+        nd = scheme.ndiff
+        atol = FIELD_ATOL if nd <= 10 else WIDE_FIELD_ATOL
+        row = {"scheme": name, "nd": nd, "norb": norb}
+        for ln in ptx:  # this table set's K1 and K2, and K3 at its dof count
+            if f"Orbit_{name}E" in ln or f"Li{nd}ELb" in ln:
+                log(f"schemes kernels {name} ptxas {ln}")
+        for (B, z, x, y, tag) in ((1, NZ, NX, NY, "band"), (SCHEME_CHUNK, NZ_SOLVE, NX, NY, "chunk"),
+                                  (3, 7, 33, 65, "ragged")):
+            orb, u, w, alb, src = _k_inputs(B, z, x, y, norb, seed + z + x + nd, nd)
+            k1, k2 = (scheme, idx, orb, u, w, alb), (scheme, idx, orb, src)
+            Au, dots = cuda_ops.fused_A_dots(*k1)
+            Au_p, dots_p = cuda_ops.fused_A_dots_plain(*k1)
+            c = cuda_ops.orbit_contract(*k2)
+            c_p = cuda_ops.orbit_contract_plain(idx, orb, src)
+            torch.cuda.synchronize()
+            e1 = (Au - Au_p).abs().max().item()
+            d1 = ((dots - dots_p).abs() / dots_p.abs()).max().item()
+            e2 = (c - c_p).abs().max().item()
+            del Au, Au_p, c
+            log(f"schemes kernels {name} (nd {nd}, norb {norb}) {tag} B={B} nz={z} nx={x} ny={y}: "
+                f"K1 max abs {e1:.3e}, dots rel {d1:.3e}; K2 max abs {e2:.3e}")
+            if not (e1 <= atol and d1 <= DOT_RTOL and e2 <= atol):
+                raise AssertionError(f"schemes kernels {name}: a kernel disagrees with its plain "
+                                     f"version at the {tag} shape (field atol {atol}, dot rtol "
+                                     f"{DOT_RTOL})")
+            if tag == "band":
+                cost = _kernel_cost(cuda_ops, scheme, idx, B, z, x, y, norb)
+                M = _orbit_group_tensor(cuda_ops, idx, norb)
+                orb3, src3 = orb.view(B, norb, -1), src.view(B, nd, -1)
+                lib_err = (torch.einsum("dos,boc,bsc->bdc", M, orb3, src3).view_as(c_p)
+                           - c_p).abs().max().item()
+                if not lib_err <= atol:
+                    raise AssertionError(f"schemes kernels {name}: the K2 einsum disagrees")
+                row["fused_A_dots"] = _report_entry(
+                    f"fused_A_dots {name}", e1, cuda_ms(lambda: cuda_ops.fused_A_dots(*k1), 10),
+                    cuda_ms(lambda: cuda_ops.fused_A_dots_plain(*k1), 2), *cost["fused_A_dots"])
+                row["orbit_contract"] = _report_entry(
+                    f"orbit_contract {name}", e2, cuda_ms(lambda: cuda_ops.orbit_contract(*k2), 10),
+                    cuda_ms(lambda: cuda_ops.orbit_contract_plain(idx, orb, src), 2),
+                    *cost["orbit_contract"],
+                    cuda_ms(lambda: torch.einsum("dos,boc,bsc->bdc", M, orb3, src3), 2))
+                del M, orb3, src3
+            if tag == "chunk":  # phase 24's shape: a band chunk on the collapsed solve grid
+                cost = _kernel_cost(cuda_ops, scheme, idx, B, z, x, y, norb)
+                for kname, fn in (("fused_A_dots", lambda: cuda_ops.fused_A_dots(*k1)),
+                                  ("orbit_contract", lambda: cuda_ops.orbit_contract(*k2))):
+                    ms = cuda_ms(fn, 10)
+                    bound = cost[kname][0] / HBM_BYTES_PER_S * 1e3
+                    log(f"kernels timing {kname} {name} at B={B} nz={z}: {ms:.4f} ms (bound "
+                        f"{bound:.4f} ms by bytes, {100 * bound / ms:.1f}% of the bound's rate)")
+                    row[kname].update(chunk_ms=ms, chunk_bound_ms=bound)
+            del orb, u, w, alb, src, c_p
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            cfg = cuda_ops.dense_launch_config(dtype, nd)
+            log(f"schemes kernels {name} K3 launch {tag}: {cfg['threads']} threads and "
+                f"{cfg['smem_bytes']} bytes of shared memory per block, {cfg['blocks_per_sm']} "
+                f"blocks per SM")
+            for (B, z, x_, y) in ((1, NZ, NX, NY), (3, 7, 13, 130)):
+                c, x = k3_inputs(B, z, x_, y, dtype, seed, nd)
+                out = k3_on_nan(cuda_ops, scheme, c, x)
+                ref = cuda_ops.diffuse_apply_dense_plain(scheme, c, x)
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                del out, ref
+                log(f"schemes kernels {name} K3 {tag} B={B} nz={z} nx={x_} ny={y}: max abs {err:.3e}")
+                if not err <= atol:
+                    raise AssertionError(f"schemes kernels {name}: K3 ({tag}) disagrees with its "
+                                         f"plain version (field atol {atol})")
+                if x_ == NX:
+                    ms = cuda_ms(lambda: cuda_ops.diffuse_apply_dense(scheme, c, x), 10)
+                    plain_ms = cuda_ms(lambda: cuda_ops.diffuse_apply_dense_plain(scheme, c, x), 2)
+                    lib_ms = None
+                    if dtype == torch.float32:
+                        src = cuda_ops.gather_diff_src(scheme, x).contiguous()
+                        lib_ms = cuda_ms(lambda: torch.einsum("bsdzxy,bszxy->bdzxy", c, src), 2)
+                        del src
+                    ncell, nface = z * x_ * y, (z + 1) * x_ * y
+                    nbytes = B * (nd * nd * ncell * c.element_size() + 2 * nd * nface * 4)
+                    row[f"diffuse_apply_dense_{tag}"] = _report_entry(
+                        f"diffuse_apply_dense {name} ({tag})", err, ms, plain_ms, nbytes,
+                        B * 2 * nd * nd * ncell, lib_ms)
+                del c, x
+                torch.cuda.empty_cache()
+        rows[name] = row
+    return rows
+
+
+def solar_balance(solver, dz, theta):
+    """|TOA up + column absorption + net surface flux - incoming beam| /
+    incoming of the last solve's solar part (the JAX end-to-end gate)."""
+    sol = solver.solutions[0]
+    solver.solutions[0] = sol._replace(thermal=None)
+    try:
+        edir, edn, eup, abso = solver.get_result()
+    finally:
+        solver.solutions[0] = sol
+    incoming = 1000.0 * float(np.cos(np.deg2rad(theta)))
+    dzt = torch.as_tensor(dz, device=abso.device)[:, None, None]
+    balance = (eup[0].mean() + (abso * dzt).sum(0).mean()
+               + (edir[-1] + edn[-1] - eup[-1]).mean()).item()
+    return abs(balance - incoming) / incoming
+
+
+def phase_schemes(cuda_ops, OptProp, LUT, Grid, PprtsSolver, sundir, seed):
+    """Phase 22: each scheme on phase 4's band at 256 x 256 x 39, a cold
+    solar+thermal solve and a warm re-solve of the cloud field rolled one
+    cell; K1/K2 launches per scheme."""
+    dz = build_scene(NX, NY, seed)[0]
+    launches = {}
+    for name in SCHEMES:
+        opp = scheme_opp(name, OptProp, LUT)
+        solver, fields = make_solver(NX, NY, seed, opp, Grid, PprtsSolver, sundir)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_ops.reset_launch_counts()
+        t0 = time.time()
+        _, cold = solve_and_report(solver, fields, cuda_ops, f"schemes {name} cold")
+        t_cold = time.time() - t0
+        bal = solar_balance(solver, dz, SUN[1])
+        kabs, ksca, g, planck = fields
+        rolled = tuple(np.roll(a, 1, axis=1) for a in (kabs, ksca, g)) + (planck,)
+        t1 = time.time()
+        _, warm = solve_and_report(solver, rolled, cuda_ops, f"schemes {name} warm")
+        t_warm = time.time() - t1
+        got = dict(cuda_ops.LAUNCHES)
+        log(f"schemes {name} (nd {opp.scheme.ndiff}) at {NX}x{NY}x{NZ}: cold {t_cold * 1e3:.1f} ms "
+            f"(bicgstab+polish solar {cold[0]}+{cold[1]}, thermal {cold[2]}+{cold[3]}), warm "
+            f"{t_warm * 1e3:.1f} ms ({warm[0]}+{warm[1]}, {warm[2]}+{warm[3]}); solar energy "
+            f"balance {100 * bal:.4f}% of the incoming beam; launches K1 {got['fused_A_dots']} K2 "
+            f"{got['orbit_contract']} K3 {got['diffuse_apply_dense']}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if max(cold + warm) >= 3000:
+            raise AssertionError(f"schemes {name}: a solve reached 3000 iterations")
+        if not bal < BALANCE_RTOL:
+            raise AssertionError(f"schemes {name}: energy balance off by {100 * bal:.2f}%")
+        if not (got["fused_A_dots"] and got["orbit_contract"]) or got["diffuse_apply_dense"]:
+            raise AssertionError(f"schemes {name}: K1/K2 not launched, or K3 launched")
+        launches[name] = got
+        del solver, opp
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_schemes_parity(cuda_ops, ediff, OptProp, LUT, Grid, PprtsSolver, Options, sundir,
+                         seed):
+    """Phase 23: each scheme's 64 x 64 cloud scene through K1/K2, through
+    their plain versions, and on dense coefficients through K3: the fields
+    within 0.1 W/m2 and 1e-4 W/m3, iterations within NITER_SLACK of each
+    comparison.  Returns
+    K3's launches per scheme."""
+    dense_launches = {}
+    for name in SCHEMES:
+        opp = scheme_opp(name, OptProp, LUT)
+        runs = {}
+        for label, plain, dense in (("kernels", False, False), ("plain", True, False),
+                                    ("dense", False, True)):
+            opts = Options({"pprts_orbit_coeffs": False}, read_env=False) if dense else None
+            solver, fields = make_solver(64, 64, seed, opp, Grid, PprtsSolver, sundir, opts)
+            cuda_ops.reset_launch_counts()
+            with kernels_or_plain(cuda_ops, ediff, plain):
+                runs[label] = solve_and_report(solver, fields, cuda_ops,
+                                               f"schemes parity {name} {label}")
+            got = dict(cuda_ops.LAUNCHES)
+            want = {"kernels": (True, False), "plain": (False, False), "dense": (False, True)}
+            if ((got["fused_A_dots"] > 0, got["diffuse_apply_dense"] > 0) != want[label]
+                    or (got["orbit_contract"] > 0) != want[label][0]):
+                raise AssertionError(f"schemes parity {name} {label}: launches {got}")
+            if dense:
+                dense_launches[name] = got["diffuse_apply_dense"]
+        for a, b in (("kernels", "plain"), ("dense", "kernels")):
+            _compare_solves(f"schemes parity {name} 64x64x{NZ} {a} vs {b}",
+                            (runs[a][0], runs[b][0]))
+            diff = max(abs(p - q) for p, q in zip(runs[a][1], runs[b][1]))
+            slack = NITER_SLACK[(a, b)]
+            log(f"schemes parity {name}: iterations (bicgstab, polish; solar, thermal) {a} "
+                f"{runs[a][1]}, {b} {runs[b][1]}: " + ("equal" if not diff else f"{diff} apart")
+                + f" (slack {slack})")
+            if diff > slack:
+                raise AssertionError(f"schemes parity {name}: iterations differ by more than "
+                                     f"{slack}, {a} {runs[a][1]} vs {b} {runs[b][1]}")
+        del opp, runs
+    return dense_launches
+
+
+def clouds_beyond_table(opp, gas, atm, lwc):
+    """(beyond, cloud w0, the table's last w0): whether the clouds' solar
+    single-scattering albedo (droplet optics at 10 um, delta-scaled as the
+    solver's lookup sees it, the median over the cloud cells of each
+    g-point, averaged over the g-points with the solar weights) lies above
+    the last w0 of the table's axes, where the lookup clamps it."""
+    cloud = lwc > 0
+    dz = np.broadcast_to(atm.dz[:, None, None], lwc.shape)[cloud]
+    lw = torch.as_tensor(lwc[cloud], device="cuda")
+    _, w0, g = gas.cloud_optprops_gpt("sw", lw, torch.full_like(lw, 10.0),
+                                      torch.as_tensor(dz, dtype=lw.dtype, device="cuda"))
+    f = g * g
+    w0_cloud = (w0 * (1 - f) / (1 - w0 * f)).median(dim=1).values
+    weight = gas.solar(atm).weight.to(w0_cloud)
+    w0_cloud = float((w0_cloud * weight).sum() / weight.sum())
+    top = float(max(opp.lut.dir_axes.w0.max(), opp.lut.diff_axes.w0.max()))
+    return w0_cloud > top, w0_cloud, top
+
+
+def phase_spectral_scheme(cuda_ops, OptProp, LUT, seed, smi):
+    """Phase 24: phase 12's full-spectrum run (ecCKD 32 + 32 on bench.py's
+    scene at 256 x 256, atm_collapse, the f32 warm cache) on a 3_30 solver
+    in band chunks of SCHEME_CHUNK: a cold call and one perturbed step."""
+    opp = scheme_opp(SPECTRAL_SCHEME, OptProp, LUT)
+    label = f"spectral {SPECTRAL_SCHEME}"
+    log(f"{label}: band chunks of {SCHEME_CHUNK}; chunks of {CHUNK} do not fit the card's 80 GB "
+        f"(61.8 GiB in use at the failing allocation, PERF.md section 4)")
+    spec = make_spectral_solver(NX, NY, seed, opp)
+    solver, atm, lwc, gas = spec
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launch_counts()
+    res, cold, _ = spectral_solve(spec, lwc, cuda_ops, f"{label} cold", chunk=SCHEME_CHUNK)
+    lwc = np.roll(lwc, 1, axis=1)
+    res, pert, _ = spectral_solve(spec, lwc, cuda_ops, f"{label} perturbed", chunk=SCHEME_CHUNK)
+    launches = dict(cuda_ops.LAUNCHES)
+    log(f"{label}: {NX}x{NY}x{NZ}, atm_collapse {K_COLLAPSE}, ecCKD {NGPT}+{NGPT}, band chunks of "
+        f"{SCHEME_CHUNK}: walls cold {cold * 1e3:.1f} ms, perturbed {pert * 1e3:.1f} ms = "
+        f"{NX * NY / pert:.1f} columns/s ({smi}); launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    # a table whose w0 axis ends below the clouds' w0 clamps them to its last w0, and they
+    # absorb as such clouds do, some 200-400 K/day; the JAX package gives the same on the same
+    # table (tools/torch_heating_rates.py --lut); the clear air stays within the table
+    beyond, w0_cloud, w0_top = clouds_beyond_table(opp, gas, atm, lwc)
+    log(f"{label}: the clouds' solar w0 {w0_cloud:.6f}, the table's w0 axis ends at {w0_top:.6f}: "
+        + ("every cloud cell is exempt from the heating-rate bound" if beyond
+           else "only cloud tops are exempt"))
+    check_spectral_result(label, res, atm, lwc, gas.solar(atm).weight, exempt_clouds=beyond)
+    if not (launches["fused_A_dots"] and launches["orbit_contract"]):
+        raise AssertionError(f"{label}: K1/K2 not launched")
+    del spec, solver, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def instantiation_rows(cuda_ops, by_scheme, scheme_launches, dense_launches, main_launches,
+                       spectral_launches):
+    """Per kernel, its instantiations: (scheme, nd, norb, ms, bound_ms,
+    plain_ms, library_ms, launches; K1/K2 also chunk_ms, chunk_bound_ms).
+    Launches: 3_10's on the main path (K1/K2, phase 12) and the urban
+    spectral path (K3, phase 14); the other sets' on phase 22 (K1/K2) and
+    phase 23's dense solves (K3), summed over the schemes that share a set;
+    `launches_spectral`: 3_30's K1/K2 on phase 24."""
+    from tenstream_tpu_torch.optprop.facade import diff_pair_orbits
+    from tenstream_tpu_torch.streams import get_scheme
+
+    owner = {}
+    for name in ("3_10", "8_10") + SCHEMES:
+        s = get_scheme(name)
+        idx, norb = diff_pair_orbits(s, with_mz=False)
+        owner[name] = cuda_ops.ORBIT_SCHEMES[cuda_ops._orbit_instantiation(s, idx, norb)]
+    out = {"fused_A_dots": [], "orbit_contract": [], "diffuse_apply_dense": []}
+    for name, row in by_scheme.items():
+        sharing = [n for n in SCHEMES if owner[n] == name]
+        for kname, key in (("fused_A_dots", "fused_A_dots"), ("orbit_contract", "orbit_contract"),
+                           ("diffuse_apply_dense", "diffuse_apply_dense_f32")):
+            if name == "3_10":
+                n = main_launches[kname]
+            elif kname == "diffuse_apply_dense":
+                n = sum(dense_launches[s] for s in sharing)
+            else:
+                n = sum(scheme_launches[s][kname] for s in sharing)
+            r = row[key]
+            entry = dict(scheme=name, shared_by=[s for s in owner if owner[s] == name and s != name],
+                         nd=row["nd"], norb=row["norb"], ms=r["ms"], bound_ms=r["bound_ms"],
+                         plain_ms=r["plain_ms"], library_ms=r["library_ms"], launches=n)
+            if kname == "diffuse_apply_dense":
+                bf = row["diffuse_apply_dense_bf16"]
+                entry.update(ms_bf16=bf["ms"], bound_ms_bf16=bf["bound_ms"])
+            else:
+                entry.update(chunk_ms=r["chunk_ms"], chunk_bound_ms=r["chunk_bound_ms"])
+                if name == SPECTRAL_SCHEME:
+                    entry["launches_spectral"] = spectral_launches[kname]
+            out[kname].append(entry)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -1948,7 +2324,7 @@ def main():
     from tenstream_tpu_torch.boxmc import cuda_tracer
     from tenstream_tpu_torch.optprop import lut as lutgen
 
-    phase_build(cuda_ops)
+    ptx = phase_build(cuda_ops)
     opp = OptProp(LUT.load(LUT_PATH, device="cuda"), device="cuda")
     idx = opp._solver_orbit_idx
     sundir = sundir_from_angles(*SUN)
@@ -1977,6 +2353,14 @@ def main():
     means_3d = phase_gas_optics(cuda_ops, opp, args.seed, smi)
     phase_oned(args.seed, smi, means_3d)
     phase_gas_optics_parity(cuda_ops, ediff, opp, args.seed)
+    torch.cuda.empty_cache()
+    by_scheme = phase_kernels_by_scheme(cuda_ops, ptx, args.seed)
+    scheme_launches = phase_schemes(cuda_ops, OptProp, LUT, Grid, PprtsSolver, sundir, args.seed)
+    dense_launches = phase_schemes_parity(cuda_ops, ediff, OptProp, LUT, Grid, PprtsSolver,
+                                          Options, sundir, args.seed)
+    spectral_launches = phase_spectral_scheme(cuda_ops, OptProp, LUT, args.seed, smi)
+    insts = instantiation_rows(cuda_ops, by_scheme, scheme_launches, dense_launches, launches,
+                               spectral_launches)
     report["boxmc_trace"] = phase_boxmc(cuda_tracer, lutgen, args.seed)
     launches["boxmc_trace"] = phase_lut(cuda_ops, cuda_tracer, lutgen, LUT, OptProp, Grid,
                                         PprtsSolver, sundir, args.seed)
@@ -1986,6 +2370,8 @@ def main():
         kernels.append(dict(name=f"{tag} {kname}", route="cuda", source=source,
                             kernel=f"{source}:{line}", replaces=replaces,
                             launches=launches[kname], **report[kname]))
+        if kname in insts:
+            kernels[-1]["instantiations"] = insts[kname]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -19,27 +19,11 @@
 
 namespace {
 
-// itab layout (see tenstream_tpu_torch/pprts/cuda_ops.py::_tables):
-// nd, norb, ngroups[D], gorb[D][D], gmask[D][D]
-OrbitTables make_tables(const std::vector<int64_t>& itab) {
-  const size_t D = TS_MAXD;
-  TORCH_CHECK(itab.size() == 2 + D + 2 * D * D, "orbit tables: wrong number of ints");
-  OrbitTables t;
-  size_t q = 0;
-  t.nd = (int)itab[q++];
-  t.norb = (int)itab[q++];
-  for (size_t d = 0; d < D; ++d) t.ngroups[d] = (int)itab[q++];
-  for (size_t d = 0; d < D; ++d)
-    for (size_t g = 0; g < D; ++g) t.gorb[d][g] = (int)itab[q++];
-  for (size_t d = 0; d < D; ++d)
-    for (size_t g = 0; g < D; ++g) t.gmask[d][g] = (int)itab[q++];
-  TORCH_CHECK(t.nd == TS_MAXD, "kernels are built for the 3_10 scheme (nd = 10)");
-  for (size_t d = 0; d < D; ++d) {
-    TORCH_CHECK(t.ngroups[d] >= 0 && t.ngroups[d] <= (int)D, "bad group count");
-    for (int g = 0; g < t.ngroups[d]; ++g)
-      TORCH_CHECK(t.gorb[d][g] >= 0 && t.gorb[d][g] < t.norb, "orbit channel out of range");
-  }
-  return t;
+// nd and norb of K1/K2's instantiation inst (orbit_schemes.h); raises for
+// an index with none
+void orbit_dims(int64_t inst, int* nd, int* norb) {
+  TORCH_CHECK(inst >= 0 && inst < (1 << 20) && orbit_scheme_dims((int)inst, nd, norb) == 0,
+              "no K1/K2 instantiation with this index");
 }
 
 void check_f32(const torch::Tensor& x, const char* name, int64_t dim) {
@@ -49,60 +33,64 @@ void check_f32(const torch::Tensor& x, const char* name, int64_t dim) {
   TORCH_CHECK(x.is_contiguous(), name, " must be contiguous");
 }
 
-torch::Tensor orbit_contract(torch::Tensor src, torch::Tensor orb, std::vector<int64_t> itab) {
-  const OrbitTables t = make_tables(itab);
+torch::Tensor orbit_contract(torch::Tensor src, torch::Tensor orb, int64_t inst) {
+  int nd = 0, norb = 0;
+  orbit_dims(inst, &nd, &norb);
   check_f32(src, "src", 5);
   check_f32(orb, "orb", 5);
   const int64_t B = src.size(0);
-  TORCH_CHECK(src.size(1) == t.nd, "src dof dim != nd");
-  TORCH_CHECK(orb.size(0) == B && orb.size(1) == t.norb, "orb must be (B, norb, ...)");
+  TORCH_CHECK(src.size(1) == nd, "src dof dim != the instantiation's nd");
+  TORCH_CHECK(orb.size(0) == B && orb.size(1) == norb, "orb must be (B, norb, ...)");
   TORCH_CHECK(orb.size(2) == src.size(2) && orb.size(3) == src.size(3) &&
                   orb.size(4) == src.size(4),
               "orb and src cell dims differ");
   TORCH_CHECK(orb.device() == src.device(), "src and orb on different devices");
   const int64_t ncell = src.size(2) * src.size(3) * src.size(4);
-  TORCH_CHECK(ncell * t.norb < (int64_t)1 << 31, "field too large for int indexing");
+  TORCH_CHECK(ncell * norb < (int64_t)1 << 31, "field too large for int indexing");
   const c10::cuda::CUDAGuard guard(src.device());
   auto out = torch::empty_like(src);
   if (B == 0 || ncell == 0) return out;
   cudaStream_t stream = at::cuda::getCurrentCUDAStream();
-  C10_CUDA_CHECK(launch_orbit_contract(src.data_ptr<float>(), orb.data_ptr<float>(),
-                                       out.data_ptr<float>(), &t, (int)B, (int)ncell, stream));
+  C10_CUDA_CHECK(launch_orbit_contract((int)inst, src.data_ptr<float>(), orb.data_ptr<float>(),
+                                       out.data_ptr<float>(), (int)B, (int)ncell, stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
 
-// K1 is compiled for the 3_10 tables (orbit_3_10.h): 10 dofs, 24 channels
+// K1 of instantiation inst: nd dofs, norb channels
 std::vector<torch::Tensor> fused_A_dots(torch::Tensor u, torch::Tensor w, torch::Tensor orb,
-                                        torch::Tensor albedo) {
+                                        torch::Tensor albedo, int64_t inst) {
+  int nd = 0, norb = 0;
+  orbit_dims(inst, &nd, &norb);
   check_f32(u, "u", 5);
   check_f32(w, "w", 5);
   check_f32(orb, "orb", 5);
   check_f32(albedo, "albedo", 3);
   const int64_t B = u.size(0), nz = u.size(2) - 1, nx = u.size(3), ny = u.size(4);
-  TORCH_CHECK(u.size(1) == 10, "u must have the 10 dofs of 3_10");
+  TORCH_CHECK(u.size(1) == nd, "u must have the instantiation's nd dofs");
   TORCH_CHECK(nz >= 1, "u needs at least two face levels");
   TORCH_CHECK(nx >= 1 && ny >= 1, "u needs at least one column");
   TORCH_CHECK(w.sizes() == u.sizes(), "w must have the shape of u");
-  TORCH_CHECK(orb.size(0) == B && orb.size(1) == 24 && orb.size(2) == nz &&
+  TORCH_CHECK(orb.size(0) == B && orb.size(1) == norb && orb.size(2) == nz &&
                   orb.size(3) == nx && orb.size(4) == ny,
-              "orb must be (B, 24, nz, nx, ny)");
+              "orb must be (B, norb, nz, nx, ny)");
   TORCH_CHECK(albedo.size(0) == B && albedo.size(1) == nx && albedo.size(2) == ny,
               "albedo must be (B, nx, ny)");
   TORCH_CHECK(w.device() == u.device() && orb.device() == u.device() &&
                   albedo.device() == u.device(),
               "tensors on different devices");
-  TORCH_CHECK(nz * nx * ny * 24 < (int64_t)1 << 31 && (nz + 1) * nx * ny * 10 < (int64_t)1 << 31,
+  TORCH_CHECK(nz * nx * ny * norb < (int64_t)1 << 31 && (nz + 1) * nx * ny * nd < (int64_t)1 << 31,
               "field too large for int indexing");
   TORCH_CHECK(B < 65536, "batch too large for the grid");
   const c10::cuda::CUDAGuard guard(u.device());
   auto Au = torch::empty_like(u);
   auto dots = torch::empty({B, 2}, u.options());
   if (B == 0) return {Au, dots};
-  const int nblk = fused_A_dots_blocks((int)B, (int)nz, (int)nx, (int)ny);
+  const int nblk = fused_A_dots_blocks((int)inst, (int)B, (int)nz, (int)nx, (int)ny);
+  TORCH_CHECK(nblk > 0, "K1: no launch configuration on this device");
   auto partials = torch::empty({B, nblk, 2}, u.options());
   cudaStream_t stream = at::cuda::getCurrentCUDAStream();
-  C10_CUDA_CHECK(launch_fused_A_dots(u.data_ptr<float>(), w.data_ptr<float>(),
+  C10_CUDA_CHECK(launch_fused_A_dots((int)inst, u.data_ptr<float>(), w.data_ptr<float>(),
                                      orb.data_ptr<float>(), albedo.data_ptr<float>(),
                                      Au.data_ptr<float>(), partials.data_ptr<float>(),
                                      dots.data_ptr<float>(), (int)B, (int)nz, (int)nx, (int)ny,
@@ -112,11 +100,13 @@ std::vector<torch::Tensor> fused_A_dots(torch::Tensor u, torch::Tensor w, torch:
 }
 
 // itab layout (see tenstream_tpu_torch/pprts/cuda_ops.py::_dense_tables):
-// nd, gz[D], gx[D], gy[D], cz[D], cx[D], cy[D]
+// nd, gz[nd], gx[nd], gy[nd], cz[nd], cx[nd], cy[nd]
 DenseTables make_dense_tables(const std::vector<int64_t>& itab) {
-  const size_t D = TS_DENSE_MAXD;
+  TORCH_CHECK(!itab.empty() && itab[0] >= 1 && itab[0] <= TS_DENSE_MAXD,
+              "dense tables: nd outside 1..30");
+  const size_t D = (size_t)itab[0];
   TORCH_CHECK(itab.size() == 1 + 6 * D, "dense tables: wrong number of ints");
-  DenseTables t;
+  DenseTables t = {};
   size_t q = 0;
   t.nd = (int)itab[q++];
   for (int* row : {t.gz, t.gx, t.gy})
@@ -129,15 +119,16 @@ DenseTables make_dense_tables(const std::vector<int64_t>& itab) {
       row[s] = (int)itab[q++];
       TORCH_CHECK(row[s] == -1 || row[s] == 0, "dense tables: K3 takes cshift in {-1, 0} only");
     }
-  TORCH_CHECK(t.nd == TS_DENSE_MAXD, "the kernel is built for the 3_10 scheme (nd = 10)");
   return t;
 }
 
 // K3's launch configuration: (threads per block, shared memory bytes per
 // block, blocks per SM) for float32 (bf16 = false) or bfloat16 coefficients
-std::vector<int64_t> dense_config(bool bf16) {
+// and nd dofs
+std::vector<int64_t> dense_config(bool bf16, int64_t nd) {
   int threads = 0, smem = 0, per_sm = 0;
-  C10_CUDA_CHECK(diffuse_apply_dense_config(bf16 ? 1 : 0, &threads, &smem, &per_sm));
+  TORCH_CHECK(nd >= 1 && nd <= TS_DENSE_MAXD, "nd outside 1..30");
+  C10_CUDA_CHECK(diffuse_apply_dense_config(bf16 ? 1 : 0, (int)nd, &threads, &smem, &per_sm));
   return {threads, smem, per_sm};
 }
 
@@ -229,8 +220,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("diffuse_apply_dense", &diffuse_apply_dense,
         "K3: S(x) on dense [src, dst] coefficients, float32 or bfloat16 (CUDA)");
   m.def("diffuse_apply_dense_config", &dense_config,
-        "K3's launch configuration on the current device: threads, shared memory bytes and "
-        "blocks per SM");
+        "K3's launch configuration on the current device for float32 or bfloat16 coefficients "
+        "and nd dofs: threads, shared memory bytes and blocks per SM");
   m.def("boxmc_trace", &boxmc_trace,
         "K4: BoxMC photon tracing, a photon queue over the launch and a fixed-order reduction per "
         "entry; rows [T | S], photon-steps and warp loop trips (CUDA)");

@@ -69,13 +69,24 @@
 // 8_10 meet this.  Unlike K1, K3 needs no rule for the z dsts' columns: it
 // writes each cell's contributions where they land.
 //
-// Resources (`nvcc -Xptxas -v` and the occupancy query, printed by
-// chip_smoke.py's phases 2 and 3): 95,040 bytes of dynamic shared memory
+// Resources at 10 dofs (`nvcc -Xptxas -v` and the occupancy query, printed
+// by chip_smoke.py's phases 2 and 3): 95,040 bytes of dynamic shared memory
 // per block (2 steps x 10 dofs x 9 rows x 132 floats) and two blocks per
 // SM.  float32: 256 threads per block (512 per SM), 128 registers (the
 // launch bounds' cap).  bfloat16: 128 threads per block (256 per SM), 252
 // registers (255 with element loads).  No variant spills.  One barrier per
 // z step.
+//
+// Other dof counts.  The kernel is instantiated for each diffuse dof count
+// of the cube schemes (6, 10, 12, 16, 18, 24, 30).  Up to 10 dofs it is the
+// design above.  Above 10, a thread's sources no longer fit its registers
+// beside the coefficients (30 x 4 floats each at 3_30), so for each dst it
+// reads them from the staged step in shared memory as it goes (shared-memory
+// bytes equal to the coefficient bytes, far below that memory's rate), and
+// the two staged steps no longer leave room for two blocks per SM: one
+// block per SM with the launch bounds' 255 registers, tiles of 8 rows up to
+// 24 dofs (228,096 bytes) and of 6 rows at 30 (221,760 bytes).  The sums
+// are the same chains over s from 0.
 
 #include <cuda_bf16.h>
 
@@ -83,31 +94,52 @@
 #include <atomic>
 
 #include "dense_ops.h"
+#include "orbit_schemes.h"  // TS_DENSE_NDS: the dof counts K3 is instantiated for
 
 namespace {
 
-constexpr int kTX = 8, kTY = 128;      // a block's tile of cells, y fastest
-constexpr int kRows = kTX + 1;         // staged rows: the tile and a high halo row
+constexpr int kTX = 8, kTY = 128;      // a block's tile of cells (at most), y fastest
 constexpr int kRS = kTY + 4;           // staged row stride in floats (16-byte rows, halo column)
-constexpr int kSlice = kRows * kRS;    // floats of one staged dof
 constexpr int kSteps = 2;              // staged steps: k computing, k + 1 arriving
 constexpr int kMinPlanes = 4;          // the fewest cell planes a block marches over
 constexpr int kWaves = 4;              // blocks per resident slot the z split aims at
-constexpr int kBlocksPerSM = 2;
 constexpr int kMaxDevices = 64;        // device ordinals whose occupancy is cached
+constexpr size_t kSmemPerSM = 228 * 1024;  // an SM's shared memory on sm_90 (1 KB per block reserved)
 
-template <typename CT>
-struct Elem {
-  static constexpr int kVec = 16 / sizeof(CT);          // cells per thread
-  static constexpr int kThreads = kTX * kTY / kVec;     // 256 (float), 128 (bfloat16)
-};
-
-template <int ND>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)kSteps * ND * kSlice;
+// Up to 10 dofs the sources sit in registers and two blocks share an SM;
+// above, they are read from shared memory per dst, one block per SM.
+template <int ND> __host__ __device__ constexpr bool src_in_regs() { return ND <= 10; }
+template <int ND> __host__ __device__ constexpr int blocks_per_sm() { return src_in_regs<ND>() ? 2 : 1; }
+template <int ND> __host__ __device__ constexpr size_t staged_bytes(int rows) {
+  return sizeof(float) * (size_t)kSteps * ND * (rows + 1) * kRS;
 }
+// the most tile rows (up to kTX) whose staging fits blocks_per_sm blocks
+template <int ND> __host__ __device__ constexpr int tile_rows() {
+  int r = kTX;
+  while (r > 1 && staged_bytes<ND>(r) * blocks_per_sm<ND>() >
+                      kSmemPerSM - 1024 * (size_t)blocks_per_sm<ND>())
+    --r;
+  return r;
+}
+
+template <typename CT, int ND>
+struct Geo {
+  static constexpr int kTileX = tile_rows<ND>();           // rows of cells per tile
+  static constexpr int kRows = kTileX + 1;                 // staged rows: the tile and a high halo row
+  static constexpr int kSlice = kRows * kRS;               // floats of one staged dof
+  static constexpr int kVec = 16 / sizeof(CT);             // cells per thread
+  static constexpr int kThreads = kTileX * kTY / kVec;     // 256 (float), 128 (bfloat16) at 10 dofs
+  static constexpr int kBlocks = blocks_per_sm<ND>();
+  static constexpr size_t kSmem = sizeof(float) * (size_t)kSteps * ND * kSlice;
+  static_assert(kSmem * kBlocks <= kSmemPerSM - 1024 * (size_t)kBlocks, "K3's blocks must fit an SM");
+  static_assert(kThreads > kTileX && kThreads % 32 == 0, "K3's block");
+};
 static_assert(kTY % 32 == 0 && kRS % 4 == 0, "staged rows must stay 16-byte aligned");
-static_assert(smem_bytes<10>() * kBlocksPerSM <= 228 * 1024, "two blocks must fit an SM");
+#define K3_CHECK_ND(N) static_assert(N <= TS_DENSE_MAXD, "DenseTables holds TS_DENSE_MAXD dofs");
+TS_DENSE_NDS(K3_CHECK_ND)
+#undef K3_CHECK_ND
+static_assert(Geo<float, 10>::kTileX == kTX && Geo<float, 10>::kBlocks == 2,
+              "10 dofs keep the 8 x 128 tile and two blocks per SM");
 
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
   const unsigned saddr = (unsigned)__cvta_generic_to_shared(smem);
@@ -155,22 +187,23 @@ __device__ __forceinline__ void load_coeffs(const __nv_bfloat16* p, int nvalid, 
 // x, out: (B, ND, nz+1, nx, ny); c: (B, ND, ND, nz, nx, ny) [src, dst].
 // Block x = (tile, z chunk) with the z chunk fastest; block y = batch.
 template <typename CT, int ND, bool kVector>
-__global__ void __launch_bounds__(Elem<CT>::kThreads, kBlocksPerSM)
+__global__ void __launch_bounds__(Geo<CT, ND>::kThreads, Geo<CT, ND>::kBlocks)
 diffuse_apply_dense_kernel(const float* __restrict__ x, const CT* __restrict__ c,
                            float* __restrict__ out, const DenseTables t, int nz, int nx, int ny,
                            int zsplit, int xvec) {
-  constexpr int kVec = Elem<CT>::kVec, kNT = Elem<CT>::kThreads;
+  using G = Geo<CT, ND>;
+  constexpr int kVec = G::kVec, kNT = G::kThreads, kTileX = G::kTileX, kSlice = G::kSlice;
   constexpr int kLanesPerRow = kTY / kVec;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // [kSteps][ND][kRows][kRS]
-  __shared__ int s_row[kRows];                    // staged row a -> x offset (i0 + a, wrapped) * ny
+  __shared__ int s_row[G::kRows];                 // staged row a -> x offset (i0 + a, wrapped) * ny
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
   const int tiles_y = (ny + kTY - 1) / kTY;
   const int tile = blockIdx.x / zsplit, zc = blockIdx.x - tile * zsplit;
-  const int i0 = (tile / tiles_y) * kTX, j0 = (tile % tiles_y) * kTY;
-  const int hv = min(kTX, nx - i0), wv = min(kTY, ny - j0);  // cells of the tile in x and y
+  const int i0 = (tile / tiles_y) * kTileX, j0 = (tile % tiles_y) * kTY;
+  const int hv = min(kTileX, nx - i0), wv = min(kTY, ny - j0);  // cells of the tile in x and y
   const int per = (nz + zsplit - 1) / zsplit;
   const int k0 = zc * per, k1 = min(k0 + per, nz);  // cell planes of this block
 
@@ -227,42 +260,10 @@ diffuse_apply_dense_kernel(const float* __restrict__ x, const CT* __restrict__ c
 
     if (active) {
       const float* st = smem + (k % kSteps) * (ND * kSlice);
-      float sv[ND][kVec];
-#pragma unroll
-      for (int s = 0; s < ND; ++s) {
-        const float* row = st + s * kSlice + (ta + t.gx[s]) * kRS + c0;
-        float r[kVec + 1];
-#pragma unroll
-        for (int h = 0; h < kVec / 4; ++h) {
-          const float4 v = reinterpret_cast<const float4*>(row)[h];
-          r[4 * h] = v.x; r[4 * h + 1] = v.y; r[4 * h + 2] = v.z; r[4 * h + 3] = v.w;
-        }
-        r[kVec] = row[kVec];
-        const bool sh = t.gy[s] != 0;
-#pragma unroll
-        for (int q = 0; q < kVec; ++q) sv[s][q] = sh ? r[q + 1] : r[q];
-      }
-
-      const CT* ck = cb + (size_t)k * nxy + (size_t)i * ny + j;
-      // float32 keeps the dst loop rolled: unrolled, the loads hoisted
-      // across dsts spill at the 128 registers two blocks per SM allow
-      // (5.38 against 4.72 ms at the band chunk on an H100 SXM at 700 W);
-      // the bfloat16 vector kernel has 255 and unrolls
-#pragma unroll (sizeof(CT) == 2 && kVector ? ND : 1)
-      for (int d = 0; d < ND; ++d) {
-        float cv[ND][kVec];
-#pragma unroll
-        for (int s = 0; s < ND; ++s)
-          load_coeffs<kVector>(ck + (size_t)(s * ND + d) * ncell, nvalid, cv[s]);
-        float acc[kVec];
-#pragma unroll
-        for (int q = 0; q < kVec; ++q) {
-          acc[q] = 0.f;
-#pragma unroll
-          for (int s = 0; s < ND; ++s) acc[q] += cv[s][q] * sv[s][q];
-        }
-        // the face this cell makes for dst d, and the face no cell makes
-        // next to it (plane 0 below a cz = -1 dst, plane nz for the others)
+      // this cell row's results for dst d: the face the cells make, and the
+      // face no cell makes next to it (plane 0 below a cz = -1 dst, plane nz
+      // for the others)
+      auto store = [&](int d, const float* acc) {
         const int cz = t.cz[d];
         const int kf = k - cz;
         const bool edge = cz == -1 ? k == 0 : k == nz - 1;
@@ -288,6 +289,62 @@ diffuse_apply_dense_kernel(const float* __restrict__ x, const CT* __restrict__ c
             }
           }
         }
+      };
+      // kVec staged sources of dof s for this thread's cells, shifted by gy[s]
+      auto sources = [&](int s, float* sv) {
+        const float* row = st + s * kSlice + (ta + t.gx[s]) * kRS + c0;
+        float r[kVec + 1];
+#pragma unroll
+        for (int h = 0; h < kVec / 4; ++h) {
+          const float4 v = reinterpret_cast<const float4*>(row)[h];
+          r[4 * h] = v.x; r[4 * h + 1] = v.y; r[4 * h + 2] = v.z; r[4 * h + 3] = v.w;
+        }
+        r[kVec] = row[kVec];
+        const bool sh = t.gy[s] != 0;
+#pragma unroll
+        for (int q = 0; q < kVec; ++q) sv[q] = sh ? r[q + 1] : r[q];
+      };
+
+      if constexpr (src_in_regs<ND>()) {
+        float sv[ND][kVec];
+#pragma unroll
+        for (int s = 0; s < ND; ++s) sources(s, sv[s]);
+        const CT* ck = cb + (size_t)k * nxy + (size_t)i * ny + j;
+        // float32 keeps the dst loop rolled: unrolled, the loads hoisted
+        // across dsts spill at the 128 registers two blocks per SM allow
+        // (5.38 against 4.72 ms at the band chunk on an H100 SXM at 700 W);
+        // the bfloat16 vector kernel has 255 and unrolls
+#pragma unroll (sizeof(CT) == 2 && kVector ? ND : 1)
+        for (int d = 0; d < ND; ++d) {
+          float cv[ND][kVec];
+#pragma unroll
+          for (int s = 0; s < ND; ++s)
+            load_coeffs<kVector>(ck + (size_t)(s * ND + d) * ncell, nvalid, cv[s]);
+          float acc[kVec];
+#pragma unroll
+          for (int q = 0; q < kVec; ++q) {
+            acc[q] = 0.f;
+#pragma unroll
+            for (int s = 0; s < ND; ++s) acc[q] += cv[s][q] * sv[s][q];
+          }
+          store(d, acc);
+        }
+      } else {
+        const CT* ck = cb + (size_t)k * nxy + (size_t)i * ny + j;
+        for (int d = 0; d < ND; ++d) {
+          float acc[kVec];
+#pragma unroll
+          for (int q = 0; q < kVec; ++q) acc[q] = 0.f;
+#pragma unroll
+          for (int s = 0; s < ND; ++s) {
+            float cv[kVec], sv[kVec];
+            load_coeffs<kVector>(ck + (size_t)(s * ND + d) * ncell, nvalid, cv);
+            sources(s, sv);
+#pragma unroll
+            for (int q = 0; q < kVec; ++q) acc[q] += cv[q] * sv[q];
+          }
+          store(d, acc);
+        }
       }
     }
   }
@@ -301,6 +358,7 @@ struct Slots {
 };
 template <typename CT, int ND, bool V>
 Slots slots() {
+  using G = Geo<CT, ND>;
   static std::atomic<int> cached_nsm[kMaxDevices], cached_per_sm[kMaxDevices];
   int dev = 0, nsm = 0, optin = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return {0, 0};
@@ -310,11 +368,11 @@ Slots slots() {
   if (cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
           cudaSuccess ||
-      (size_t)optin < smem_bytes<ND>() ||
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_bytes<ND>()) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, Elem<CT>::kThreads,
-                                                    smem_bytes<ND>()) != cudaSuccess ||
+      (size_t)optin < G::kSmem ||
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kSmem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, G::kThreads, G::kSmem) !=
+          cudaSuccess ||
       nsm < 1 || per_sm < 1)
     return {0, 0};
   if (dev < kMaxDevices) {
@@ -327,6 +385,7 @@ Slots slots() {
 template <typename CT, int ND, bool V>
 cudaError_t apply_nd(const float* x, const CT* c, float* out, const DenseTables* t, int batch,
                      int nz, int nx, int ny, int xvec, cudaStream_t stream) {
+  using G = Geo<CT, ND>;
   const Slots sl = slots<CT, ND, V>();
   if (sl.per_sm == 0) {
     const cudaError_t err = cudaGetLastError();
@@ -335,46 +394,70 @@ cudaError_t apply_nd(const float* x, const CT* c, float* out, const DenseTables*
   // z chunks per tile: enough blocks for kWaves waves over the card, at
   // least kMinPlanes cell planes each (one wave left a single band of 40
   // layers 7% slower, the band chunk the same)
-  const long tiles = (long)((nx + kTX - 1) / kTX) * ((ny + kTY - 1) / kTY);
+  const long tiles = (long)((nx + G::kTileX - 1) / G::kTileX) * ((ny + kTY - 1) / kTY);
   const long tb = tiles * std::max(batch, 1);
   const long fill = std::max(1L, ((long)kWaves * sl.nsm * sl.per_sm + tb - 1) / tb);
   const int zsplit = (int)std::min<long>(fill, std::max(1, nz / kMinPlanes));
   dim3 grid((unsigned)(tiles * zsplit), batch);
-  diffuse_apply_dense_kernel<CT, ND, V><<<grid, Elem<CT>::kThreads, smem_bytes<ND>(), stream>>>(
+  diffuse_apply_dense_kernel<CT, ND, V><<<grid, G::kThreads, G::kSmem, stream>>>(
       x, c, out, *t, nz, nx, ny, zsplit, xvec);
   return cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 
+template <int ND>
+cudaError_t launch_nd(const float* x, const void* c, int c_is_bf16, float* out,
+                      const DenseTables* t, int batch, int nz, int nx, int ny,
+                      cudaStream_t stream) {
+  const int xvec = ny % 4 == 0 && aligned16(x) && aligned16(out);
+  if (c_is_bf16) {
+    const __nv_bfloat16* cb = (const __nv_bfloat16*)c;
+    if (ny % 8 == 0 && xvec && aligned16(c))
+      return apply_nd<__nv_bfloat16, ND, true>(x, cb, out, t, batch, nz, nx, ny, xvec, stream);
+    return apply_nd<__nv_bfloat16, ND, false>(x, cb, out, t, batch, nz, nx, ny, xvec, stream);
+  }
+  const float* cf = (const float*)c;
+  if (ny % 4 == 0 && xvec && aligned16(c))
+    return apply_nd<float, ND, true>(x, cf, out, t, batch, nz, nx, ny, xvec, stream);
+  return apply_nd<float, ND, false>(x, cf, out, t, batch, nz, nx, ny, xvec, stream);
+}
+
+template <int ND>
+cudaError_t config_nd(int c_is_bf16, int* threads, int* smem, int* blocks_per_sm) {
+  if (c_is_bf16) {
+    *threads = Geo<__nv_bfloat16, ND>::kThreads;
+    *smem = (int)Geo<__nv_bfloat16, ND>::kSmem;
+    *blocks_per_sm = slots<__nv_bfloat16, ND, true>().per_sm;
+  } else {
+    *threads = Geo<float, ND>::kThreads;
+    *smem = (int)Geo<float, ND>::kSmem;
+    *blocks_per_sm = slots<float, ND, true>().per_sm;
+  }
+  if (*blocks_per_sm == 0) {
+    const cudaError_t err = cudaGetLastError();
+    return err != cudaSuccess ? err : cudaErrorInvalidConfiguration;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" cudaError_t launch_diffuse_apply_dense(const float* x, const void* c, int c_is_bf16,
                                                   float* out, const DenseTables* t, int batch,
                                                   int nz, int nx, int ny, cudaStream_t stream) {
-  if (t->nd != 10) return cudaErrorInvalidValue;  // built for 10 diffuse dofs only
-  const int xvec = ny % 4 == 0 && aligned16(x) && aligned16(out);
-  if (c_is_bf16) {
-    const __nv_bfloat16* cb = (const __nv_bfloat16*)c;
-    if (ny % 8 == 0 && xvec && aligned16(c))
-      return apply_nd<__nv_bfloat16, 10, true>(x, cb, out, t, batch, nz, nx, ny, xvec, stream);
-    return apply_nd<__nv_bfloat16, 10, false>(x, cb, out, t, batch, nz, nx, ny, xvec, stream);
-  }
-  const float* cf = (const float*)c;
-  if (ny % 4 == 0 && xvec && aligned16(c))
-    return apply_nd<float, 10, true>(x, cf, out, t, batch, nz, nx, ny, xvec, stream);
-  return apply_nd<float, 10, false>(x, cf, out, t, batch, nz, nx, ny, xvec, stream);
+#define LAUNCH(N) \
+  if (t->nd == N) return launch_nd<N>(x, c, c_is_bf16, out, t, batch, nz, nx, ny, stream);
+  TS_DENSE_NDS(LAUNCH)
+#undef LAUNCH
+  return cudaErrorInvalidValue;  // no instantiation for this dof count
 }
 
-extern "C" cudaError_t diffuse_apply_dense_config(int c_is_bf16, int* threads, int* smem,
+extern "C" cudaError_t diffuse_apply_dense_config(int c_is_bf16, int nd, int* threads, int* smem,
                                                   int* blocks_per_sm_out) {
-  *smem = (int)smem_bytes<10>();
-  *threads = c_is_bf16 ? Elem<__nv_bfloat16>::kThreads : Elem<float>::kThreads;
-  *blocks_per_sm_out =
-      c_is_bf16 ? slots<__nv_bfloat16, 10, true>().per_sm : slots<float, 10, true>().per_sm;
-  if (*blocks_per_sm_out == 0) {
-    const cudaError_t err = cudaGetLastError();
-    return err != cudaSuccess ? err : cudaErrorInvalidConfiguration;
-  }
-  return cudaSuccess;
+#define CONFIG(N) \
+  if (nd == N) return config_nd<N>(c_is_bf16, threads, smem, blocks_per_sm_out);
+  TS_DENSE_NDS(CONFIG)
+#undef CONFIG
+  return cudaErrorInvalidValue;
 }

@@ -5,10 +5,10 @@
 
 #include <cuda_runtime.h>
 
-#define TS_DENSE_MAXD 10  // diffuse dofs per cell (3_10)
+#define TS_DENSE_MAXD 30  // the most diffuse dofs per cell (3_30)
 
 // One diffuse scheme's face<->cell shifts (z, x, y), passed to the kernel
-// by value.
+// by value (724 bytes); entries from nd on are unused.
 typedef struct {
   int nd;                                                       // diffuse dofs
   int gz[TS_DENSE_MAXD], gx[TS_DENSE_MAXD], gy[TS_DENSE_MAXD];  // src s read at cell + g*[s]
@@ -23,16 +23,17 @@ extern "C" {
 // cell = face + c(d); periodic in x and y, zero beyond z.
 // x, out: (B, nd, nz+1, nx, ny) float32; c: (B, nd, nd, nz, nx, ny)
 // [src, dst], float32 or (c_is_bf16 != 0) bfloat16.  Every face of out is
-// written.  The tables must have nd = 10 (else cudaErrorInvalidValue) and
-// every shift in g in {0, 1}, c in {-1, 0} (the binding checks them).
+// written.  The kernel is instantiated for the dof counts of TS_DENSE_NDS
+// (orbit_schemes.h; else cudaErrorInvalidValue); every shift must be in g in
+// {0, 1}, c in {-1, 0} (the binding checks them).
 cudaError_t launch_diffuse_apply_dense(const float* x, const void* c, int c_is_bf16,
                                        float* out, const DenseTables* t, int batch, int nz,
                                        int nx, int ny, cudaStream_t stream);
 
 // The launch configuration of the vector-load kernel for float32 or
-// bfloat16 coefficients on the current device: threads per block, dynamic
-// shared memory per block (bytes) and resident blocks per SM.
-cudaError_t diffuse_apply_dense_config(int c_is_bf16, int* threads, int* smem_bytes,
+// bfloat16 coefficients and nd dofs on the current device: threads per
+// block, dynamic shared memory per block (bytes) and resident blocks per SM.
+cudaError_t diffuse_apply_dense_config(int c_is_bf16, int nd, int* threads, int* smem_bytes,
                                        int* blocks_per_sm);
 
 #ifdef __cplusplus

@@ -5,17 +5,28 @@
 // K1 fused_A_dots replaces the TPU kernel
 //   tenstream_tpu/pprts/pallas_ops.py::_fused_A_kernel (fused_A_dots)
 //
-// What bounds them on an H100: bytes.  Per cell K2 reads 10 source and
-// 24 orbit values and writes 10 (44 floats); K1 reads u, w and the orbit
-// field and writes A(u) (54 floats per cell).  Both do ~2 flops per byte,
-// far below the card's flop/byte balance, so the design goal is to touch
-// device memory once per value.
+// Both are compiled once for each table set of orbit_schemes.h: the orbit
+// contraction, the shifts and the closure are compile-time code generated
+// from the Python tables (orbit_<scheme>.h, a struct per set), so channel
+// indices are immediates and the group sums unroll.  Sets run from 6 dofs
+// and 11 orbit channels (3_6) to 30 dofs and 127 channels (3_30).
+//
+// What bounds them on an H100: bytes.  At 3_10 K2 reads 10 source and 24
+// orbit values per cell and writes 10 (44 floats); K1 reads u, w and the
+// orbit field and writes A(u) (54 floats per cell).  Both do ~2 flops per
+// byte, far below the card's flop/byte balance, so the design goal is to
+// touch device memory once per value.
 //
 // K2 (the simplest correct design): one thread per cell, threads of a block
 // contiguous in the flattened cell index, so every load is coalesced.
 //
-// K1: 2.5-D blocking, so that each value comes from device memory once and
-// each cell's contributions are computed once.  A block owns a tile of
+// K1 has two designs, chosen per table set at compile time by whether the
+// staged one's shared memory fits a block (3_10 and 3_6 do; 8_12 and up,
+// 321-881 KB, do not).
+//
+// The staged K1 (3_10 and 3_6): 2.5-D blocking, so that each value comes
+// from device memory once and each cell's contributions are computed once.
+// A block owns a tile of
 // kTX x kTY = 8 x 64 face columns (y fastest: every staged row is a run of
 // 256 bytes) and marches down a range of z planes; the loop inside the block
 // takes the place of the grid's z.  Its 215 KB of shared memory allow one
@@ -30,90 +41,114 @@
 // that produce it (this plane's cell, its low x / y neighbour, and the cell
 // above, carried in a register from the previous plane), adds the surface
 // closure on face nz, and reads w (loaded a plane ahead, in registers),
-// writes A(u) and accumulates the two dots.
-// The orbit contraction, the shifts and the closure are compile-time code
-// generated from the Python tables (orbit_3_10.h), so channel indices are
-// immediates and the group sums unroll.  A block whose z range starts below
-// the top first computes the plane above it, for the carried contribution.
-// The dots reduce per block into a partials buffer that a second
-// one-block-per-batch kernel sums in a fixed order, so the result is
-// deterministic.  Accumulation is float32 like the JAX code.
+// writes A(u) and accumulates the two dots.  (Sizes above are 3_10's.)
+//
+// The direct K1 (the larger sets): the same two phases per face plane, with
+// only the contributions in shared memory (double-buffered, one barrier per
+// plane: at 3_30 2 x 30 x 297 floats, 71 KB).  A block owns 8 x 32 face
+// columns and 320 threads: 256 for the tile's cells and faces (a warp per
+// row of 32 columns), 41 for the low halo's cells.  Phase A reads a cell's
+// sources from u and its orbit channels straight from device memory (u
+// through the read-only path, where the neighbouring cells' and phase B's
+// reads of the same lines hit; the orbit field and w streamed, read once).
+// The low halo's cells are computed twice, by this tile and their own
+// (297 cells per 256 faces).
+//
+// In both, a block whose z range starts below the top first computes the
+// plane above it, for the carried contribution.  The dots reduce per block
+// into a partials buffer that a second one-block-per-batch kernel sums in a
+// fixed order, so the result is deterministic.  Accumulation is float32
+// like the JAX code.
 
 #include <algorithm>
 #include <atomic>
 
-#include "orbit_3_10.h"
+#include "orbit_schemes.h"
 #include "orbit_tables.h"
 
 namespace {
 
 constexpr int kThreads = 256;  // K2 and the partials reduction
 
-// K1's blocking
+// the staged K1's blocking
 constexpr int kTX = 8, kTY = 64;             // a block's tile of face columns, y fastest
 constexpr int kRX = kTX + 2, kRY = kTY + 2;  // u region: the tile and a one-column halo
 constexpr int kCX = kTX + 1, kCY = kTY + 1;  // cell region: the tile and the low halo
 constexpr int kCells = kCX * kCY;
 constexpr int kK1Threads = 608;              // >= kCells (585), a whole number of warps
-constexpr int kUPlane = K1_ND * kRX * kRY;   // floats of one staged u plane
-constexpr int kOPlane = K1_NORB * kCells;    // floats of one staged orbit plane
-constexpr int kCPlane = K1_ND * kCells;      // floats of one plane of contributions
 constexpr int kUSlots = 3;                   // u planes k, k + 1 and the one in flight
 constexpr int kOSlots = 2;
-constexpr size_t kK1Smem = sizeof(float) * (kUSlots * kUPlane + kOSlots * kOPlane + kCPlane);
 constexpr int kMinPlanes = 4;                // the fewest face planes a block marches over
 constexpr int kMaxDevices = 64;              // device ordinals whose occupancy is cached
+constexpr size_t kMaxSmem = 227 * 1024;      // a block's shared memory on sm_90
 
-// the 2.5-D scheme needs: sources read at the cell's face or one above it
+// the staged design's plane sizes (floats) and shared memory for table set T
+template <class T> struct Staged {
+  static constexpr int kUPlane = T::K1_ND * kRX * kRY;  // one staged u plane
+  static constexpr int kOPlane = T::K1_NORB * kCells;   // one staged orbit plane
+  static constexpr int kCPlane = T::K1_ND * kCells;     // one plane of contributions
+  static constexpr size_t kSmem = sizeof(float) * (kUSlots * kUPlane + kOSlots * kOPlane + kCPlane);
+  static constexpr bool kFits = kSmem <= kMaxSmem;
+};
+
+// the direct design's blocking
+constexpr int kDX = 8, kDY = 32;             // a block's tile of face columns, y fastest
+constexpr int kDCX = kDX + 1, kDCY = kDY + 1;  // cell region: the tile and the low halo
+constexpr int kDCells = kDCX * kDCY;
+constexpr int kDThreads = 320;               // >= kDCells (297), a whole number of warps
+template <class T> constexpr size_t direct_smem() {
+  return sizeof(float) * 2 * T::K1_ND * kDCells;
+}
+
+// both designs need: sources read at the cell's face or one above it
 // (gshift in {0, 1}), dsts landing on the cell's face or one below it
 // (cshift in {0, -1}), and a dst from the cell above only in its own column
-constexpr bool k1_shifts_ok() {
-  for (int q = 0; q < K1_ND; ++q) {
-    if (k1_gz(q) < 0 || k1_gz(q) > 1 || k1_gx(q) < 0 || k1_gx(q) > 1 || k1_gy(q) < 0 ||
-        k1_gy(q) > 1)
+template <class T> constexpr bool k1_shifts_ok() {
+  for (int q = 0; q < T::K1_ND; ++q) {
+    if (T::k1_gz(q) < 0 || T::k1_gz(q) > 1 || T::k1_gx(q) < 0 || T::k1_gx(q) > 1 ||
+        T::k1_gy(q) < 0 || T::k1_gy(q) > 1)
       return false;
-    if (k1_cz(q) < -1 || k1_cz(q) > 0 || k1_cx(q) < -1 || k1_cx(q) > 0 || k1_cy(q) < -1 ||
-        k1_cy(q) > 0)
+    if (T::k1_cz(q) < -1 || T::k1_cz(q) > 0 || T::k1_cx(q) < -1 || T::k1_cx(q) > 0 ||
+        T::k1_cy(q) < -1 || T::k1_cy(q) > 0)
       return false;
-    if (k1_cz(q) == -1 && (k1_cx(q) != 0 || k1_cy(q) != 0)) return false;
+    if (T::k1_cz(q) == -1 && (T::k1_cx(q) != 0 || T::k1_cy(q) != 0)) return false;
   }
   return true;
 }
-static_assert(k1_shifts_ok(), "orbit_3_10.h: shifts outside what K1's blocking handles");
+#define K1_CHECK_SHIFTS(q, T) \
+  static_assert(k1_shifts_ok<T>(), #T ": shifts outside what K1's blocking handles");
+TS_ORBIT_SCHEMES(K1_CHECK_SHIFTS)
+#undef K1_CHECK_SHIFTS
 static_assert(kCells <= kK1Threads && kTX * kTY <= kK1Threads && kK1Threads % 32 == 0,
               "K1 block too small");
 static_assert(kTY % 32 == 0 && kRX <= kK1Threads, "K1 stages a region row with one warp");
-static_assert(kK1Smem <= 227 * 1024, "K1's shared memory exceeds what a block can use");
+static_assert(Staged<Orbit_3_10>::kFits, "3_10's K1 must keep the staged design");
+static_assert(kDX * kDY + kDCY + kDX == kDCells && kDCells <= kDThreads &&
+                  kDThreads % 32 == 0 && kDY == 32,
+              "direct K1: a warp per tile row, then the low halo row and column");
+static_assert(direct_smem<Orbit_3_30>() <= kMaxSmem, "direct K1's shared memory");
 
-template <int ND>
+template <class T>
 __global__ void __launch_bounds__(kThreads)
 orbit_contract_kernel(const float* __restrict__ src, const float* __restrict__ orb,
-                      float* __restrict__ out, const OrbitTables t, int ncell) {
+                      float* __restrict__ out, int ncell) {
+  constexpr int ND = T::K1_ND;
   const int b = blockIdx.y;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= ncell) return;
   const size_t n = (size_t)ncell;
   const float* sb = src + (size_t)b * ND * n + c;
-  const float* ob = orb + (size_t)b * t.norb * n + c;
+  const float* ob = orb + (size_t)b * T::K1_NORB * n + c;
   float* outb = out + (size_t)b * ND * n + c;
 
   float sv[ND];
 #pragma unroll
   for (int s = 0; s < ND; ++s) sv[s] = sb[s * n];
-
+  float cv[ND];
+  T::k1_contract([&](int ch) { return __ldg(ob + (size_t)ch * n); }, [&](int q) { return sv[q]; },
+                 cv);
 #pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    float acc = 0.f;
-    for (int g = 0; g < t.ngroups[d]; ++g) {
-      const int m = t.gmask[d][g];
-      float ssum = 0.f;
-#pragma unroll
-      for (int s = 0; s < ND; ++s)
-        if ((m >> s) & 1) ssum += sv[s];
-      acc += ob[(size_t)t.gorb[d][g] * n] * ssum;
-    }
-    outb[d * n] = acc;
-  }
+  for (int d = 0; d < ND; ++d) outb[d * n] = cv[d];
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -156,14 +191,17 @@ __device__ __forceinline__ int pmod(int i, int n) {
   return r < 0 ? r + n : r;
 }
 
-// u, w, Au: (B, K1_ND, nz+1, nx, ny); orb: (B, K1_NORB, nz, nx, ny);
-// albedo: (B, nx, ny); partials: (B, gridDim.x, 2).  Block x = (tile,
-// z chunk) with the z chunk fastest; block y = batch.
+// The staged design.  u, w, Au: (B, K1_ND, nz+1, nx, ny); orb: (B, K1_NORB,
+// nz, nx, ny); albedo: (B, nx, ny); partials: (B, gridDim.x, 2).  Block x =
+// (tile, z chunk) with the z chunk fastest; block y = batch.
+template <class T>
 __global__ void __launch_bounds__(kK1Threads)
 fused_A_kernel(const float* __restrict__ u, const float* __restrict__ w,
                const float* __restrict__ orb, const float* __restrict__ albedo,
                float* __restrict__ Au, float* __restrict__ partials, int nz, int nx, int ny,
                int zsplit) {
+  constexpr int K1_ND = T::K1_ND, K1_NORB = T::K1_NORB;
+  constexpr int kUPlane = Staged<T>::kUPlane, kOPlane = Staged<T>::kOPlane;
   extern __shared__ float smem[];
   float* su = smem;                         // [kUSlots][K1_ND][kRX][kRY]
   float* so = su + kUSlots * kUPlane;       // [kOSlots][K1_NORB][kCX][kCY]
@@ -274,11 +312,11 @@ fused_A_kernel(const float* __restrict__ u, const float* __restrict__ w,
       const float* u_pl1 = su + ((kp + 1) % kUSlots) * kUPlane;
       auto o = [&](int ch) { return o_pl[ch * kCells]; };
       auto s = [&](int q) {
-        const float* pl = k1_gz(q) ? u_pl1 : u_pl0;
-        return pl[q * (kRX * kRY) + (ca + k1_gx(q)) * kRY + cc + k1_gy(q)];
+        const float* pl = T::k1_gz(q) ? u_pl1 : u_pl0;
+        return pl[q * (kRX * kRY) + (ca + T::k1_gx(q)) * kRY + cc + T::k1_gy(q)];
       };
       float c[K1_ND];
-      k1_contract(o, s, c);
+      T::k1_contract(o, s, c);
 #pragma unroll
       for (int d = 0; d < K1_ND; ++d) sc[d * kCells + tid] = c[d];
     }
@@ -290,17 +328,17 @@ fused_A_kernel(const float* __restrict__ u, const float* __restrict__ w,
       float S[K1_ND];
 #pragma unroll
       for (int d = 0; d < K1_ND; ++d) {
-        if (k1_cz(d) == -1) {
+        if (T::k1_cz(d) == -1) {
           S[d] = carry[d];
           carry[d] = kp < nz ? sc[d * kCells + own] : 0.f;
         } else {
-          S[d] = kp < nz ? sc[d * kCells + own + k1_cx(d) * kCY + k1_cy(d)] : 0.f;
+          S[d] = kp < nz ? sc[d * kCells + own + T::k1_cx(d) * kCY + T::k1_cy(d)] : 0.f;
         }
       }
       if (out_plane) {
         const float* u_pl = su + (kp % kUSlots) * kUPlane + (ti + 1) * kRY + tj + 1;
         auto uf = [&](int q) { return u_pl[q * (kRX * kRY)]; };
-        if (kp == nz) k1_closure(uf, albedo[(size_t)b * nxy + fcol], S);
+        if (kp == nz) T::k1_closure(uf, albedo[(size_t)b * nxy + fcol], S);
 #pragma unroll
         for (int d = 0; d < K1_ND; ++d) {
           const float a = uf(d) - S[d];
@@ -313,6 +351,120 @@ fused_A_kernel(const float* __restrict__ u, const float* __restrict__ w,
   }
 
   block_sum2<kK1Threads>(p1, p2);
+  if (tid == 0) {
+    float* pb = partials + ((size_t)b * gridDim.x + blockIdx.x) * 2;
+    pb[0] = p1;
+    pb[1] = p2;
+  }
+}
+
+// The direct design, for table sets whose staged planes do not fit a
+// block.  Arguments as the staged kernel's.
+template <class T>
+__global__ void __launch_bounds__(kDThreads)
+fused_A_direct_kernel(const float* __restrict__ u, const float* __restrict__ w,
+                      const float* __restrict__ orb, const float* __restrict__ albedo,
+                      float* __restrict__ Au, float* __restrict__ partials, int nz, int nx,
+                      int ny, int zsplit) {
+  constexpr int ND = T::K1_ND, NORB = T::K1_NORB;
+  extern __shared__ float smem[];  // [2][ND][kDCX][kDCY], plane kp in buffer kp & 1
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int tiles_y = (ny + kDY - 1) / kDY;
+  const int tile = blockIdx.x / zsplit, zc = blockIdx.x - tile * zsplit;
+  const int i0 = (tile / tiles_y) * kDX, j0 = (tile % tiles_y) * kDY;
+  const int nplanes = nz + 1;
+  const int per = (nplanes + zsplit - 1) / zsplit;
+  const int k0 = zc * per, k1 = min(k0 + per, nplanes);  // face planes written here
+  const int kstart = k0 > 0 ? k0 - 1 : 0;
+
+  const int nxy = nx * ny;
+  const size_t nface = (size_t)nplanes * nxy, ncell = (size_t)nz * nxy;
+  const float* ub = u + (size_t)b * ND * nface;
+  const float* wb = w + (size_t)b * ND * nface;
+  const float* ob = orb + (size_t)b * NORB * ncell;
+  float* Ab = Au + (size_t)b * ND * nface;
+
+  // phase A's cell, at region (ra, rc) of the tile and its low halo: threads
+  // 0..255 the tile's cells (a warp per row), then the low halo row, then
+  // the low halo column
+  constexpr int kTile = kDX * kDY;
+  int ra, rc;
+  if (tid < kTile) {
+    ra = tid / kDY + 1;
+    rc = tid % kDY + 1;
+  } else if (tid < kTile + kDCY) {
+    ra = 0;
+    rc = tid - kTile;
+  } else {
+    ra = tid - kTile - kDCY + 1;
+    rc = 0;
+  }
+  const bool cell_thread = tid < kDCells;
+  const int slot = ra * kDCY + rc;
+  const int ci = pmod(i0 - 1 + ra, nx), cj = pmod(j0 - 1 + rc, ny);  // wrapped
+  const int ci1 = ci + 1 < nx ? ci + 1 : 0, cj1 = cj + 1 < ny ? cj + 1 : 0;
+
+  // phase B's face column
+  const int ti = tid / kDY, tj = tid - ti * kDY;
+  const bool face_thread = tid < kTile && i0 + ti < nx && j0 + tj < ny;
+  const size_t fcol = (size_t)(i0 + ti) * ny + (j0 + tj);
+  const int own = (ti + 1) * kDCY + tj + 1;
+
+  float carry[ND];  // contributions of the cell above (dsts with k1_cz = -1)
+#pragma unroll
+  for (int d = 0; d < ND; ++d) carry[d] = 0.f;
+  float p1 = 0.f, p2 = 0.f;
+
+  for (int kp = kstart; kp < k1; ++kp) {
+    float* sc = smem + (kp & 1) * (ND * kDCells);
+    // phase A: the contributions of the cells of plane kp
+    if (kp < nz && cell_thread) {
+      const float* o_pl = ob + (size_t)kp * nxy + (size_t)ci * ny + cj;
+      auto o = [&](int ch) { return __ldcs(o_pl + (size_t)ch * ncell); };
+      auto s = [&](int q) {
+        const int i = T::k1_gx(q) ? ci1 : ci, j = T::k1_gy(q) ? cj1 : cj;
+        return __ldg(ub + (size_t)q * nface + (size_t)(kp + T::k1_gz(q)) * nxy +
+                     (size_t)i * ny + j);
+      };
+      float c[ND];
+      T::k1_contract(o, s, c);
+#pragma unroll
+      for (int d = 0; d < ND; ++d) sc[d * kDCells + slot] = c[d];
+    }
+    // plane kp's contributions are written; the buffer phase A of kp + 1
+    // fills was last read in phase B of kp - 1, which every thread has left
+    __syncthreads();
+
+    // phase B: S, A(u) and the dots at face plane kp
+    if (face_thread) {
+      float S[ND];
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        if (T::k1_cz(d) == -1) {
+          S[d] = carry[d];
+          carry[d] = kp < nz ? sc[d * kDCells + own] : 0.f;
+        } else {
+          S[d] = kp < nz ? sc[d * kDCells + own + T::k1_cx(d) * kDCY + T::k1_cy(d)] : 0.f;
+        }
+      }
+      if (kp >= k0) {
+        const size_t f = (size_t)kp * nxy + fcol;
+        auto uf = [&](int q) { return __ldg(ub + (size_t)q * nface + f); };
+        if (kp == nz) T::k1_closure(uf, albedo[(size_t)b * nxy + fcol], S);
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          const float a = uf(d) - S[d];
+          Ab[(size_t)d * nface + f] = a;
+          p1 += __ldcs(wb + (size_t)d * nface + f) * a;
+          p2 += a * a;
+        }
+      }
+    }
+  }
+
+  block_sum2<kDThreads>(p1, p2);
   if (tid == 0) {
     float* pb = partials + ((size_t)b * gridDim.x + blockIdx.x) * 2;
     pb[0] = p1;
@@ -338,27 +490,46 @@ reduce_partials_kernel(const float* __restrict__ partials, float* __restrict__ d
   }
 }
 
-template <int ND>
-cudaError_t contract_nd(const float* src, const float* orb, float* out,
-                        const OrbitTables* t, int batch, int ncell, cudaStream_t stream) {
+template <class T>
+cudaError_t contract(const float* src, const float* orb, float* out, int batch, int ncell,
+                     cudaStream_t stream) {
   dim3 grid((ncell + kThreads - 1) / kThreads, batch);
-  orbit_contract_kernel<ND><<<grid, kThreads, 0, stream>>>(src, orb, out, *t, ncell);
+  orbit_contract_kernel<T><<<grid, kThreads, 0, stream>>>(src, orb, out, ncell);
   return cudaGetLastError();
 }
 
-// K1 blocks resident on the current card (0 on an error).  The shared-memory
-// limit is an attribute of each device's context, so it is raised, and the
-// occupancy read, once per device ordinal.
+// K1 of table set T: its kernel, block size, shared memory and tile
+template <class T> struct K1 {
+  static constexpr bool kStaged = Staged<T>::kFits;
+  static constexpr int kThreadsPerBlock = kStaged ? kK1Threads : kDThreads;
+  static constexpr size_t kSmem = kStaged ? Staged<T>::kSmem : direct_smem<T>();
+  static constexpr int kTileX = kStaged ? kTX : kDX, kTileY = kStaged ? kTY : kDY;
+  static auto kernel() {  // the other design is not instantiated for T
+    if constexpr (kStaged)
+      return &fused_A_kernel<T>;
+    else
+      return &fused_A_direct_kernel<T>;
+  }
+  static int tiles(int nx, int ny) {
+    return ((nx + kTileX - 1) / kTileX) * ((ny + kTileY - 1) / kTileY);
+  }
+};
+
+// K1 blocks of table set T resident on the current card (0 on an error).
+// The shared-memory limit is an attribute of each device's context, so it is
+// raised, and the occupancy read, once per device ordinal.
+template <class T>
 int k1_slots() {
   static std::atomic<int> cached[kMaxDevices];
   int dev = 0, nsm = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (dev < kMaxDevices && cached[dev].load() > 0) return cached[dev].load();
+  const auto fn = K1<T>::kernel();
   if (cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaFuncSetAttribute(fused_A_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kK1Smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_A_kernel, kK1Threads,
-                                                    kK1Smem) != cudaSuccess)
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)K1<T>::kSmem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, K1<T>::kThreadsPerBlock,
+                                                    K1<T>::kSmem) != cudaSuccess)
     return 0;
   const int slots = nsm * std::max(per_sm, 1);
   if (dev < kMaxDevices) cached[dev].store(slots);
@@ -367,42 +538,78 @@ int k1_slots() {
 
 // z chunks per tile: enough blocks to fill the card, at least kMinPlanes
 // face planes each
+template <class T>
 int k1_zsplit(int batch, int nz, int nx, int ny) {
-  const long tiles = (long)((nx + kTX - 1) / kTX) * ((ny + kTY - 1) / kTY) * std::max(batch, 1);
+  const long tiles = (long)K1<T>::tiles(nx, ny) * std::max(batch, 1);
   const int zmax = std::max(1, (nz + 1) / kMinPlanes);
-  const long fill = std::max(1L, (long)k1_slots() / tiles);
+  const long fill = std::max(1L, (long)k1_slots<T>() / tiles);
   return (int)std::min<long>(fill, zmax);
 }
 
-}  // namespace
-
-extern "C" int fused_A_dots_blocks(int batch, int nz, int nx, int ny) {
-  const int tiles = ((nx + kTX - 1) / kTX) * ((ny + kTY - 1) / kTY);
-  return tiles * k1_zsplit(batch, nz, nx, ny);
+template <class T>
+int k1_blocks(int batch, int nz, int nx, int ny) {
+  return K1<T>::tiles(nx, ny) * k1_zsplit<T>(batch, nz, nx, ny);
 }
 
-extern "C" cudaError_t launch_orbit_contract(const float* src, const float* orb, float* out,
-                                             const OrbitTables* t, int batch, int ncell,
-                                             cudaStream_t stream) {
-  if (t->nd != 10) return cudaErrorInvalidValue;  // built for 3_10 only
-  return contract_nd<10>(src, orb, out, t, batch, ncell, stream);
-}
-
-extern "C" cudaError_t launch_fused_A_dots(const float* u, const float* w, const float* orb,
-                                           const float* albedo, float* Au, float* partials,
-                                           float* dots, int batch, int nz, int nx, int ny,
-                                           cudaStream_t stream) {
-  if (k1_slots() == 0) {
+template <class T>
+cudaError_t launch_k1(const float* u, const float* w, const float* orb, const float* albedo,
+                      float* Au, float* partials, float* dots, int batch, int nz, int nx, int ny,
+                      cudaStream_t stream) {
+  if (k1_slots<T>() == 0) {
     const cudaError_t err = cudaGetLastError();
     return err != cudaSuccess ? err : cudaErrorUnknown;
   }
-  const int zsplit = k1_zsplit(batch, nz, nx, ny);
-  const int nblk = fused_A_dots_blocks(batch, nz, nx, ny);
+  const int zsplit = k1_zsplit<T>(batch, nz, nx, ny);
+  const int nblk = K1<T>::tiles(nx, ny) * zsplit;
   dim3 grid(nblk, batch);
-  fused_A_kernel<<<grid, kK1Threads, kK1Smem, stream>>>(u, w, orb, albedo, Au, partials, nz, nx,
-                                                        ny, zsplit);
+  K1<T>::kernel()<<<grid, K1<T>::kThreadsPerBlock, K1<T>::kSmem, stream>>>(
+      u, w, orb, albedo, Au, partials, nz, nx, ny, zsplit);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   reduce_partials_kernel<<<batch, kThreads, 0, stream>>>(partials, dots, nblk);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int orbit_scheme_dims(int inst, int* nd, int* norb) {
+#define DIMS(q, T)       \
+  if (inst == q) {       \
+    *nd = T::K1_ND;      \
+    *norb = T::K1_NORB;  \
+    return 0;            \
+  }
+  TS_ORBIT_SCHEMES(DIMS)
+#undef DIMS
+  return -1;
+}
+
+extern "C" int fused_A_dots_blocks(int inst, int batch, int nz, int nx, int ny) {
+#define BLOCKS(q, T) \
+  if (inst == q) return k1_blocks<T>(batch, nz, nx, ny);
+  TS_ORBIT_SCHEMES(BLOCKS)
+#undef BLOCKS
+  return 0;
+}
+
+extern "C" cudaError_t launch_orbit_contract(int inst, const float* src, const float* orb,
+                                             float* out, int batch, int ncell,
+                                             cudaStream_t stream) {
+#define CONTRACT(q, T) \
+  if (inst == q) return contract<T>(src, orb, out, batch, ncell, stream);
+  TS_ORBIT_SCHEMES(CONTRACT)
+#undef CONTRACT
+  return cudaErrorInvalidValue;
+}
+
+extern "C" cudaError_t launch_fused_A_dots(int inst, const float* u, const float* w,
+                                           const float* orb, const float* albedo, float* Au,
+                                           float* partials, float* dots, int batch, int nz,
+                                           int nx, int ny, cudaStream_t stream) {
+#define LAUNCH(q, T)                                                                     \
+  if (inst == q)                                                                         \
+    return launch_k1<T>(u, w, orb, albedo, Au, partials, dots, batch, nz, nx, ny, stream);
+  TS_ORBIT_SCHEMES(LAUNCH)
+#undef LAUNCH
+  return cudaErrorInvalidValue;
 }

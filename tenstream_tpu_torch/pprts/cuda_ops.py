@@ -22,13 +22,18 @@ shared memory, coefficients in 16-byte vectors, writes in cell space) and
 takes shift tables with gshift in {0, 1} and cshift in {-1, 0} only
 (`_k3_shift_refusal`); `dense_launch_config` reports its blocks per SM.
 
-All take a leading batch dim B (K1 returns per-batch dots), and are built
-for the 10 diffuse dofs of 3_10 and 8_10 (the plain versions take any
-scheme).  K1 is compiled for 3_10's orbit and shift tables, which 8_10
-shares, and refuses a scheme whose tables differ: they are code
-in `csrc/orbit_3_10.h`, which `orbit_header_text` generates from the same
-Python tables the plain version uses, and `load_extension` refuses to build
-from a header that differs from it.  A wrapper
+All take a leading batch dim B (K1 returns per-batch dots).  K1 and K2
+are compiled once for each distinct set of diffuse tables among the cube
+schemes (`ORBIT_SCHEMES`: 3_10, which 8_10 shares, 3_6, 8_12, 3_16, which
+8_16 shares, 8_18, 3_24 and 3_30): the orbit contraction, the shifts and
+the surface closure are code in `csrc/orbit_<scheme>.h`, which
+`orbit_header_text` generates from the same Python tables the plain
+versions use, and `load_extension` refuses to build from a header that
+differs from it.  A call finds its instantiation by comparing the scheme's
+tables with each compiled set (`_orbit_instantiation`), not by name, and
+raises where none matches.  K3 takes its shifts at run time and is
+instantiated for each diffuse dof count of those schemes (`DENSE_NDS`).
+The plain versions take any scheme.  A wrapper
 runs the plain version only because its tensors lie on the CPU; on a CUDA
 tensor it launches the kernel (or raises) -- there is no fallback.  Each
 launch adds one to `LAUNCHES[name]`.
@@ -58,7 +63,7 @@ from tenstream_tpu_torch.pprts.operators import (
     scatter_diff_dst,
     surface_closure_rows,
 )
-from tenstream_tpu_torch.streams import StreamScheme
+from tenstream_tpu_torch.streams import StreamScheme, get_scheme
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -70,7 +75,15 @@ CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
 LAUNCHES: Dict[str, int] = {"fused_A_dots": 0, "orbit_contract": 0, "diffuse_apply_dense": 0,
                             "boxmc_trace": 0}
 
-_TS_MAXD = 10
+# The table sets K1 and K2 are compiled for, each named by the first scheme
+# that has it: 8_10 has 3_10's diffuse tables and 8_16 has 3_16's
+# (`tests/test_torch_kernels.py` checks which schemes share one).  The order is
+# the instantiation index `csrc/orbit_schemes.h` dispatches on.
+ORBIT_SCHEMES = ("3_10", "3_6", "8_12", "3_16", "8_18", "3_24", "3_30")
+ORBIT_INDEX_HEADER = "orbit_schemes.h"
+# K3's instantiations: the diffuse dof counts of those schemes (csrc/dense_ops.cu
+# dispatches on nd through the list orbit_schemes.h carries)
+DENSE_NDS = tuple(sorted({get_scheme(n).ndiff for n in ORBIT_SCHEMES}))
 
 
 def reset_launch_counts() -> None:
@@ -83,7 +96,7 @@ def load_extension(verbose: bool = False):
     """Build (once per process) and load the kernels' extension."""
     from torch.utils.cpp_extension import load
 
-    _check_header()
+    _check_headers()
     os.makedirs(BUILD_DIR, exist_ok=True)
     return load(
         name="tenstream_torch_kernels",
@@ -96,90 +109,126 @@ def load_extension(verbose: bool = False):
     )
 
 
-HEADER_3_10 = "orbit_3_10.h"  # K1's compile-time tables, generated by orbit_header_text
+def orbit_header_name(name: str) -> str:
+    """The generated header of the table set named `name`."""
+    return f"orbit_{name}.h"
+
+
+def _scheme_tables(scheme: StreamScheme):
+    """A scheme's shift and surface-closure tables: the part of what K1
+    compiles in that does not depend on the orbit table."""
+    return _shift_tables(scheme), surface_closure_rows(scheme)
 
 
 @functools.lru_cache(maxsize=None)
-def _k1_tables():
-    """The 3_10 tables K1 is compiled for: (idx, norb, groups, cshift,
-    gshift, dn, up)."""
+def _k1_tables(name: str):
+    """The tables of the set named `name` (a scheme of ORBIT_SCHEMES): (idx,
+    norb, groups, cshift, gshift, dn, up)."""
     from tenstream_tpu_torch.optprop.facade import diff_pair_orbits
-    from tenstream_tpu_torch.streams import get_scheme
 
-    scheme = get_scheme("3_10")
+    scheme = get_scheme(name)
     idx, norb = diff_pair_orbits(scheme, with_mz=False)
     idx = np.asarray(idx, np.int64)
-    cshift, gshift = _shift_tables(scheme)
-    dn, up = surface_closure_rows(scheme)
+    (cshift, gshift), (dn, up) = _scheme_tables(scheme)
     return idx, int(norb), orbit_groups(idx), cshift, gshift, dn, up
 
 
 def _ternary(name: str, var: str, vals) -> str:
     """A constexpr function of dof `var` returning vals[var] (0 where unlisted)."""
     expr = "".join(f"{var} == {q} ? {v} : " for q, v in enumerate(vals) if v != 0) + "0"
-    return f"__host__ __device__ constexpr int {name}(int {var}) {{ return {expr}; }}"
+    return f"  __host__ __device__ static constexpr int {name}(int {var}) {{ return {expr}; }}"
 
 
-def orbit_header_text() -> str:
-    """The text of `csrc/orbit_3_10.h`: K1's orbit contraction, shifts and
-    surface closure for the 3_10 scheme as compile-time code, generated from
-    the same Python tables the plain version uses (`orbit_groups`,
-    `_shift_tables`, `surface_closure_rows`), in the plain version's order
-    of sums."""
-    idx, norb, groups, cshift, gshift, dn, up = _k1_tables()
+def orbit_header_text(name: str) -> str:
+    """The text of `csrc/orbit_<name>.h`: the struct `Orbit_<name>` holding
+    K1's and K2's orbit contraction, shifts and surface closure for the table
+    set `name` as compile-time code, generated from the same Python tables
+    the plain version uses (`orbit_groups`, `_shift_tables`,
+    `surface_closure_rows`), in the plain version's order of sums."""
+    idx, norb, groups, cshift, gshift, dn, up = _k1_tables(name)
     nd = len(groups)
     lines = [
-        "// K1's tables for the 3_10 scheme as compile-time code.  Generated by",
+        f"// K1's and K2's tables for the {name} scheme (and every scheme with the same",
+        "// diffuse tables) as compile-time code.  Generated by",
         "// tenstream_tpu_torch/pprts/cuda_ops.py::orbit_header_text from the tables of",
-        "// the plain version (orbit_groups of diff_pair_orbits(3_10, with_mz=False),",
+        f"// the plain version (orbit_groups of diff_pair_orbits({name}, with_mz=False),",
         "// _shift_tables, surface_closure_rows); do not edit: load_extension refuses",
         "// to build from a copy that differs from what they generate.",
         "#pragma once",
         "",
-        f"#define K1_ND {nd}",
-        f"#define K1_NORB {norb}",
+        f"struct Orbit_{name} {{",
+        f"  static constexpr int K1_ND = {nd};",
+        f"  static constexpr int K1_NORB = {norb};",
         "",
-        "// source s of a cell (k, i, j) is u[s] at face (k, i, j) + (k1_gz, k1_gx, k1_gy)(s)",
+        "  // source s of a cell (k, i, j) is u[s] at face (k, i, j) + (k1_gz, k1_gx, k1_gy)(s)",
     ]
-    for q, name in enumerate(("k1_gz", "k1_gx", "k1_gy")):
-        lines.append(_ternary(name, "s", [g[q] for g in gshift]))
-    lines.append("// dst d at face (k, i, j) is produced by the cell (k, i, j) + "
+    for q, fn in enumerate(("k1_gz", "k1_gx", "k1_gy")):
+        lines.append(_ternary(fn, "s", [g[q] for g in gshift]))
+    lines.append("  // dst d at face (k, i, j) is produced by the cell (k, i, j) + "
                  "(k1_cz, k1_cx, k1_cy)(d)")
-    for q, name in enumerate(("k1_cz", "k1_cx", "k1_cy")):
-        lines.append(_ternary(name, "d", [c[q] for c in cshift]))
+    for q, fn in enumerate(("k1_cz", "k1_cx", "k1_cy")):
+        lines.append(_ternary(fn, "d", [c[q] for c in cshift]))
     lines += [
-        "// one cell's contributions: c[d] = sum over the orbit groups (o, ss) of dst d of",
-        "// o(o) * (sum of s(src) over ss), groups in orbit order, as the plain version",
-        "template <class O, class S>",
-        "__device__ __forceinline__ void k1_contract(O o, S s, float* c) {",
+        "  // one cell's contributions: c[d] = sum over the orbit groups (o, ss) of dst d of",
+        "  // o(o) * (sum of s(src) over ss), groups in orbit order, as the plain version",
+        "  template <class O, class S>",
+        "  __device__ static __forceinline__ void k1_contract(O o, S s, float* c) {",
     ]
     for d in range(nd):
         terms = []
         for o, ss in groups[d]:
             ssum = " + ".join(f"s({q})" for q in ss)
             terms.append(f"o({o}) * " + (f"({ssum})" if len(ss) > 1 else ssum))
-        lines.append(f"  c[{d}] = " + " + ".join(terms) + ";")
+        lines.append(f"    c[{d}] = " + " + ".join(terms) + ";")
     lines += [
-        "}",
+        "  }",
         "",
-        "// Lambertian surface closure on face nz: the up dofs gain albedo * (sum of the",
-        "// down dofs) * their hemisphere weight",
-        "template <class U>",
-        "__device__ __forceinline__ void k1_closure(U u, float alb, float* S) {",
-        "  const float edn = " + " + ".join(f"u({d})" for d in dn) + ";",
+        "  // Lambertian surface closure on face nz: the up dofs gain albedo * (sum of the",
+        "  // down dofs) * their hemisphere weight",
+        "  template <class U>",
+        "  __device__ static __forceinline__ void k1_closure(U u, float alb, float* S) {",
+        "    const float edn = " + " + ".join(f"u({d})" for d in dn) + ";",
     ]
     for d, wt in up:
-        lines.append(f"  S[{d}] += alb * edn * {float(np.float32(wt))!r}f;")
-    lines += ["}", ""]
+        lines.append(f"    S[{d}] += alb * edn * {float(np.float32(wt))!r}f;")
+    lines += ["  }", "};", ""]
     return "\n".join(lines)
 
 
-def _check_header() -> None:
-    path = os.path.join(CSRC, HEADER_3_10)
-    with open(path) as f:
-        if f.read() != orbit_header_text():
-            raise RuntimeError(f"{path} differs from what orbit_header_text() generates; "
-                               "regenerate it from the Python tables")
+def orbit_index_text() -> str:
+    """The text of `csrc/orbit_schemes.h`: every generated header, the list
+    of K1/K2 instantiations (index, struct) and K3's dof counts, which the
+    kernels dispatch on."""
+    lines = [
+        "// The table sets K1 and K2 are compiled for, in the order of",
+        "// tenstream_tpu_torch/pprts/cuda_ops.py::ORBIT_SCHEMES (the instantiation index).",
+        "// Generated by cuda_ops.py::orbit_index_text; do not edit.",
+        "#pragma once",
+        "",
+    ]
+    lines += [f'#include "{orbit_header_name(n)}"' for n in ORBIT_SCHEMES]
+    lines += ["", "// X(instantiation index, tables struct)", "#define TS_ORBIT_SCHEMES(X) \\"]
+    lines += [f"  X({q}, Orbit_{n})" + (" \\" if q < len(ORBIT_SCHEMES) - 1 else "")
+              for q, n in enumerate(ORBIT_SCHEMES)]
+    lines += ["", "// the diffuse dof counts K3 is instantiated for: X(nd)",
+              "#define TS_DENSE_NDS(X) " + " ".join(f"X({nd})" for nd in DENSE_NDS), ""]
+    return "\n".join(lines)
+
+
+def generated_headers() -> Dict[str, str]:
+    """file name in csrc/ -> the text its generator writes."""
+    out = {orbit_header_name(n): orbit_header_text(n) for n in ORBIT_SCHEMES}
+    out[ORBIT_INDEX_HEADER] = orbit_index_text()
+    return out
+
+
+def _check_headers() -> None:
+    for fname, text in generated_headers().items():
+        path = os.path.join(CSRC, fname)
+        with open(path) as f:
+            if f.read() != text:
+                raise RuntimeError(f"{path} differs from what cuda_ops.generated_headers() "
+                                   "writes; regenerate it from the Python tables")
 
 
 def _shift_tables(scheme: StreamScheme):
@@ -201,28 +250,23 @@ def _shift_tables(scheme: StreamScheme):
     return tuple(cshift), tuple(gshift)
 
 
-@functools.lru_cache(maxsize=None)
-def _tables_cached(scheme: StreamScheme, idx_bytes: bytes, norb: int):
-    nd = scheme.ndiff
-    if nd != _TS_MAXD:
-        raise ValueError(f"the kernels are built for the 3_10 scheme ({_TS_MAXD} diffuse "
-                         f"dofs); scheme {scheme.name} has {nd}")
-    idx = np.frombuffer(idx_bytes, np.int64).reshape(nd, nd)
-    groups = orbit_groups(idx)
-    D = _TS_MAXD
-    ngroups = [0] * D
-    gorb = [[0] * D for _ in range(D)]
-    gmask = [[0] * D for _ in range(D)]
-    for d in range(nd):
-        ngroups[d] = len(groups[d])
-        for g, (o, ss) in enumerate(groups[d]):
-            gorb[d][g] = o
-            gmask[d][g] = sum(1 << s for s in ss)
-    return [nd, norb] + ngroups + sum(gorb, []) + sum(gmask, [])
-
-
-def _tables(scheme: StreamScheme, idx: np.ndarray, norb: int):
-    return _tables_cached(scheme, np.ascontiguousarray(idx, np.int64).tobytes(), int(norb))
+def _orbit_instantiation(scheme: StreamScheme, idx: np.ndarray, norb: int) -> int:
+    """The index in ORBIT_SCHEMES of the table set K1 and K2 are compiled
+    for that equals the scheme's orbit table `idx` (norb channels), shift
+    tables and surface closure; raise where none does.  The check is by
+    tables, not by name: 8_10 runs on 3_10's instantiation, 8_16 on 3_16's."""
+    idx = np.asarray(idx)
+    own = None
+    for q, name in enumerate(ORBIT_SCHEMES):
+        k_idx, k_norb, _, k_cshift, k_gshift, k_dn, k_up = _k1_tables(name)
+        if norb != k_norb or idx.shape != k_idx.shape or not np.array_equal(idx, k_idx):
+            continue
+        own = own or _scheme_tables(scheme)
+        if own == ((k_cshift, k_gshift), (k_dn, k_up)):
+            return q
+    raise ValueError(f"K1 and K2 are compiled for the orbit tables of the schemes "
+                     f"{', '.join(ORBIT_SCHEMES)} (csrc/orbit_<scheme>.h); scheme {scheme.name} "
+                     f"with {norb} channels matches none of them")
 
 
 def _require_cuda(*ts: torch.Tensor) -> None:
@@ -248,7 +292,8 @@ def orbit_contract(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
     if src.device.type == "cpu" and orb.device.type == "cpu":
         return orbit_contract_plain(idx, orb, src)
     _require_cuda(src, orb)
-    out = load_extension().orbit_contract(src, orb, _tables(scheme, idx, orb.shape[1]))
+    inst = _orbit_instantiation(scheme, idx, orb.shape[1])
+    out = load_extension().orbit_contract(src, orb, inst)
     LAUNCHES["orbit_contract"] += 1
     return out
 
@@ -289,19 +334,6 @@ def fused_A_dots_plain(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
     return Au, dots
 
 
-def _k1_refusal(scheme: StreamScheme, idx: np.ndarray, norb: int) -> None:
-    """K1 is compiled for 3_10's orbit, shift and surface-closure tables;
-    raise for a scheme whose tables differ.  The check is by tables, not by
-    name: 8_10's diffuse layout and orbits equal 3_10's."""
-    k_idx, k_norb, _, k_cshift, k_gshift, k_dn, k_up = _k1_tables()
-    same = (norb == k_norb and np.shape(idx) == k_idx.shape and np.array_equal(idx, k_idx)
-            and _shift_tables(scheme) == (k_cshift, k_gshift)
-            and surface_closure_rows(scheme) == (k_dn, k_up))
-    if not same:
-        raise ValueError(f"K1 is compiled for the 3_10 scheme's orbit tables "
-                         f"({HEADER_3_10}); got scheme {scheme.name} with {norb} channels")
-
-
 def fused_A_dots(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
                  u: torch.Tensor, w: torch.Tensor,
                  albedo: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -309,8 +341,8 @@ def fused_A_dots(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
     if all(t.device.type == "cpu" for t in (u, w, orb, albedo)):
         return fused_A_dots_plain(scheme, idx, orb, u, w, albedo)
     _require_cuda(u, w, orb, albedo)
-    _k1_refusal(scheme, idx, orb.shape[1])
-    Au, dots = load_extension().fused_A_dots(u, w, orb, albedo)
+    inst = _orbit_instantiation(scheme, idx, orb.shape[1])
+    Au, dots = load_extension().fused_A_dots(u, w, orb, albedo, inst)
     LAUNCHES["fused_A_dots"] += 1
     return Au, dots
 
@@ -334,21 +366,24 @@ def _k3_shift_refusal(name: str, cshift, gshift) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _dense_tables(scheme: StreamScheme):
-    """[nd] + gz + gx + gy + cz + cx + cy: src s is read at cell + g*[s],
-    dst d is produced by the cell face + c*[d]."""
+    """[nd] + gz + gx + gy + cz + cx + cy, nd entries each: src s is read at
+    cell + g*[s], dst d is produced by the cell face + c*[d].  Raises for a
+    dof count K3 is not instantiated for."""
     nd = scheme.ndiff
-    if nd != _TS_MAXD:
-        raise ValueError(f"the kernels are built for the 3_10 scheme ({_TS_MAXD} diffuse "
-                         f"dofs); scheme {scheme.name} has {nd}")
+    if nd not in DENSE_NDS:
+        raise ValueError(f"K3 is instantiated for {DENSE_NDS} diffuse dofs; scheme "
+                         f"{scheme.name} has {nd}")
     cshift, gshift = _shift_tables(scheme)
     _k3_shift_refusal(scheme.name, cshift, gshift)
     return [nd] + [sh[a][q] for sh in (gshift, cshift) for q in range(3) for a in range(nd)]
 
 
-def dense_launch_config(dtype: torch.dtype) -> Dict[str, int]:
+def dense_launch_config(dtype: torch.dtype, nd: int = 10) -> Dict[str, int]:
     """K3's launch configuration on the current CUDA device for float32 or
-    bfloat16 coefficients: threads and shared memory per block, blocks per SM."""
-    threads, smem, per_sm = load_extension().diffuse_apply_dense_config(dtype == torch.bfloat16)
+    bfloat16 coefficients and nd diffuse dofs: threads and shared memory per
+    block, blocks per SM."""
+    threads, smem, per_sm = load_extension().diffuse_apply_dense_config(
+        dtype == torch.bfloat16, nd)
     return {"threads": threads, "smem_bytes": smem, "blocks_per_sm": per_sm}
 
 

@@ -5,9 +5,11 @@
   solar at two suns (the beam travelling +x/+y and -x/-y) and thermal.
   Gates: fluxes within 0.1 W/m2 and absorption within 1e-4 W/m3 (the
   golden gates; LUT-interpolated dir2dir on both sides), niter within 2.
-- K1 refuses a scheme by its compiled tables, not by its name: 8_10,
-  whose diffuse orbits, shifts and surface closure equal 3_10's, passes;
-  tables that differ raise.  (K1 on the card: `tests/test_torch_cuda.py`.)
+- K1 and K2 find their instantiation by the scheme's tables, not by its
+  name: 8_10, whose diffuse orbits, shifts and surface closure equal
+  3_10's, runs on 3_10's; every compiled table set is accepted, and tables
+  that match none (a reversed orbit table, moved shifts) raise.  (The
+  kernels on the card: `tests/test_torch_cuda.py`.)
 - `debug_nans` and an explicit `pprts_assembly_z_slab` raise and name
   their ROADMAP item."""
 
@@ -96,30 +98,42 @@ def test_8_10_solve_matches_jax(jlut, phi, theta, lthermal):
 def test_k1_refusal_is_by_tables_not_by_name():
     k_idx, k_norb = diff_pair_orbits(get_scheme("3_10"), with_mz=False)
     idx, norb = diff_pair_orbits(get_scheme("8_10"), with_mz=False)
-    cuda_ops._k1_refusal(get_scheme("8_10"), np.asarray(idx, np.int64), norb)  # accepted
-    cuda_ops._k1_refusal(get_scheme("3_10"), np.asarray(k_idx, np.int64), k_norb)
+    # 8_10 runs on 3_10's instantiation; every compiled table set is accepted
+    assert cuda_ops._orbit_instantiation(get_scheme("8_10"), np.asarray(idx, np.int64), norb) == 0
+    for q, name in enumerate(cuda_ops.ORBIT_SCHEMES):
+        o_idx, o_norb = diff_pair_orbits(get_scheme(name), with_mz=False)
+        assert cuda_ops._orbit_instantiation(get_scheme(name), np.asarray(o_idx, np.int64),
+                                             o_norb) == q
     # 8_10's orbit table, but tables of another layout: refused
-    with pytest.raises(ValueError, match="3_10 scheme's orbit tables"):
-        cuda_ops._k1_refusal(get_scheme("3_6"), np.asarray(idx, np.int64), norb)
-    with pytest.raises(ValueError, match="3_10 scheme's orbit tables"):
-        cuda_ops._k1_refusal(get_scheme("8_10"), np.asarray(idx, np.int64)[::-1], norb)
+    with pytest.raises(ValueError, match="matches none"):
+        cuda_ops._orbit_instantiation(get_scheme("3_6"), np.asarray(idx, np.int64), norb)
+    with pytest.raises(ValueError, match="matches none"):
+        cuda_ops._orbit_instantiation(get_scheme("8_10"), np.asarray(idx, np.int64)[::-1], norb)
+    assert np.array_equal(idx, k_idx) and norb == k_norb
 
 
 def test_k1_refuses_a_scheme_whose_shift_tables_differ(monkeypatch):
     """Equal orbit tables, other shift tables: the check reads the shifts."""
     idx, norb = diff_pair_orbits(get_scheme("8_10"), with_mz=False)
     cshift, gshift = cuda_ops._shift_tables(get_scheme("8_10"))
+    for name in cuda_ops.ORBIT_SCHEMES:  # the compiled sets' tables, before the patch
+        cuda_ops._k1_tables(name)
     moved = (cshift, (gshift[1],) + gshift[:1] + gshift[2:])
     monkeypatch.setattr(cuda_ops, "_shift_tables", lambda scheme: moved)
-    with pytest.raises(ValueError, match="3_10 scheme's orbit tables"):
-        cuda_ops._k1_refusal(get_scheme("8_10"), np.asarray(idx, np.int64), norb)
+    with pytest.raises(ValueError, match="matches none"):
+        cuda_ops._orbit_instantiation(get_scheme("8_10"), np.asarray(idx, np.int64), norb)
 
 
 def test_8_10_dense_tables_accepted():
-    """K2 and K3 refuse by diffuse dof count: 8_10 has 3_10's 10."""
-    idx, norb = diff_pair_orbits(get_scheme("8_10"), with_mz=False)
+    """K3 is instantiated by diffuse dof count and takes the shifts at run
+    time: 8_10 has 3_10's 10 dofs and shifts; every cube scheme's dof count
+    is accepted, 1_2's 2 are not."""
     assert cuda_ops._dense_tables(get_scheme("8_10")) == cuda_ops._dense_tables(get_scheme("3_10"))
-    assert cuda_ops._tables(get_scheme("8_10"), np.asarray(idx, np.int64), norb)[:2] == [10, 24]
+    for name in cuda_ops.ORBIT_SCHEMES + ("8_16",):
+        ts = get_scheme(name)
+        assert len(cuda_ops._dense_tables(ts)) == 1 + 6 * ts.ndiff
+    with pytest.raises(ValueError, match="K3 is instantiated for"):
+        cuda_ops._dense_tables(get_scheme("1_2"))
 
 
 @pytest.mark.parametrize("opts,item", [({"debug_nans": True}, "M4 remainder"),

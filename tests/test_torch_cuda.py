@@ -10,17 +10,21 @@ JAX up for the CPU tests):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerances: fields are sums of at most ~24 float32 products in another
-order (atol 3e-6 on O(1) values); the dots sum ~1e5 terms (rtol 2e-5).
-K3 sums 10 float32 products per value in the plain version's order or
-another (atol 3e-6); kernel and plain version read the same bfloat16
-coefficients as float32, so the bound is the same for both types.  K4
+Tolerances: fields are sums of float32 products in another order (atol
+3e-6 on O(1) values at 3_10's 24 channels, and per dst at most 30 groups of
+coefficients in [0, 0.1) at the larger schemes: atol 1e-5 there); the dots
+sum ~1e5 terms (rtol 2e-5).  K3 sums nd float32 products per value in the
+plain version's order or another (atol 3e-6 at 10 dofs, 1e-5 at up to 30);
+kernel and plain version read the same bfloat16 coefficients as float32, so
+the bound is the same for both types.  K4
 and its plain version do the same IEEE float32 arithmetic per photon (K4
 stops a photon at its exit, the plain version too); a rare flipped
 comparison moves one photon's weight (1/5120), so tallies are held at
 three photons' weight (6e-4), their mean at 1e-5 and the photon-steps at
 0.1%.  Where both sum the photons' records in K4's order, they agree bit
-for bit.  K1 is compiled for the 3_10 orbit tables and refuses others."""
+for bit.  K1 and K2 are compiled for the table sets of
+`cuda_ops.ORBIT_SCHEMES` and refuse other tables; K3 for the dof counts of
+`cuda_ops.DENSE_NDS`."""
 
 import numpy as np
 import pytest
@@ -32,7 +36,10 @@ from tenstream_tpu_torch.pprts import cuda_ops
 from tenstream_tpu_torch.streams import get_scheme
 
 FIELD_ATOL = 3e-6
+WIDE_FIELD_ATOL = 1e-5  # schemes with more than 10 diffuse dofs
 DOT_RTOL = 2e-5
+# one scheme per K1/K2 instantiation, and the schemes that share one
+SCHEMES = ("3_10", "3_6", "8_12", "3_16", "8_18", "3_24", "3_30", "8_10", "8_16")
 
 
 @pytest.fixture
@@ -45,7 +52,7 @@ def cuda_device():
 def _inputs(name, B, nz, nx, ny, seed):
     scheme = get_scheme(name)
     nd = scheme.ndiff
-    if name == "3_10":
+    if name in SCHEMES:
         idx, norb = diff_pair_orbits(scheme, with_mz=False)
         idx = np.asarray(idx, np.int64)
     else:
@@ -64,9 +71,14 @@ def _inputs(name, B, nz, nx, ny, seed):
 @pytest.mark.parametrize("name,B,nz,nx,ny", [("3_10", 2, 5, 6, 10), ("3_10", 1, 39, 64, 64),
                                              ("3_10", 1, 4, 3, 33), ("3_10", 3, 1, 1, 1),
                                              ("3_10", 1, 7, 33, 65), ("3_10", 1, 39, 256, 256),
-                                             ("3_10", 8, 24, 64, 64)])
+                                             ("3_10", 8, 24, 64, 64)]
+                         + [(n, B, nz, nx, ny) for n in SCHEMES[1:]
+                            for B, nz, nx, ny in ((2, 5, 6, 10), (1, 7, 33, 65), (3, 1, 1, 1),
+                                                  (1, 39, 64, 64))])
 def test_cuda_kernels_match_plain(cuda_device, name, B, nz, nx, ny):
+    """K1 and K2 of every instantiation, against their plain versions."""
     ts, idx, orb, u, w, alb, src = _inputs(name, B, nz, nx, ny, seed=2)
+    atol = FIELD_ATOL if ts.ndiff <= 10 else WIDE_FIELD_ATOL
     dev = lambda a: torch.as_tensor(a, device=cuda_device)
     cuda_ops.reset_launch_counts()
     Au, dots = cuda_ops.fused_A_dots(ts, idx, dev(orb), dev(u), dev(w), dev(alb))
@@ -76,9 +88,9 @@ def test_cuda_kernels_match_plain(cuda_device, name, B, nz, nx, ny):
                                  "diffuse_apply_dense": 0, "boxmc_trace": 0}
     Au_p, dots_p = cuda_ops.fused_A_dots_plain(ts, idx, dev(orb), dev(u), dev(w), dev(alb))
     out_p = cuda_ops.orbit_contract_plain(idx, dev(orb), dev(src))
-    np.testing.assert_allclose(Au.cpu().numpy(), Au_p.cpu().numpy(), atol=FIELD_ATOL)
+    np.testing.assert_allclose(Au.cpu().numpy(), Au_p.cpu().numpy(), atol=atol)
     np.testing.assert_allclose(dots.cpu().numpy(), dots_p.cpu().numpy(), rtol=DOT_RTOL)
-    np.testing.assert_allclose(out.cpu().numpy(), out_p.cpu().numpy(), atol=FIELD_ATOL)
+    np.testing.assert_allclose(out.cpu().numpy(), out_p.cpu().numpy(), atol=atol)
 
 
 @pytest.mark.cuda
@@ -108,6 +120,31 @@ def test_cuda_dense_apply_matches_plain(cuda_device, dtype, B, nz, nx, ny):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,nz,nx,ny", [(2, 5, 6, 10), (1, 39, 64, 64), (3, 7, 13, 130),
+                                        (1, 1, 9, 67)])
+@pytest.mark.parametrize("name", ["3_6", "8_12", "3_16", "8_18", "3_24", "3_30"])
+def test_cuda_dense_apply_by_dof_count(cuda_device, name, dtype, B, nz, nx, ny):
+    """K3 at every other dof count it is instantiated for, at ragged shapes,
+    right after a NaN-filled block of the output's size was freed."""
+    ts = get_scheme(name)
+    nd = ts.ndiff
+    rng = np.random.default_rng(nd)
+    c = torch.as_tensor((rng.random((B, nd, nd, nz, nx, ny)) * 0.1).astype(np.float32),
+                        device=cuda_device).to(dtype)
+    x = torch.as_tensor(rng.random((B, nd, nz + 1, nx, ny)).astype(np.float32),
+                        device=cuda_device)
+    cuda_ops.reset_launch_counts()
+    torch.full_like(x, float("nan"))
+    out = cuda_ops.diffuse_apply_dense(ts, c, x)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["diffuse_apply_dense"] == 1
+    ref = cuda_ops.diffuse_apply_dense_plain(ts, c, x)
+    atol = FIELD_ATOL if nd <= 10 else WIDE_FIELD_ATOL
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=atol)
+
+
+@pytest.mark.cuda
 def test_cuda_dense_apply_rejects_bad_inputs(cuda_device):
     ts = get_scheme("3_10")
     c = torch.zeros((1, 10, 10, 2, 3, 4), device=cuda_device)
@@ -120,10 +157,10 @@ def test_cuda_dense_apply_rejects_bad_inputs(cuda_device):
         cuda_ops.diffuse_apply_dense(ts, c[:, :, :, :1], x)
     with pytest.raises(RuntimeError):
         cuda_ops.diffuse_apply_dense(ts, c, x.double())
-    ts6 = get_scheme("3_6")
-    with pytest.raises(ValueError, match="3_10"):  # the kernel is built for 3_10 only
-        cuda_ops.diffuse_apply_dense(ts6, torch.zeros((1, 6, 6, 2, 3, 4), device=cuda_device),
-                                     torch.zeros((1, 6, 3, 3, 4), device=cuda_device))
+    ts2 = get_scheme("1_2")
+    with pytest.raises(ValueError, match="K3 is instantiated for"):  # no 2-dof instantiation
+        cuda_ops.diffuse_apply_dense(ts2, torch.zeros((1, 2, 2, 2, 3, 4), device=cuda_device),
+                                     torch.zeros((1, 2, 3, 3, 4), device=cuda_device))
     itab = list(cuda_ops._dense_tables(ts))
     itab[1] = -1  # gshift_z[0] outside {0, 1}: the binding refuses it too
     with pytest.raises(RuntimeError, match="gshift"):
@@ -151,10 +188,14 @@ def test_cuda_dense_apply_unaligned_views(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_dense_launch_config(cuda_device):
-    """K3 runs two blocks per SM (the shared memory of its two staged steps)."""
+    """K3 runs two blocks per SM at up to 10 dofs (the shared memory of its
+    two staged steps), one above."""
     for dtype in (torch.float32, torch.bfloat16):
         cfg = cuda_ops.dense_launch_config(dtype)
         assert cfg["blocks_per_sm"] >= 2 and cfg["smem_bytes"] > 48 * 1024, cfg
+        for nd in cuda_ops.DENSE_NDS:
+            cfg = cuda_ops.dense_launch_config(dtype, nd)
+            assert cfg["blocks_per_sm"] >= (2 if nd <= 10 else 1), (nd, cfg)
 
 
 @pytest.mark.cuda
@@ -167,12 +208,12 @@ def test_cuda_wrappers_reject_bad_inputs(cuda_device):
         cuda_ops.fused_A_dots(ts, idx, dev(orb), dev(u).double(), dev(w), dev(alb))
     with pytest.raises(RuntimeError):
         cuda_ops.fused_A_dots(ts, idx, dev(orb), dev(u)[..., ::2], dev(w)[..., ::2], dev(alb))
-    ts6, idx6, orb6, u6, w6, alb6, src6 = _inputs("3_6", 1, 2, 3, 4, seed=0)
-    with pytest.raises(ValueError, match="3_10"):  # the kernels are built for 3_10 only
-        cuda_ops.orbit_contract(ts6, idx6, dev(orb6), dev(src6))
-    with pytest.raises(ValueError, match="3_10"):
-        cuda_ops.fused_A_dots(ts6, idx6, dev(orb6), dev(u6), dev(w6), dev(alb6))
-    with pytest.raises(ValueError, match="3_10"):  # K1 is compiled for 3_10's orbit table
+    ts2, idx2, orb2, u2, w2, alb2, src2 = _inputs("1_2", 1, 2, 3, 4, seed=0)
+    with pytest.raises(ValueError, match="matches none"):  # no instantiation for 1_2's tables
+        cuda_ops.orbit_contract(ts2, idx2, dev(orb2), dev(src2))
+    with pytest.raises(ValueError, match="matches none"):
+        cuda_ops.fused_A_dots(ts2, idx2, dev(orb2), dev(u2), dev(w2), dev(alb2))
+    with pytest.raises(ValueError, match="matches none"):  # a reversed 3_10 orbit table
         cuda_ops.fused_A_dots(ts, idx[::-1].copy(), dev(orb), dev(u), dev(w), dev(alb))
 
 
@@ -268,9 +309,14 @@ def test_cuda_binding_checks_raise(cuda_device):
             ext.boxmc_trace(*args)
     ts, idx, orb, u, w, alb, _ = _inputs("3_10", 1, 2, 3, 4, seed=0)
     dev = lambda a: torch.as_tensor(a, device=cuda_device)
-    with pytest.raises(RuntimeError):  # 9 dofs where K1 is compiled for 10
+    with pytest.raises(RuntimeError):  # 9 dofs where 3_10's K1 is compiled for 10
         ext.fused_A_dots(dev(u)[:, :9].contiguous(), dev(w)[:, :9].contiguous(), dev(orb),
-                         dev(alb))
+                         dev(alb), 0)
+    with pytest.raises(RuntimeError):  # 3_10's fields on 3_6's instantiation
+        ext.fused_A_dots(dev(u), dev(w), dev(orb), dev(alb), 1)
+    for inst in (-1, len(cuda_ops.ORBIT_SCHEMES)):  # no instantiation with this index
+        with pytest.raises(RuntimeError):
+            ext.fused_A_dots(dev(u), dev(w), dev(orb), dev(alb), inst)
 
 
 def _chunk_solve(device, plain: bool):

@@ -175,12 +175,13 @@ def _emulate_dense_apply(itab, c, x):
 def test_dense_kernel_tables_emulated(name):
     ts = tget(name)
     c, x, _ = _inputs(name, 2, 3, 5, 4, seed=8)
-    if name != "3_10":  # the kernel is built for 3_10 only; its plain twin takes any scheme
-        with pytest.raises(ValueError, match="3_10"):
+    if ts.ndiff not in cuda_ops.DENSE_NDS:  # no K3 for 1_2's 2 dofs; its plain twin takes any
+        with pytest.raises(ValueError, match="K3 is instantiated for"):
             cuda_ops._dense_tables(ts)
         return
+    nd = ts.ndiff
     itab = cuda_ops._dense_tables(ts)
-    assert len(itab) == 1 + 6 * 10 and itab[0] == 10 and set(itab[1:]) <= {-1, 0, 1}
+    assert len(itab) == 1 + 6 * nd and itab[0] == nd and set(itab[1:]) <= {-1, 0, 1}
     emu = _emulate_dense_apply(itab, c.astype(np.float64), x.astype(np.float64))
     out = cuda_ops.diffuse_apply_dense_plain(ts, torch.as_tensor(c), torch.as_tensor(x))
     np.testing.assert_allclose(out.numpy(), emu, atol=FIELD_ATOL)
@@ -266,6 +267,39 @@ def test_dense_kernel_blocks_emulated(B, nz, nx, ny, bf16):
                                              tx, ty, vec, zsplit)
             assert (writes == 1).all(), (tx, ty, zsplit, np.argwhere(writes != 1)[:5])
             np.testing.assert_allclose(out, ref, atol=FIELD_ATOL)
+
+
+def _k3_tile_rows(nd):
+    """dense_ops.cu's tile_rows<ND>: the most rows (up to kTX) whose two
+    staged steps (nd dofs x (rows + 1) x 132 floats each) fit the blocks per
+    SM (two up to 10 dofs, one above) in 228 KB, 1 KB reserved per block."""
+    kx, ky = _k3_tile()
+    blocks = 2 if nd <= 10 else 1
+    rows = kx
+    while rows > 1 and 4 * 2 * nd * (rows + 1) * (ky + 4) * blocks > 228 * 1024 - 1024 * blocks:
+        rows -= 1
+    return rows
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name,B,nz,nx,ny", [("3_30", 2, 3, 13, 130), ("3_30", 1, 5, 6, 10),
+                                             ("8_12", 1, 4, 9, 67)])
+def test_dense_kernel_blocks_emulated_wide(name, B, nz, nx, ny, bf16):
+    """K3's blocking at more than 10 dofs, with the tile rows its shared
+    memory allows there (6 at 3_30, 8 up to 24 dofs): every output element
+    written exactly once, the result the plain version's."""
+    ts = tget(name)
+    itab = cuda_ops._dense_tables(ts)
+    c, x, _ = _inputs(name, B, nz, nx, ny, seed=nz + nx, bf16=bf16)
+    ref = cuda_ops.diffuse_apply_dense_plain(ts, torch.as_tensor(c), torch.as_tensor(x)).numpy()
+    vec = 8 if bf16 else 4
+    rows = _k3_tile_rows(ts.ndiff)
+    assert rows == {30: 6}.get(ts.ndiff, 8) and _k3_tile_rows(10) == 8
+    for zsplit in (1, 2):
+        out, writes = _emulate_k3_blocks(itab, c.astype(np.float64), x.astype(np.float64),
+                                         rows, _k3_tile()[1], vec, zsplit)
+        assert (writes == 1).all(), (zsplit, np.argwhere(writes != 1)[:5])
+        np.testing.assert_allclose(out, ref, atol=FIELD_ATOL)
 
 
 @pytest.mark.parametrize("name", ["3_10", "8_10"])

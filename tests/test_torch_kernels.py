@@ -3,9 +3,10 @@
 On the CPU the wrappers run their plain PyTorch versions; those are held
 against the JAX Pallas kernels in interpret mode and against the JAX XLA
 path (`diffuse_scatter` plus `jnp.vdot`), on odd and wrapping shapes and
-with a batch of B > 1.  The tables the CUDA kernels index by are checked
-by a numpy emulation of K2's indexing, and K1's compile-time
-header by parsing it against the Python tables.  The CUDA kernels
+with a batch of B > 1.  The compile-time tables of K1 and K2 (one generated
+header per table set of `cuda_ops.ORBIT_SCHEMES`) are parsed against the
+Python tables and their contraction evaluated in numpy, and every cube
+scheme is checked to find exactly one instantiation.  The CUDA kernels
 themselves are compared with the plain versions in `test_torch_cuda.py`.
 
 Tolerances: fields are sums of at most ~24 float32 products in another
@@ -114,101 +115,152 @@ def test_cpu_wrappers_count_no_launch():
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernels' tables, emulated in numpy
+# the CUDA kernels' tables: the generated headers, parsed and emulated
 # ---------------------------------------------------------------------------
 
-def _emulate_contract(itab, orb, src):
-    """numpy replica of orbit_ops.cu::orbit_contract_kernel's indexing."""
-    D = cuda_ops._TS_MAXD
-    it = iter(itab)
-    take = lambda n: [next(it) for _ in range(n)]
-    nd, norb = take(2)
-    ngroups = take(D)
-    gorb = np.array(take(D * D)).reshape(D, D)
-    gmask = np.array(take(D * D)).reshape(D, D)
-    assert next(it, None) is None and norb == orb.shape[1]
+def _real_orbit_idx(name):
+    idx, norb = _diff_pair_orbits(jget(name), with_mz=False)
+    return np.asarray(idx, np.int64), norb
+
+
+def _emulate_contract(text, orb, src):
+    """numpy evaluation of a generated header's contraction (`k1_contract`,
+    which K1 and K2 run): c[d] = sum over groups of o(orbit) * (sum of s(src))."""
     out = np.zeros_like(src)
-    for d in range(nd):
-        for gi in range(ngroups[d]):
-            ssum = sum(src[:, s] for s in range(nd) if (gmask[d, gi] >> s) & 1)
-            out[:, d] += orb[:, gorb[d, gi]] * ssum
+    o = np.moveaxis(orb, 1, 0)
+    sv = np.moveaxis(src, 1, 0)
+    rows = re.findall(r"^\s*c\[(\d+)\] = (.*);$", text, re.M)
+    assert len(rows) == src.shape[1]
+    for d, expr in rows:
+        out[:, int(d)] = eval(re.sub(r"([os])\((\d+)\)", r"\1[\2]", expr), {}, {"o": o, "s": sv})
     return out
 
 
 @pytest.mark.parametrize("name", ["3_10", "3_6", "1_2"])
 def test_kernel_tables_emulated(name):
-    """K2's runtime tables (K1's are compile-time code, tested below)."""
+    """K2 finds its instantiation by the scheme's tables and runs that set's
+    generated contraction, which equals the plain K2; 1_2 has none."""
     ts = tget(name)
-    idx, orb, _, _, _, src = _inputs(name, 2, 3, 5, 4, seed=8)
-    if name != "3_10":  # the kernels are built for 3_10 only; its plain twins take any scheme
-        with pytest.raises(ValueError, match="3_10"):
-            cuda_ops._tables(ts, idx, orb.shape[1])
+    idx, norb = _real_orbit_idx(name)
+    _, orb, _, _, _, src = _inputs(name, 2, 3, 5, 4, seed=8)
+    orb = (np.random.default_rng(8).random((2, norb, 3, 5, 4)) * 0.1).astype(np.float32)
+    if name not in cuda_ops.ORBIT_SCHEMES:
+        with pytest.raises(ValueError, match="matches none"):
+            cuda_ops._orbit_instantiation(ts, idx, norb)
         return
-    itab = cuda_ops._tables(ts, idx, orb.shape[1])
-    assert len(itab) == 2 + 10 + 2 * 100
-    emu = _emulate_contract(itab, orb.astype(np.float64), src.astype(np.float64))
+    inst = cuda_ops._orbit_instantiation(ts, idx, norb)
+    assert cuda_ops.ORBIT_SCHEMES[inst] == name
+    emu = _emulate_contract(cuda_ops.orbit_header_text(name), orb.astype(np.float64),
+                            src.astype(np.float64))
     out = cuda_ops.orbit_contract_plain(idx, torch.as_tensor(orb), torch.as_tensor(src))
     np.testing.assert_allclose(out.numpy(), emu, atol=FIELD_ATOL)
 
 
-# ---------------------------------------------------------------------------
-# K1's compile-time tables (csrc/orbit_3_10.h)
-# ---------------------------------------------------------------------------
-
-def _header_functions(text):
-    """name -> list of the 10 values of the generated constexpr ternaries."""
+def _header_functions(text, nd):
+    """name -> list of the nd values of the generated constexpr ternaries."""
     out = {}
     for name, body in re.findall(r"constexpr int (k1_\w+)\(int \w\) \{\s*return (.*?);", text):
         vals = dict((int(q), int(v)) for q, v in re.findall(r"== (\d+) \? (-?\d+)", body))
-        out[name] = [vals.get(q, int(body.rsplit(": ", 1)[1])) for q in range(10)]
+        out[name] = [vals.get(q, int(body.rsplit(": ", 1)[1])) for q in range(nd)]
     return out
 
 
-def test_k1_header_is_generated_from_the_tables():
-    path = os.path.join(cuda_ops.CSRC, cuda_ops.HEADER_3_10)
+def _check_header(name):
+    """The committed header of table set `name` is what its generator writes,
+    and the generator writes the plain version's tables."""
+    path = os.path.join(cuda_ops.CSRC, cuda_ops.orbit_header_name(name))
     with open(path) as f:
         text = f.read()
-    assert text == cuda_ops.orbit_header_text()  # load_extension refuses a stale copy too
-    idx, norb = _orbit_idx("3_10")
+    assert text == cuda_ops.orbit_header_text(name)  # load_extension refuses a stale copy too
+    idx, norb = _real_orbit_idx(name)
+    nd = idx.shape[0]
     groups = cuda_ops.orbit_groups(idx)
     # the contraction: c[d] = sum over groups of o(orbit) * (sum of s(src))
-    rows = dict(re.findall(r"^  c\[(\d+)\] = (.*);$", text, re.M))
-    assert len(rows) == 10 and f"#define K1_NORB {norb}" in text
-    for d in range(10):
+    rows = dict(re.findall(r"^\s*c\[(\d+)\] = (.*);$", text, re.M))
+    assert len(rows) == nd and f"static constexpr int K1_NORB = {norb};" in text
+    assert f"static constexpr int K1_ND = {nd};" in text and f"struct Orbit_{name} {{" in text
+    for d in range(nd):
         terms = re.findall(r"o\((\d+)\) \* \(?((?:s\(\d+\)(?: \+ )?)+)\)?", rows[str(d)])
         got = tuple((int(o), tuple(int(q) for q in re.findall(r"s\((\d+)\)", ss)))
                     for o, ss in terms)
         assert got == groups[d]
     # the shifts and the closure
-    fn = _header_functions(text)
-    cshift, gshift = cuda_ops._shift_tables(tget("3_10"))
+    fn = _header_functions(text, nd)
+    cshift, gshift = cuda_ops._shift_tables(tget(name))
     for q, ax in enumerate("zxy"):
         assert fn[f"k1_g{ax}"] == [g[q] for g in gshift]
         assert fn[f"k1_c{ax}"] == [c[q] for c in cshift]
-    dn, up = cuda_ops.surface_closure_rows(tget("3_10"))
+    dn, up = cuda_ops.surface_closure_rows(tget(name))
     assert "const float edn = " + " + ".join(f"u({d})" for d in dn) + ";" in text
     for d, wt in up:
         assert f"S[{d}] += alb * edn * {float(np.float32(wt))!r}f;" in text
 
 
-def test_k1_header_contraction_emulated():
+def _check_contraction(name):
     """The generated contraction, evaluated in numpy, against the plain K2
     (the same per-cell sums) on random inputs."""
-    text = cuda_ops.orbit_header_text()
-    idx, norb = _orbit_idx("3_10")
-    _, orb, _, _, _, src = _inputs("3_10", 1, 3, 4, 5, seed=4)
-    o, s = orb[0].astype(np.float64), src[0].astype(np.float64)
-    got = np.zeros_like(s)
-    for d, expr in re.findall(r"^  c\[(\d+)\] = (.*);$", text, re.M):
-        got[int(d)] = eval(re.sub(r"([os])\((\d+)\)", r"\1[\2]", expr), {}, {"o": o, "s": s})
-    ref = cuda_ops.orbit_contract_plain(idx, torch.as_tensor(orb), torch.as_tensor(src))
-    np.testing.assert_allclose(got, ref[0].numpy(), atol=FIELD_ATOL)
+    idx, norb = _real_orbit_idx(name)
+    rng = np.random.default_rng(4)
+    orb = (rng.random((1, norb, 3, 4, 5)) * 0.1)
+    src = rng.random((1, idx.shape[0], 3, 4, 5))
+    got = _emulate_contract(cuda_ops.orbit_header_text(name), orb, src)
+    ref = cuda_ops.orbit_contract_plain(idx, torch.as_tensor(orb, dtype=torch.float32),
+                                        torch.as_tensor(src, dtype=torch.float32))
+    np.testing.assert_allclose(got, ref.numpy(), atol=FIELD_ATOL)
+
+
+def test_k1_header_is_generated_from_the_tables():
+    _check_header("3_10")
+
+
+def test_k1_header_contraction_emulated():
+    _check_contraction("3_10")
+
+
+@pytest.mark.parametrize("name", cuda_ops.ORBIT_SCHEMES[1:])
+def test_orbit_header_is_generated_from_the_tables(name):
+    """Every other generated header, as 3_10's above."""
+    _check_header(name)
+    _check_contraction(name)
+
+
+def test_orbit_index_header_is_generated():
+    """`csrc/orbit_schemes.h` is what its generator writes and lists every
+    table set in ORBIT_SCHEMES' order (the instantiation index)."""
+    headers = cuda_ops.generated_headers()
+    assert set(headers) == {cuda_ops.orbit_header_name(n) for n in cuda_ops.ORBIT_SCHEMES} | {
+        cuda_ops.ORBIT_INDEX_HEADER}
+    with open(os.path.join(cuda_ops.CSRC, cuda_ops.ORBIT_INDEX_HEADER)) as f:
+        text = f.read()
+    assert text == cuda_ops.orbit_index_text()
+    listed = re.findall(r"X\((\d+), Orbit_(\w+)\)", text)
+    assert listed == [(str(q), n) for q, n in enumerate(cuda_ops.ORBIT_SCHEMES)]
+    cuda_ops._check_headers()
+
+
+@pytest.mark.parametrize("name", ["3_10", "8_10", "3_6", "8_12", "3_16", "8_16", "8_18", "3_24",
+                                  "3_30"])
+def test_every_cube_scheme_has_an_instantiation(name):
+    """Each cube scheme's diffuse tables equal exactly one compiled set
+    (8_10 3_10's, 8_16 3_16's, the others their own), and K3 is built for
+    its dof count."""
+    ts = tget(name)
+    idx, norb = _real_orbit_idx(name)
+    inst = cuda_ops._orbit_instantiation(ts, idx, norb)
+    own = {"8_10": "3_10", "8_16": "3_16"}.get(name, name)
+    assert cuda_ops.ORBIT_SCHEMES[inst] == own
+    matches = [n for n in cuda_ops.ORBIT_SCHEMES
+               if _real_orbit_idx(n)[0].shape == idx.shape
+               and np.array_equal(_real_orbit_idx(n)[0], idx)
+               and cuda_ops._scheme_tables(tget(n)) == cuda_ops._scheme_tables(ts)]
+    assert matches == [own]
+    assert cuda_ops._dense_tables(ts)[0] == ts.ndiff in cuda_ops.DENSE_NDS
 
 
 def test_k1_refuses_other_tables():
     idx, norb = _orbit_idx("3_10")
-    cuda_ops._k1_refusal(tget("3_10"), idx, norb)  # the compiled tables: no error
+    assert cuda_ops._orbit_instantiation(tget("3_10"), idx, norb) == 0  # the compiled tables
     for scheme, bad_idx, bad_norb in ((tget("3_10"), idx[::-1], norb), (tget("3_10"), idx, 25),
                                       (tget("3_6"), _orbit_idx("3_6")[0], 6)):
-        with pytest.raises(ValueError, match="3_10"):
-            cuda_ops._k1_refusal(scheme, bad_idx, bad_norb)
+        with pytest.raises(ValueError, match="matches none"):
+            cuda_ops._orbit_instantiation(scheme, bad_idx, bad_norb)

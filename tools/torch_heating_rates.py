@@ -2,13 +2,13 @@
 """Heating rates of bench.py's scene from the JAX package and from the
 PyTorch port, on the CPU.
 
-    JAX_PLATFORMS=cpu python tools/torch_heating_rates.py [--n 64] [--seed 7]
+    JAX_PLATFORMS=cpu python tools/torch_heating_rates.py [--n 64] [--seed 7] [--lut PATH]
 
 Builds bench.py's scene at n x n columns (its z grid of 39 layers and its
 cloud field, nx * ny / 16 boxes from --seed), solves the full spectrum
 (ecCKD 32+32, band chunks of 8, atm_collapse over the leading 16 1-D
-layers, the production LUT, sun (120, 40), albedo 0.15) with both
-packages, and prints, for the layers below the collapsed super-layer, the
+layers, the production LUT or the table at --lut, whose scheme the solvers
+take, sun (120, 40), albedo 0.15) with both packages, and prints, for the layers below the collapsed super-layer, the
 largest |heating rate| (K/day, `abso2hr`), the cell it sits in and the
 liquid water there and above, the number of cells above 100 K/day, and
 the largest |heating rate| in clear and in cloudy cells.  Cloud-top cells
@@ -68,6 +68,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--lut", default=LUT_PATH, help="the table (and so the scheme) to solve with")
     args = ap.parse_args()
     import jax
 
@@ -94,7 +95,7 @@ def main():
     opts = {"atm_collapse": K, "specint_cache": "f32"}
     kw = dict(albedo=0.15, lthermal=True, lsolar=True, specint="ecckd", lwc=lwc, band_chunk=8)
 
-    js = JSolver(JGrid.create(atm.nlay, n, n, 100.0, 100.0, dz), JOptProp(JLUT.load(LUT_PATH)),
+    js = JSolver(JGrid.create(atm.nlay, n, n, 100.0, 100.0, dz), JOptProp(JLUT.load(args.lut)),
                  options=JOptions(dict(opts), read_env=False))
     js.set_angles(jsun(120.0, 40.0))
     t0 = time.time()
@@ -102,7 +103,7 @@ def main():
     report(f"JAX package {n}x{n} ({time.time() - t0:.0f} s)", np.asarray(rj.abso), atm, lwc)
 
     ts = PprtsSolver(Grid.create(atm.nlay, n, n, 100.0, 100.0, dz, device="cpu"),
-                     OptProp(LUT.load(LUT_PATH, device="cpu"), device="cpu"),
+                     OptProp(LUT.load(args.lut, device="cpu"), device="cpu"),
                      options=Options(dict(opts), read_env=False))
     ts.set_angles(sundir_from_angles(120.0, 40.0))
     t0 = time.time()
