@@ -155,6 +155,34 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  the test table's axes end at w0 0.9, so its clouds absorb
                  some 200-400 K/day, as the JAX package's do on the same
                  table (tools/torch_heating_rates.py --lut).
+ 25. wedge    -- the structured wedge solver (PlexrtSolver 5_8, plain PyTorch: no
+                 kernel) on the committed full-density table, phase 4's band on both
+                 orientations of a fish mesh at 256 x 256 (131,072 triangle columns)
+                 on bench.py's 39 layers, sun (120, 40), albedo 0.15: a solar and a
+                 thermal solve on the solvers' defaults, twice, the second profiled (walls,
+                 niter, res/tol, peak memory, busy share and launches; the balance is
+                 printed, not gated: the defaults do not solve this column, in the JAX
+                 package either, tools/torch_wedge_column.py), then on WEDGE_EXACT
+                 (the solvers' own options n_inner 128, fixed point): converged below
+                 diff_iters, TOA edir = 1000 mu within 1e-5, the solar energy balance
+                 within 1% of the incoming beam; then 18_8 on its test table at 64 x 64,
+                 held to the same; K1-K4 never launched.
+ 26. wedge spectral -- specint_plexrt with ecCKD 32 + 32 on phase 25's mesh with
+                 bench.py's cloud field on both orientations, WEDGE_EXACT, band chunks
+                 of 8: one cold call (no perturbed step: without a warm start it
+                 repeats the cold call's work): wall, triangle columns/s, niter per
+                 chunk, peak memory; every lane converged, TOA edir within 1% of the
+                 sum of the solar weights x mu, heating rates below 100 K/day outside
+                 cloud tops; the first solar chunk profiled over 50 steps.
+ 27. wedge ICON -- trimesh_from_structured(256, 256) written as an ICON grid file and
+                 read back (topology equal), PlexrtSolverIcon on phase 25's scene as in
+                 phase 25 (the balance with the direct and diffuse outflow through the
+                 open boundary counted), NCA; rotating mesh and sun together at 32 x 32
+                 leaves every flux within the JAX test's gates; both wedge solvers on a
+                 16 x 16 crop on the card against the CPU, monochromatic and through
+                 specint_plexrt (max_gpt 8: the fish solver's solar and thermal lanes
+                 on the fixed point, the ICON solver's 8 solar lanes on BiCGStab),
+                 within 5e-5 of the largest flux and 1e-4 W/m3.
  10. boxmc    -- K4 boxmc_trace, the BoxMC photon tracer: one launch of 4096
                  entries drawn with --seed from the production diffuse grid
                  for the orbit-representative sources 0 and 2 and one from
@@ -182,7 +210,7 @@ digests recorded from the earlier K4 design, and phase 3 holds K3's
 outputs at every (type, shape) it checks against digests recorded from
 the first K3 design: they must be equal bit for bit.
 
-The phases run in the order 1-8, 12, 13, 9, 14-24, 10, 11.  Each path resets
+The phases run in the order 1-8, 12, 13, 9, 14-27, 10, 11.  Each path resets
 the kernel launch counts before it runs and reads them after; the kernels
 JSON takes K1's and K2's launches from phase 12 (the main path), K3's from
 phase 14 (the urban spectral path, where its entry is timed) and K4's from
@@ -2264,6 +2292,509 @@ def phase_spectral_scheme(cuda_ops, OptProp, LUT, seed, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the wedge-mesh solvers (phases 25-27): plain PyTorch on the card, no kernel
+# ---------------------------------------------------------------------------
+
+WEDGE_PHOTONS = 4000  # the committed full-density table (default_axes, 4000 photons)
+WEDGE_ALBEDO = 0.15
+WEDGE_BALANCE_RTOL = 0.01  # of the incoming beam: the JAX gate (tests/test_plexrt.py:80)
+WEDGE_EDIR_RTOL = 1e-5  # TOA edir = edirTOA x mu
+WEDGE_CHUNK = 8
+WEDGE_18_8 = 64  # columns per side of the 18_8 solve on its test table
+WEDGE_ROT = 32  # columns per side of the rotation check
+WEDGE_ROT_ANGLE = 33.0
+WEDGE_PROFILE_STEPS = 50  # fixed-point steps of phase 26's profiled chunk
+# The solvers' defaults (n_inner 24, BiCGStab, diff_iters 300/1000) do not solve bench.py's
+# column, in the JAX package or the port (tools/torch_wedge_column.py, ROADMAP section 3): 24
+# side-exchange sweeps carry 20.7% of a transparent beam through its 2.5 km layers of 100 m
+# cells, and BiCGStab stops at its stall limit far above its tolerance.  The gated solves use
+# the solvers' own options that do: 128 sweeps (the transparent beam to 7.4e-5 of itself) and
+# the fixed point, which converges in ~900 steps.
+WEDGE_EXACT = dict(n_inner=128, diff_solver="fixedpoint", diff_iters=3000)
+
+
+def wedge_opp(device="cuda"):
+    """The committed full-density 5_8 table, resolved by its cache key."""
+    from tenstream_tpu_torch.plexrt.optprop import (WedgeOptProp, default_axes,
+                                                    load_or_create_wedge_lut, wedge_lut_path)
+
+    d = default_axes()
+    lut = load_or_create_wedge_lut(d, None, WEDGE_PHOTONS, device=device)
+    name = os.path.basename(wedge_lut_path(d, lut.faxes, WEDGE_PHOTONS))
+    return WedgeOptProp(lut), name
+
+
+def wedge_opp_18_8(device="cuda"):
+    """The committed 18_8 test table (the JAX package's `tests/test_wedge_schemes.py`)."""
+    from tenstream_tpu_torch.plexrt.optprop import WedgeAxes, WedgeOptProp, load_or_create_wedge_lut
+
+    axes = WedgeAxes(tau=np.array([1e-10, 0.5, 2.0, 8.0], np.float32),
+                     w0=np.array([0.0, 0.7, 0.99999], np.float32),
+                     aspect=np.array([0.5, 1.0, 2.0], np.float32),
+                     g=np.array([0.0, 0.5], np.float32),
+                     phi=np.linspace(0.0, 360.0, 5).astype(np.float32),
+                     theta=np.array([0.0, 40.0, 75.0], np.float32))
+    return WedgeOptProp(load_or_create_wedge_lut(axes, None, 1000, SCHEME_LUT_DIR, scheme="18_8",
+                                                 device=device))
+
+
+def both_orientations(a):
+    """A column field (nz, nx, ny) on both triangles of every rectangle."""
+    return np.ascontiguousarray(np.broadcast_to(a[:, None], (a.shape[0], 2) + a.shape[1:]))
+
+
+def icon_cells(a):
+    """(nz, 2, nx, ny) -> the cell order of `trimesh_from_structured`,
+    c = 2 (i ny + j) + o."""
+    return np.ascontiguousarray(np.moveaxis(a, 1, -1).reshape(a.shape[0], -1))
+
+
+def wedge_scene(n, seed):
+    """Phase 4's band (bench.py's column, its cloud blocks) on both
+    orientations: dz, (kabs, ksca, g) (nz, 2, n, n), planck (nz+1, 2, n, n)."""
+    dz, kabs, ksca, g, planck = build_scene(n, n, seed)
+    return dz, tuple(both_orientations(a) for a in (kabs, ksca, g)), both_orientations(planck)
+
+
+def wedge_solves(solver, fields, planck, label, gate=True, budget=None):
+    """A solar solve (no emission) and a thermal solve of one band, timed
+    together: (solar solution, thermal solution, wall [s], text, lateral
+    escape [W/m2]).  Every solve must stop by the solver's own rule
+    (tolerance, stall exit or diff_iters); with `gate`, at its tolerance
+    below diff_iters.  With `budget`, the solar solve is `budget(solver)`
+    -> (solution, lateral escape)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.set_optical_properties(WEDGE_ALBEDO, *fields)
+    sol_s, lateral = (budget(solver) if budget is not None else
+                      (solver.solve(lthermal=False, lsolar=True, edirTOA=1000.0), 0.0))
+    solver.set_optical_properties(WEDGE_ALBEDO, *fields, planck=planck)
+    sol_t = solver.solve(lthermal=True, lsolar=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for what, sol in (("solar", sol_s), ("thermal", sol_t)):
+        stopped = sol.niter_diff <= solver.diff_iters and np.isfinite(sol.diff_res)
+        converged = sol.diff_res <= sol.diff_tol and sol.niter_diff < solver.diff_iters
+        if not stopped or (gate and not converged):
+            raise AssertionError(f"{label} {what}: niter {sol.niter_diff}, res {sol.diff_res}, "
+                                 f"tol {sol.diff_tol}, diff_iters {solver.diff_iters}")
+    text = (f"niter solar {sol_s.niter_diff} (res/tol {sol_s.diff_res / sol_s.diff_tol:.4g}), "
+            f"thermal {sol_t.niter_diff} (res/tol {sol_t.diff_res / sol_t.diff_tol:.4g})")
+    return sol_s, sol_t, wall, text, lateral
+
+
+def solver_dz(solver):
+    return solver.grid.dz if hasattr(solver, "grid") else solver.dz
+
+
+def wedge_balance(label, solver, res_s, mu, lateral=0.0, gate=True):
+    """The solar solve's energy budget [W/m2 of the domain]: TOA up +
+    absorbed + surface net (+ lateral escape) against the incoming beam,
+    within WEDGE_BALANCE_RTOL (with `gate`); TOA edir = 1000 mu within
+    WEDGE_EDIR_RTOL; finite fields."""
+    edir, edn, eup, abso = res_s
+    for name, a in zip(("edir", "edn", "eup", "abso"), res_s):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+    incoming = 1000.0 * mu
+    toa = edir[0].mean().item()
+    dzv = torch.as_tensor(solver_dz(solver), device=abso.device).reshape(
+        (-1,) + (1,) * (abso.dim() - 1))
+    bal = (eup[0].mean() + (abso * dzv).sum(0).mean()
+           + (edir[-1] + edn[-1] - eup[-1]).mean()).item() + lateral
+    off = abs(bal - incoming) / incoming
+    log(f"{label}: TOA edir {toa:.4f} W/m2 (1000 mu {incoming:.4f}); surface edir "
+        f"{edir[-1].mean().item():.4f}; balance {bal:.4f} W/m2 of the incoming {incoming:.4f}"
+        + (f" (lateral escape {lateral:.4f} counted)" if lateral else "")
+        + f": {100 * off:.4f}% off" + ("" if gate else " (not gated: the solvers' defaults)"))
+    if abs(toa - incoming) > WEDGE_EDIR_RTOL * incoming:
+        raise AssertionError(f"{label}: TOA edir {toa} is not 1000 mu = {incoming}")
+    if gate and off > WEDGE_BALANCE_RTOL:
+        raise AssertionError(f"{label}: energy balance {bal} off the incoming {incoming} by more "
+                             f"than {WEDGE_BALANCE_RTOL:.0%}")
+
+
+def wedge_profile(label, run):
+    """`run()` timed, then under torch.profiler: (its result, the
+    unprofiled wall [s]), logging the device busy share of that wall and
+    the kernels launched."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, by_name = device_kernels(run)
+    busy = sum(t for t, _ in by_name.values())
+    n = sum(k for _, k in by_name.values())
+    if busy == 0:
+        log(f"{label}: the profiler recorded no device time; busy share not measured")
+        return out, wall
+    log(f"{label}: device busy {busy:.1f} ms in {n} kernel launches = "
+        f"{100 * busy / (wall * 1e3):.1f}% of the unprofiled wall {wall * 1e3:.1f} ms")
+    for name, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"{label}   {t:9.2f} ms {k:7d} launches  {name[:90]}")
+    return out, wall
+
+
+def no_cube_kernels(cuda_ops, label):
+    if any(cuda_ops.LAUNCHES.values()):
+        raise AssertionError(f"{label}: the wedge path launched cube kernels {cuda_ops.LAUNCHES}")
+
+
+def wedge_runs(label, make, fields, planck, mu, smi, budget=None):
+    """The wedge band on the solvers' defaults (twice, the second run also
+    profiled) and on WEDGE_EXACT (gated: converged, energy balance);
+    `budget(solver)` gives the solar solution and its lateral escape
+    [W/m2]."""
+    solver = make()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = lambda: wedge_solves(solver, fields, planck, label, gate=False)
+    sol_s, sol_t, wall, text, _ = run()
+    log(f"{label} defaults run 1: wall {wall * 1e3:.1f} ms; {text}")
+    (sol_s, sol_t, _, text, _), wall2 = wedge_profile(f"{label} defaults run 2 profile", run)
+    log(f"{label} defaults run 2: wall {wall2 * 1e3:.1f} ms; {text}")
+    check_finite(f"{label} thermal", solver.get_result(sol_t))
+    wedge_balance(f"{label} defaults solar", solver, solver.get_result(sol_s), mu, gate=False)
+    log(f"{label} defaults: walls {wall * 1e3:.1f} / {wall2 * 1e3:.1f} ms ({smi}); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    out = (solver, sol_t)
+
+    solver = make(**WEDGE_EXACT)
+    torch.cuda.reset_peak_memory_stats()
+    sol_s, sol_t, wall, text, lateral = wedge_solves(solver, fields, planck, f"{label} exact",
+                                                     budget=budget)
+    log(f"{label} {WEDGE_EXACT}: wall {wall * 1e3:.1f} ms; {text}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check_finite(f"{label} exact thermal", solver.get_result(sol_t))
+    wedge_balance(f"{label} exact solar", solver, solver.get_result(sol_s), mu, lateral=lateral)
+    return out
+
+
+def phase_wedge(cuda_ops, seed, smi):
+    """Phase 25: the structured wedge solver (5_8) at 256 x 256 x 39 on the
+    committed full-density table; then 18_8 on its test table at 64 x 64."""
+    from tenstream_tpu_torch.plexrt.mesh import fish_mesh
+    from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    opp, name = wedge_opp()
+    dz, fields, planck = wedge_scene(NX, seed)
+    sun = sundir_from_angles(*SPECTRAL_SUN)
+    mu = float(np.cos(np.deg2rad(SPECTRAL_SUN[1])))
+    label = f"wedge 5_8 {NX}x{NY}x{NZ}"
+    log(f"{label}: {2 * NX * NY} triangle columns, table {name}, sun {SPECTRAL_SUN}, albedo "
+        f"{WEDGE_ALBEDO}; each run a solar (edirTOA 1000 W/m2) and a thermal solve")
+
+    def make(**kw):
+        s = PlexrtSolver(fish_mesh(NZ, NX, NY, 100.0, 100.0, dz), opp, **kw)
+        s.set_angles(sun)
+        return s
+
+    cuda_ops.reset_launch_counts()
+    wedge_runs(label, make, fields, planck, mu, smi)
+    no_cube_kernels(cuda_ops, label)
+    torch.cuda.empty_cache()
+
+    n = WEDGE_18_8
+    dz, fields, planck = wedge_scene(n, seed)
+    label = f"wedge 18_8 {n}x{n}x{NZ} (its test table, tests/data/luts)"
+    s18 = PlexrtSolver(fish_mesh(NZ, n, n, 100.0, 100.0, dz), wedge_opp_18_8(), **WEDGE_EXACT)
+    s18.set_angles(sun)
+    sol_s, sol_t, wall, text, _ = wedge_solves(s18, fields, planck, label)
+    log(f"{label} {WEDGE_EXACT}: wall {wall * 1e3:.1f} ms; {text}")
+    check_finite(f"{label} thermal", s18.get_result(sol_t))
+    wedge_balance(f"{label} solar", s18, s18.get_result(sol_s), mu)
+    torch.cuda.empty_cache()
+    return opp
+
+
+def check_wedge_spectral(label, res, atm, lwc2, weight):
+    """Phase 12's gates on a wedge spectral result (no atm_collapse):
+    finite fields, TOA edir = the sum of the solar weights x mu within 1%,
+    heating rates below HR_MAX outside the cloud tops."""
+    from tenstream_tpu_torch.atm import abso2hr
+
+    check_finite(label, res)
+    check_toa(label, res.edir, weight, float(np.cos(np.deg2rad(SPECTRAL_SUN[1]))))
+    col = (slice(None),) + (None,) * (res.abso.dim() - 1)
+    hr = abso2hr(res.abso, atm.play[col], atm.tlay[col])
+    cloud = torch.as_tensor(lwc2 > 0, device=hr.device)
+    top = cloud[1:] & ~cloud[:-1]
+    hr_other = max(hr[1:].abs()[~top].max().item(), hr[0].abs().max().item())
+    log(f"{label}: heating rates max |{hr.abs().max().item():.2f}| K/day; cloud-top cells up to "
+        f"{hr[1:].abs()[top].max().item():.2f} K/day, every other cell up to {hr_other:.2f} K/day")
+    if not (bool(torch.isfinite(hr).all()) and hr_other < HR_MAX):
+        raise AssertionError(f"{label}: heating rates non-finite or above {HR_MAX} K/day outside "
+                             "the cloud tops")
+
+
+def wedge_specint(solver, atm, lwc2, gas, label, lthermal=True, **kw):
+    """One solar (+ thermal) `specint_plexrt` call: (result, wall [s], text
+    on the lanes' niter and res/tol per chunk, lanes above tolerance).
+    Every lane must stop by the solver's own rule."""
+    from tenstream_tpu_torch.spectral.specint_plexrt import specint_plexrt
+
+    chunks = []
+    lanes = solver.solve_lanes
+
+    def seen(*a, **k):
+        sol = lanes(*a, **k)
+        ratio = (sol.diff_res / sol.diff_tol).tolist()
+        chunks.append((sol.niter_diff.tolist(), ratio))
+        if max(chunks[-1][0]) > solver.diff_iters or not np.isfinite(ratio).all():
+            raise AssertionError(f"{label}: a lane did not stop by the solver's rule: {chunks[-1]}")
+        return sol
+
+    solver.solve_lanes = seen
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = specint_plexrt(solver, atm, WEDGE_ALBEDO, lthermal, True, specint=gas, lwc=lwc2,
+                             **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del solver.solve_lanes
+    above = sum(r > 1.0 for _, rs in chunks for r in rs)
+    text = (f"niter per chunk (solar, then thermal) {[n for n, _ in chunks]}; {above} of "
+            f"{sum(len(n) for n, _ in chunks)} lanes stopped above their tolerance (largest "
+            f"res/tol {max(r for _, rs in chunks for r in rs):.4g})")
+    return res, wall, text, above
+
+
+def phase_wedge_spectral(cuda_ops, opp, seed, smi):
+    """Phase 26: `specint_plexrt`, ecCKD 32 + 32, on phase 25's scene with
+    bench.py's cloud field on both orientations, WEDGE_EXACT, band chunks
+    of WEDGE_CHUNK: one cold call, gated, then the first solar chunk
+    profiled over WEDGE_PROFILE_STEPS steps.
+    No perturbed step: the wedge spectral path has no warm start (as in the
+    JAX package), so a step repeats the cold call's work (PERF.md)."""
+    from tenstream_tpu_torch.plexrt.mesh import fish_mesh
+    from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+    from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
+
+    atm, lwc = build_bench_atm(NX, NY, seed)
+    lwc2 = both_orientations(lwc)
+    gas = EcckdGasOptics(n_gpt=NGPT)
+    solver = PlexrtSolver(fish_mesh(atm.nlay, NX, NY, 100.0, 100.0, atm.dz.astype(np.float32)),
+                          opp, **WEDGE_EXACT)
+    solver.set_angles(sundir_from_angles(*SPECTRAL_SUN))
+    label = f"wedge spectral {NX}x{NY}x{atm.nlay}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launch_counts()
+    res, wall, text, above = wedge_specint(solver, atm, lwc2, gas, f"{label} cold",
+                                           band_chunk=WEDGE_CHUNK)
+    log(f"{label} cold ({WEDGE_EXACT}): {text}")
+    if above:
+        raise AssertionError(f"{label}: {above} lanes above their tolerance")
+    check_wedge_spectral(f"{label} cold", res, atm, lwc2, gas.solar(atm).weight)
+    no_cube_kernels(cuda_ops, label)
+    log(f"{label}: ecCKD {NGPT}+{NGPT} in chunks of {WEDGE_CHUNK}: wall {wall * 1e3:.1f} ms = "
+        f"{2 * NX * NY / wall:.1f} triangle columns/s ({smi}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K1-K4 launches 0")
+    del res, solver
+    # the busy share of the fixed point's steady state: the first solar chunk, its lanes
+    # stopped after WEDGE_PROFILE_STEPS steps (not gated)
+    solver = PlexrtSolver(fish_mesh(atm.nlay, NX, NY, 100.0, 100.0, atm.dz.astype(np.float32)),
+                          opp, **{**WEDGE_EXACT, "diff_iters": WEDGE_PROFILE_STEPS})
+    solver.set_angles(sundir_from_angles(*SPECTRAL_SUN))
+    wedge_profile(f"{label} profile (the first solar chunk, {WEDGE_PROFILE_STEPS} steps)",
+                  lambda: wedge_specint(solver, atm, lwc2, gas, label, lthermal=False,
+                                        band_chunk=WEDGE_CHUNK, max_gpt=WEDGE_CHUNK))
+    del solver
+    torch.cuda.empty_cache()
+
+
+def icon_budget(solver, edir_toa=1000.0):
+    """A solar solve of a PlexrtSolverIcon with its lateral escape [W/m2 of
+    the domain]: the direct and diffuse side outflow through open
+    boundaries, read off the solve by wrapping the direct sweep and the
+    diffuse iteration."""
+    import tenstream_tpu_torch.plexrt.solver as solver_mod
+
+    seen = {}
+    sweep, iterate = solver._solve_edir, solver_mod.iterate_diffuse
+
+    def sweep_seen(*a):
+        out = sweep(*a)
+        seen["escaped"] = out[3]
+        return out
+
+    def iterate_seen(*a):
+        out = iterate(*a)
+        seen["F"] = out[1]
+        return out
+
+    solver._solve_edir, solver_mod.iterate_diffuse = sweep_seen, iterate_seen
+    try:
+        sol = solver.solve(lthermal=False, lsolar=True, edirTOA=edir_toa)
+    finally:
+        del solver._solve_edir
+        solver_mod.iterate_diffuse = iterate
+    area = solver._area.sum().item()
+    lateral = (seen["escaped"].sum() + (seen["F"][0].sum(dim=(0, 1))
+                                        * (1.0 - solver._ex_mask)).sum()).item() / area
+    return sol, lateral
+
+
+def phase_wedge_icon(cuda_ops, opp, seed, smi):
+    """Phase 27: an ICON grid file of trimesh_from_structured(256, 256)
+    written and read back, solved by PlexrtSolverIcon on phase 25's scene
+    (defaults timed, NCA, and the gated solve with its lateral escape); the
+    rotation check at 32 x 32; card against CPU at 16 x 16 for both wedge
+    solvers."""
+    from tenstream_tpu_torch.plexrt import icon
+    from tenstream_tpu_torch.plexrt.solver_unstructured import PlexrtSolverIcon
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    mu = float(np.cos(np.deg2rad(SPECTRAL_SUN[1])))
+    sun = sundir_from_angles(*SPECTRAL_SUN)
+    t0 = time.perf_counter()
+    mesh0 = icon.trimesh_from_structured(NX, NY, 100.0, 100.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "icon_grid.nc")
+        icon.write_icon_grid(path, mesh0)
+        size = os.path.getsize(path)
+        mesh = icon.read_icon_grid(path)
+    if not (np.array_equal(mesh.nbr, mesh0.nbr) and np.array_equal(mesh.nbr_side, mesh0.nbr_side)):
+        raise AssertionError("ICON grid file: topology changed in the round trip")
+    label = f"wedge ICON {mesh.ncell} cells x {NZ}"
+    log(f"{label}: grid written ({size / 1e6:.1f} MB) and read back in "
+        f"{time.perf_counter() - t0:.1f} s, topology equal")
+    dz, fields, planck = wedge_scene(NX, seed)
+    fields = tuple(icon_cells(a) for a in fields)
+    planck = icon_cells(planck)
+
+    def make(**kw):
+        s = PlexrtSolverIcon(mesh, dz, opp, **kw)
+        s.set_angles(sun)
+        return s
+
+    cuda_ops.reset_launch_counts()
+    solver, sol_t = wedge_runs(label, make, fields, planck, mu, smi, budget=icon_budget)
+    solver.set_optical_properties(WEDGE_ALBEDO, *fields, planck=planck)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nca = solver.nca_absorption(sol_t)
+    torch.cuda.synchronize()
+    nca_ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(nca).all()):
+        raise AssertionError(f"{label}: non-finite NCA absorption")
+    log(f"{label}: NCA {nca_ms:.1f} ms, |abso| up to {nca.abs().max().item():.4e} W/m3 (the 1-D "
+        f"thermal solve's {sol_t.abso.abs().max().item():.4e})")
+    no_cube_kernels(cuda_ops, label)
+    del solver, sol_t, nca
+    torch.cuda.empty_cache()
+
+    # rotating mesh and sun together leaves every flux the same
+    # (tests/test_plexrt_icon.py::test_rotation_invariance and its gates)
+    n = WEDGE_ROT
+    base = icon.trimesh_from_structured(n, n, 100.0, 100.0)
+    rot = icon.rotate_mesh(base, WEDGE_ROT_ANGLE)
+    dzr, fr, _ = wedge_scene(n, seed)
+    fr = tuple(icon_cells(a) for a in fr)
+    outs = []
+    for m, phi in ((base, SPECTRAL_SUN[0]), (rot, SPECTRAL_SUN[0] - WEDGE_ROT_ANGLE)):
+        s = PlexrtSolverIcon(m, dzr, opp, **WEDGE_EXACT)
+        s.set_optical_properties(WEDGE_ALBEDO, *fr)
+        s.set_angles(wedge_sundir(phi, SPECTRAL_SUN[1]))
+        outs.append(s.get_result(s.solve(lthermal=False, lsolar=True, edirTOA=1000.0)))
+    errs = []
+    for name, a, b, rtol, atol in zip(("edir", "edn", "eup", "abso"), *outs,
+                                      (1e-4, 1e-3, 1e-3, 2e-3), (1e-3, 1e-2, 1e-2, 1e-7)):
+        bad = ((a - b).abs() > atol + rtol * b.abs()).sum().item()
+        errs.append(f"{name} {(a - b).abs().max().item():.3e}")
+        if bad:
+            raise AssertionError(f"rotation check {n}x{n}: {name} differs in {bad} cells")
+    log(f"wedge ICON rotation by {WEDGE_ROT_ANGLE} deg at {n}x{n} ({WEDGE_EXACT}): max |diff| "
+        + ", ".join(errs) + " (the JAX test's gates held)")
+
+    wedge_card_vs_cpu(seed)
+
+
+def wedge_sundir(phi_deg, theta_deg):
+    """Photon direction for a sun at azimuth phi (from +y toward +x, the
+    wedge tests' convention) and zenith theta."""
+    p, t = np.deg2rad(phi_deg), np.deg2rad(theta_deg)
+    return np.array([np.sin(p) * np.sin(t), np.cos(p) * np.sin(t), -np.cos(t)])
+
+
+def wedge_card_vs_cpu(seed):
+    """Both wedge solvers on a 16 x 16 crop on the card and on the CPU,
+    monochromatic solar+thermal on WEDGE_EXACT (converged solves; a stall
+    exit's iterate is not reproducible across devices), and through
+    specint_plexrt (max_gpt 8): the fish solver's solar and thermal lanes
+    on WEDGE_EXACT, the ICON solver's one chunk of 8 solar lanes on its
+    default BiCGStab (n_inner 128), every lane converged: phase 19's
+    gates."""
+    from tenstream_tpu_torch.plexrt import icon
+    from tenstream_tpu_torch.plexrt.mesh import fish_mesh
+    from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
+    from tenstream_tpu_torch.plexrt.solver_unstructured import PlexrtSolverIcon
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+    from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
+    from tenstream_tpu_torch.spectral.specint_plexrt import specint_plexrt
+
+    n = CROP
+    dz, fields, planck = wedge_scene(n, seed)
+    atm, lwc = build_bench_atm(n, n, seed)
+    lwc2 = both_orientations(lwc)
+    opps = {dev: wedge_opp(dev)[0] for dev in ("cuda", "cpu")}
+    mesh = icon.trimesh_from_structured(n, n, 100.0, 100.0)
+
+    def solver(kind, dev, dzv, **kw):
+        if kind == "fish":
+            s = PlexrtSolver(fish_mesh(len(dzv), n, n, 100.0, 100.0, dzv), opps[dev], **kw)
+        else:
+            s = PlexrtSolverIcon(mesh, dzv, opps[dev], **kw)
+        s.set_angles(sundir_from_angles(*SPECTRAL_SUN))
+        return s
+
+    def mono(kind):
+        cells = (lambda a: a) if kind == "fish" else icon_cells
+
+        def run(dev):
+            s = solver(kind, dev, dz, **WEDGE_EXACT)
+            s.set_optical_properties(WEDGE_ALBEDO, *(cells(a) for a in fields),
+                                     planck=cells(planck))
+            return s.get_result(s.solve(lthermal=True, lsolar=True, edirTOA=1000.0))
+        return run
+
+    def fish_spectral(dev):
+        s = solver("fish", dev, atm.dz.astype(np.float32), **WEDGE_EXACT)
+        return specint_plexrt(s, atm, WEDGE_ALBEDO, True, True,
+                              specint=EcckdGasOptics(n_gpt=NGPT), lwc=lwc2,
+                              max_gpt=WEDGE_CHUNK, band_chunk=WEDGE_CHUNK)
+
+    def icon_spectral(dev):
+        # the default diffuse solver's lanes: the crop's first solar chunk, on which every
+        # BiCGStab lane of the ICON solver converges (its open boundary lets the diffuse
+        # light out; the fish mesh's periodic column stalls, ROADMAP section 3)
+        s = solver("icon", dev, atm.dz.astype(np.float32), n_inner=WEDGE_EXACT["n_inner"])
+        label = f"wedge icon specint_plexrt BiCGStab on {dev}"
+        res, _, text, above = wedge_specint(s, atm, icon_cells(lwc2), EcckdGasOptics(n_gpt=NGPT),
+                                            label, lthermal=False, max_gpt=WEDGE_CHUNK,
+                                            band_chunk=WEDGE_CHUNK)
+        log(f"{label}: {text}")
+        if above:
+            raise AssertionError(f"{label}: {above} lanes above their tolerance")
+        return res
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 4))  # small CPU tensors: fewer threads run faster
+    try:
+        for kind, spectral, what in (("fish", fish_spectral, "fixed point, solar + thermal"),
+                                     ("icon", icon_spectral, "BiCGStab, solar")):
+            card_vs_cpu(f"wedge {kind} monochromatic", mono(kind))
+            card_vs_cpu(f"wedge {kind} specint_plexrt ({what}, max_gpt {WEDGE_CHUNK})", spectral)
+    finally:
+        torch.set_num_threads(threads)
+
+
 def instantiation_rows(cuda_ops, by_scheme, scheme_launches, dense_launches, main_launches,
                        spectral_launches):
     """Per kernel, its instantiations: (scheme, nd, norb, ms, bound_ms,
@@ -2324,46 +2855,72 @@ def main():
     from tenstream_tpu_torch.boxmc import cuda_tracer
     from tenstream_tpu_torch.optprop import lut as lutgen
 
+    walls, clock = {}, [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        walls[label] = round(now - clock[0], 1)
+        clock[0] = now
+
     ptx = phase_build(cuda_ops)
+    lap("2 build")
     opp = OptProp(LUT.load(LUT_PATH, device="cuda"), device="cuda")
     idx = opp._solver_orbit_idx
     sundir = sundir_from_angles(*SUN)
     report = phase_kernels(cuda_ops, opp.scheme, idx, NX, NY)
     report["diffuse_apply_dense"] = phase_kernel_dense(cuda_ops, opp.scheme, NX, NY,
                                                        args.seed)
+    lap("3 kernels")
     phase_main(cuda_ops, opp, Grid, PprtsSolver, sundir, args.seed)
+    lap("4 cloud")
     phase_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, sundir, args.seed)
     phase_urban(cuda_ops, opp, Grid, PprtsSolver, Buildings, sundir_from_angles, args.seed)
     phase_urban_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, Buildings, sundir, args.seed)
     phase_dense_vs_orbit(cuda_ops, opp, Grid, PprtsSolver, Options, sundir, args.seed)
+    lap("5-8 parity, urban")
     launches, spec = phase_spectral(cuda_ops, opp, args.seed, smi)
     phase_spectral_parity(cuda_ops, ediff, opp, args.seed)
+    lap("12-13 spectral")
     profile_main(opp, Grid, PprtsSolver, sundir, args.seed)
     profile_urban(opp, Grid, PprtsSolver, Buildings, sundir_from_angles, args.seed)
     profile_spectral(spec)
     del spec
     torch.cuda.empty_cache()
+    lap("9 profile")
     launches["diffuse_apply_dense"] = phase_urban_spectral(
         cuda_ops, opp, args.seed, smi, report["diffuse_apply_dense"])["diffuse_apply_dense"]
     torch.cuda.empty_cache()
     phase_urban_spectral_parity(cuda_ops, ediff, opp, args.seed)
+    lap("14-15 urban spectral")
     phase_options(cuda_ops, ediff, opp, args.seed)
     phase_terrain(cuda_ops, ediff, opp)
     torch.cuda.empty_cache()
+    lap("16-17 options, terrain")
     means_3d = phase_gas_optics(cuda_ops, opp, args.seed, smi)
     phase_oned(args.seed, smi, means_3d)
     phase_gas_optics_parity(cuda_ops, ediff, opp, args.seed)
     torch.cuda.empty_cache()
+    lap("18-20 gas optics, oned")
     by_scheme = phase_kernels_by_scheme(cuda_ops, ptx, args.seed)
     scheme_launches = phase_schemes(cuda_ops, OptProp, LUT, Grid, PprtsSolver, sundir, args.seed)
     dense_launches = phase_schemes_parity(cuda_ops, ediff, OptProp, LUT, Grid, PprtsSolver,
                                           Options, sundir, args.seed)
     spectral_launches = phase_spectral_scheme(cuda_ops, OptProp, LUT, args.seed, smi)
+    lap("21-24 schemes")
+    wopp = phase_wedge(cuda_ops, args.seed, smi)
+    lap("25 wedge")
+    phase_wedge_spectral(cuda_ops, wopp, args.seed, smi)
+    lap("26 wedge spectral")
+    phase_wedge_icon(cuda_ops, wopp, args.seed, smi)
+    del wopp
+    torch.cuda.empty_cache()
+    lap("27 wedge ICON")
     insts = instantiation_rows(cuda_ops, by_scheme, scheme_launches, dense_launches, launches,
                                spectral_launches)
     report["boxmc_trace"] = phase_boxmc(cuda_tracer, lutgen, args.seed)
     launches["boxmc_trace"] = phase_lut(cuda_ops, cuda_tracer, lutgen, LUT, OptProp, Grid,
                                         PprtsSolver, sundir, args.seed)
+    lap("10-11 boxmc, lut")
 
     kernels = []
     for kname, (tag, source, line, replaces) in KERNELS.items():
@@ -2372,6 +2929,7 @@ def main():
                             launches=launches[kname], **report[kname]))
         if kname in insts:
             kernels[-1]["instantiations"] = insts[kname]
+    log(f"phase walls [s]: {json.dumps(walls)}, total {sum(walls.values()):.1f}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

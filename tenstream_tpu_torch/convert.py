@@ -7,7 +7,8 @@ numpy) and returns the port's `LUT` on `device`, so both packages can
 solve with identical tables; the tables pass through unchanged, a
 diff2diff table that is not symmetrized included (the port's `OptProp`
 then keeps the dense coefficient form, as the JAX one does).
-`buildings_from_arrays` does the same for the fields of a JAX
+`wedge_lut_from_arrays` does the same for a JAX `WedgeLUT` (the wedge
+solvers' tables), `buildings_from_arrays` for the fields of a JAX
 `Buildings` (`buildings_from_object` reads them off the object, `temp`
 included), and `atmosphere_from_arrays` for an `Atmosphere` (the
 spectral driver's input, host float64 arrays that pass through as
@@ -21,6 +22,7 @@ import torch
 
 from tenstream_tpu_torch.atm import Atmosphere
 from tenstream_tpu_torch.optprop.lut import LUT, LUTAxes
+from tenstream_tpu_torch.plexrt.optprop import WedgeAxes, WedgeLUT
 from tenstream_tpu_torch.pprts.buildings import Buildings
 
 
@@ -41,6 +43,18 @@ def lut_from_arrays(obj, device="cuda") -> LUT:
         dir2diff=t(obj.dir2diff),
         diff2diff=t(obj.diff2diff),
     )
+
+
+def wedge_lut_from_arrays(obj, device="cuda") -> WedgeLUT:
+    """The port's `WedgeLUT` on `device` from any object with a JAX
+    `WedgeLUT`'s fields (`daxes`, `faxes`, `dir2dir`, `dir2diff`,
+    `diff2diff`, `scheme`, `apex`): both packages then solve with the same
+    tables."""
+    t = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=device)
+    f = lambda v: None if v is None else np.asarray(v, np.float32)
+    ax = lambda a: WedgeAxes(f(a.tau), f(a.w0), f(a.aspect), f(a.g), f(a.phi), f(a.theta))
+    return WedgeLUT(ax(obj.daxes), ax(obj.faxes), t(obj.dir2dir), t(obj.dir2diff),
+                    t(obj.diff2diff), str(obj.scheme), tuple(float(v) for v in obj.apex))
 
 
 def buildings_from_arrays(solid, albedo, planck=None, temp=None, device="cuda") -> Buildings:

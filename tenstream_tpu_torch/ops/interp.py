@@ -37,27 +37,37 @@ def _floor_weight(f: torch.Tensor, n: int):
 
 
 def interp_multilinear_cf(table: torch.Tensor, fracs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Multilinear interpolation by 2^k corner gathers, channels-first."""
+    """Multilinear interpolation by 2^k corner gathers, channels-first.
+
+    The corners accumulate one by one in the JAX package's corner order
+    (`_accumulate_gathers`): one corner's gather buffer and the sum are the
+    only batch-sized payload temporaries, whatever k is."""
     k = len(fracs)
     dims = table.shape[:k]
     C = tuple(table.shape[k:])
     flat_t = table.reshape((-1, int(np.prod(C)) if C else 1)).t()  # (nC, N)
     i0, w1 = zip(*[_floor_weight(f, dims[d]) for d, f in enumerate(fracs)])
     strides = [int(np.prod(dims[d + 1:])) for d in range(k)]
-    out = None
+    B = tuple(torch.broadcast_shapes(*[f.shape for f in fracs]))
+    base = sum(i0[d] * strides[d] for d in range(k))
+    base = torch.broadcast_to(base, B).reshape(-1)
+    out = buf = None
     for corner in range(1 << k):
-        idx = 0
+        off = 0
         w = None
         for d in range(k):
             hi = (corner >> d) & 1
-            idx = idx + (i0[d] + hi) * strides[d]
+            off += hi * strides[d]
             wd = w1[d] if hi else (1.0 - w1[d])
             w = wd if w is None else w * wd
-        B = torch.broadcast_shapes(idx.shape, w.shape)
-        idx = torch.broadcast_to(idx, B)
-        contrib = flat_t[:, idx.reshape(-1)].reshape((-1,) + tuple(B)) * w
-        out = contrib if out is None else out + contrib
-    return out.reshape(C + tuple(out.shape[1:]))
+        w = torch.broadcast_to(w, B).reshape(-1)
+        idx = base + off if off else base
+        if out is None:
+            out = torch.index_select(flat_t, 1, idx).mul_(w)
+        else:
+            buf = torch.index_select(flat_t, 1, idx, out=buf).mul_(w)
+            out.add_(buf)
+    return out.reshape(C + B)
 
 
 def _onehot_pair(f: torch.Tensor, n: int) -> torch.Tensor:

@@ -61,7 +61,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.scheme.startswith("wedge_"):
-        raise NotImplementedError("wedge LUTs (plexrt) are not ported yet (ROADMAP M18)")
+        from tenstream_tpu_torch.plexrt.optprop import TRACER_ITEM
+
+        raise NotImplementedError(f"wedge LUTs are traced by the wedge photon tracer ({TRACER_ITEM}); "
+                                  "the wedge solvers load the committed tables")
 
     from tenstream_tpu_torch.optprop import lut as L
 

@@ -1,7 +1,8 @@
 """The CUDA kernels K1 (`fused_A_dots`), K2 (`orbit_contract`), K3
 (`diffuse_apply_dense`) and K4 (`boxmc_trace`) against their plain PyTorch
 versions, on the card; and the 1-D column solvers (Schwarzschild, DISORT,
-`PprtsSolver`'s 1-D types) on the card against the CPU.
+`PprtsSolver`'s 1-D types) and the wedge solvers (`plexrt`, with NCA and
+`specint_plexrt`) on the card against the CPU.
 
 These tests need an NVIDIA GPU (marker `cuda`) and skip without one.  The
 file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -574,3 +575,104 @@ def test_cuda_1d_solver_types_match_cpu(cuda_device, solver_type):
         results.append(s.get_result())
     for a, b in zip(*results):
         _near(a, b, 1e-4 if solver_type == "disort" else 1e-5)
+
+
+def _wedge_scene(nz, ncell_shape, seed=31):
+    """An absorbing scene on which both wedge solvers converge at their
+    defaults (the JAX wedge tests' optical depths), with a cloud."""
+    rng = np.random.default_rng(seed)
+    shp = (nz,) + ncell_shape
+    ka = (1e-4 + 1e-3 * rng.random(shp)).astype(np.float32)
+    ks = (1e-4 + 5e-3 * rng.random(shp)).astype(np.float32)
+    ks[1:3] += 0.02 * (rng.random(shp[1:]) < 0.3)
+    g = rng.uniform(0.0, 0.8, shp).astype(np.float32)
+    planck = (np.linspace(2.0, 6.0, nz + 1).reshape((-1,) + (1,) * len(ncell_shape))
+              * np.ones(ncell_shape)).astype(np.float32)
+    return ka, ks, g, planck
+
+
+def _wedge_opp(device):
+    import os
+
+    from tenstream_tpu_torch.plexrt.optprop import WedgeOptProp, load_or_create_wedge_lut
+
+    lutdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "luts")
+    return WedgeOptProp(load_or_create_wedge_lut(n_photons=1500, basename=lutdir, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fish", "icon"])
+def test_cuda_wedge_solvers_match_cpu(cuda_device, kind):
+    """Both wedge solvers (plain PyTorch, no kernel) on the card against the
+    CPU: a solar+thermal solve and NCA, fluxes within 5e-5 of their
+    magnitude, absorption within 1e-4 W/m3 (`chip_smoke.py` phase 27's
+    gates on converged solves)."""
+    from tenstream_tpu_torch.plexrt import icon
+    from tenstream_tpu_torch.plexrt.mesh import fish_mesh
+    from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
+    from tenstream_tpu_torch.plexrt.solver_unstructured import PlexrtSolverIcon
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    nz, n = 6, 5
+    mesh = icon.trimesh_from_structured(n, n, 100.0, 100.0)
+    cells = (2, n, n) if kind == "fish" else (mesh.ncell,)
+    ka, ks, g, planck = _wedge_scene(nz, cells)
+    results = []
+    for dev in (cuda_device, "cpu"):
+        opp = _wedge_opp(dev)
+        s = (PlexrtSolver(fish_mesh(nz, n, n, 100.0, 100.0, 100.0), opp) if kind == "fish"
+             else PlexrtSolverIcon(mesh, np.full(nz, 100.0, np.float32), opp))
+        assert s.device.type == torch.device(dev).type
+        s.set_angles(sundir_from_angles(210.0, 35.0))
+        s.set_optical_properties(0.2, ka, ks, g, planck=planck)
+        sol = s.solve(lthermal=True, lsolar=True, edirTOA=1000.0)
+        assert sol.diff_res <= sol.diff_tol
+        results.append(list(s.get_result(sol)) + [s.nca_absorption(sol)])
+    for a, b in zip(results[0][:3], results[1][:3]):
+        _near(a, b, 5e-5)
+    for a, b in zip(results[0][3:], results[1][3:]):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("diff_solver", ["bicgstab", "fixedpoint"])
+@pytest.mark.parametrize("kind", ["fish", "icon"])
+def test_cuda_specint_plexrt_matches_cpu(cuda_device, kind, diff_solver):
+    """`specint_plexrt` (ecCKD, max_gpt 6 in chunks of 4: lanes that stop
+    apart) on the card against the CPU, with each diffuse solver; every
+    lane converges on both devices."""
+    from tenstream_tpu_torch.atm import setup_standard_atmosphere
+    from tenstream_tpu_torch.plexrt import icon
+    from tenstream_tpu_torch.plexrt.mesh import fish_mesh
+    from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
+    from tenstream_tpu_torch.plexrt.solver_unstructured import PlexrtSolverIcon
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+    from tenstream_tpu_torch.spectral.specint_plexrt import specint_plexrt
+
+    atm = setup_standard_atmosphere(nlay=6, ztop=6e3)
+    dz = atm.dz.astype(np.float32)
+    n = 4
+    mesh = icon.trimesh_from_structured(n, n, 500.0, 500.0)
+    cells = (2, n, n) if kind == "fish" else (mesh.ncell,)
+    lwc = np.zeros((atm.nlay,) + cells, np.float32)
+    lwc[4, ..., :2] = 0.3
+    results = []
+    for dev in (cuda_device, "cpu"):
+        opp = _wedge_opp(dev)
+        s = (PlexrtSolver(fish_mesh(atm.nlay, n, n, 500.0, 500.0, dz), opp,
+                          diff_solver=diff_solver) if kind == "fish"
+             else PlexrtSolverIcon(mesh, dz, opp, diff_solver=diff_solver))
+        s.set_angles(sundir_from_angles(150.0, 30.0))
+        lanes = s.solve_lanes
+
+        def converged(*a, **k):
+            sol = lanes(*a, **k)
+            assert bool((sol.diff_res <= sol.diff_tol).all()), (sol.diff_res, sol.diff_tol)
+            return sol
+
+        s.solve_lanes = converged
+        results.append(specint_plexrt(s, atm, 0.2, True, True, lwc=lwc, max_gpt=6,
+                                      band_chunk=4))
+    for a, b in zip(results[0][:3], results[1][:3]):
+        _near(a, b, 5e-5)
+    assert float((results[0].abso.cpu() - results[1].abso).abs().max()) <= 1e-4

@@ -78,6 +78,12 @@ def test_port_sources_walk_finds_kernels_and_scripts():
               "tenstream_tpu_torch/pprts/adaptive.py", "tenstream_tpu_torch/pprts/geometric.py",
               "tenstream_tpu_torch/pprts/postprocess.py",
               "tenstream_tpu_torch/spectral/vegetation.py", "tenstream_tpu_torch/convert.py",
+              "tenstream_tpu_torch/utils/io.py", "tenstream_tpu_torch/utils/hdf5reader.py",
+              "tenstream_tpu_torch/ops/krylov.py", "tenstream_tpu_torch/plexrt/mesh.py",
+              "tenstream_tpu_torch/plexrt/icon.py", "tenstream_tpu_torch/plexrt/param_phi.py",
+              "tenstream_tpu_torch/plexrt/optprop.py", "tenstream_tpu_torch/plexrt/solver.py",
+              "tenstream_tpu_torch/plexrt/solver_unstructured.py",
+              "tenstream_tpu_torch/plexrt/nca.py", "tenstream_tpu_torch/spectral/specint_plexrt.py",
               "chip_smoke.py"):
         assert f in rel, f
 
@@ -117,9 +123,11 @@ def test_entry_points_default_to_the_card():
     from tenstream_tpu_torch.boxmc import cuda_tracer
     from tenstream_tpu_torch.optprop import lut
     from tenstream_tpu_torch.optprop.facade import OptProp
+    from tenstream_tpu_torch.plexrt import nca, optprop
     from tenstream_tpu_torch.pprts.grid import Grid
 
-    for fn in (Grid.create, lut.LUT.load, OptProp.__init__, convert.lut_from_arrays,
+    for fn in (optprop.load_or_create_wedge_lut, optprop.wedge_lut_for_mesh,
+               convert.wedge_lut_from_arrays, nca.NcaTables.load, Grid.create, lut.LUT.load, OptProp.__init__, convert.lut_from_arrays,
                convert.buildings_from_arrays, convert.buildings_from_object, lut.create_lut, lut.create_production_lut,
                lut.compose_production_lut, lut.load_or_create_lut, cuda_tracer.run_boxmc_cuda):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
