@@ -6,9 +6,10 @@
 Phases, each printing its lines; any failure raises (non-zero exit):
 
   1. device   -- requires CUDA; prints the card's name and power limit.
-  2. build    -- builds the kernels (csrc/) and times it; beside the build,
-                 `nvcc -Xptxas -v` on each CUDA source prints every kernel's
-                 registers, shared memory and spills.
+  2. build    -- builds the kernels (csrc/) and times it; then `nvcc
+                 -Xptxas -v` on each CUDA source prints every kernel's
+                 registers, shared memory and spills.  Phases 25-28, which
+                 launch no kernel, run meanwhile.
   3. kernels  -- K1 fused_A_dots, K2 orbit_contract and K3
                  diffuse_apply_dense (float32 and bfloat16 coefficients)
                  against their plain PyTorch versions on the card, at their
@@ -86,17 +87,17 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  plain version: fluxes 0.1 W/m2, absorption 1e-4 W/m3, face
                  fluxes 0.1 W/m2, every band's niter equal.
  16. options  -- the McICA draws (threefry) on the card against the same
-                 draws on the CPU (sha256), then at 64 x 64, each through the
-                 kernels and through their plain versions with phase 13's
-                 gates: McICA on bench.py's scene with a partial cloud
-                 fraction, three steps of the adaptive spectral skip (equal
+                 draws on the CPU (sha256), then at 32 x 32 (the 8_10 solve at
+                 64 x 64), each through the kernels and through their plain
+                 versions with phase 13's gates: McICA on bench.py's scene with
+                 a partial cloud fraction, three steps of the adaptive spectral skip (equal
                  skip counts), one 8_10 solve on the committed production
                  table through K1/K2.
  17. terrain  -- ex_pprts_hill.py's Gaussian hill at 64 x 64 columns of 100 m
                  (20 sigma layers) with pprts_geometric_coeffs, kernels
                  against plain; the slope-corrected surface direct beam
                  brightens the flank facing the sun and dims the other.
- 18. gas optics -- phase 12's scene, solver and options at 256 x 256 with the
+ 18. gas optics -- phase 12's scene, solver and options at 128 x 128 with the
                  other spectra, a fresh solver each: RRTMG_SW's 112 solar
                  g-points with ecCKD's 32 longwave ones (two specint_pprts
                  calls per step: milestone config (3)) and repwvl 15 + 15;
@@ -111,11 +112,11 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  256 x 256; DISORT through specint_pprts with ecCKD 32 + 32 at
                  64 x 64.  Prints walls, peak memory, a batched inverse of
                  the band's 8x8 operators and (not gated) 2str against 3_10
-                 and DISORT against 2str; gates finite fields, TOA edir, and
-                 each call on a 16 x 16 crop on the card against the CPU
+                 (phase 18's field at 128 x 128) and DISORT against 2str; gates finite fields, TOA edir, and
+                 each call on an 8 x 8 crop on the card against the CPU
                  (fluxes within 5e-5 of their magnitude, absorption 1e-4
                  W/m3), with DISORT's TF32 control printed beside it.
- 20. gas optics parity -- phase 18's two spectra at 64 x 64 through K1/K2
+ 20. gas optics parity -- phase 18's two spectra at 32 x 32 through K1/K2
                  and through their plain versions: phase 13's gates.
  21. kernels by scheme -- K1, K2 and K3 (float32 and bfloat16) of every
                  instantiation (the table sets of cuda_ops.ORBIT_SCHEMES: 3_10,
@@ -173,16 +174,33 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  repeats the cold call's work): wall, triangle columns/s, niter per
                  chunk, peak memory; every lane converged, TOA edir within 1% of the
                  sum of the solar weights x mu, heating rates below 100 K/day outside
-                 cloud tops; the first solar chunk profiled over 50 steps.
+                 cloud tops; the first solar chunk profiled over 25 steps.
  27. wedge ICON -- trimesh_from_structured(256, 256) written as an ICON grid file and
                  read back (topology equal), PlexrtSolverIcon on phase 25's scene as in
                  phase 25 (the balance with the direct and diffuse outflow through the
-                 open boundary counted), NCA; rotating mesh and sun together at 32 x 32
-                 leaves every flux within the JAX test's gates; both wedge solvers on a
-                 16 x 16 crop on the card against the CPU, monochromatic and through
+                 open boundary counted), NCA; rotating mesh and sun together at 16 x 16
+                 leaves every flux within the JAX test's gates; both wedge solvers on an
+                 8 x 8 crop on the card against the CPU, monochromatic and through
                  specint_plexrt (max_gpt 8: the fish solver's solar and thermal lanes
-                 on the fixed point, the ICON solver's 8 solar lanes on BiCGStab),
-                 within 5e-5 of the largest flux and 1e-4 W/m3.
+                 on the fixed point; the ICON solver's 8 solar lanes on BiCGStab at
+                 16 x 16, where every one of them converges), within 5e-5 of the
+                 largest flux and 1e-4 W/m3.
+ 28. wedge tables -- wedge table creation with the wedge photon tracer (plain
+                 PyTorch: no TPU kernel lies on it): (a) create_wedge_lut at apex
+                 (0.5, 0.866) on axes of two values each (three phi) at 400 photons,
+                 on the card and on the CPU from one seed: every coefficient within
+                 two photons' weight + 1e-5, the count that differs at all printed;
+                 (b) the ICON user's table, wedge_lut_for_mesh(trimesh_equilateral(
+                 256, 256, 100), n_photons=2000) traced on the card: wall, photons/s,
+                 photon-steps/s, the live share per step, peak memory, the busy share
+                 (on its diffuse sources, profiled), finite rows within 1; (c)
+                 PlexrtSolverIcon on that mesh with (b)'s table on phase 25's scene
+                 and WEDGE_EXACT: converged, TOA edir, the solar balance with the
+                 lateral escape within 1%, and (not gated) the flux difference from
+                 the canonical test table of the same axes; (d) WedgeOptPropShaped
+                 from wedge_optprop_for_mesh (four corner tables traced on the card)
+                 on a distorted 16 x 16 mesh, card against CPU with phase 19's gates;
+                 (e) K1-K4 never launched.
  10. boxmc    -- K4 boxmc_trace, the BoxMC photon tracer: one launch of 4096
                  entries drawn with --seed from the production diffuse grid
                  for the orbit-representative sources 0 and 2 and one from
@@ -210,7 +228,7 @@ digests recorded from the earlier K4 design, and phase 3 holds K3's
 outputs at every (type, shape) it checks against digests recorded from
 the first K3 design: they must be equal bit for bit.
 
-The phases run in the order 1-8, 12, 13, 9, 14-27, 10, 11.  Each path resets
+The phases run in the order 1, 25-28 (while 2 builds), 3-8, 12, 13, 9, 14-24, 10, 11.  Each path resets
 the kernel launch counts before it runs and reads them after; the kernels
 JSON takes K1's and K2's launches from phase 12 (the main path), K3's from
 phase 14 (the urban spectral path, where its entry is timed) and K4's from
@@ -235,6 +253,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -256,9 +275,12 @@ NGPT = 32  # ecCKD g-points per spectrum (bench.py)
 SPECTRAL_SUN = (120.0, 40.0)  # bench.py's sun
 HR_MAX = 100.0  # K/day
 GAS_SETS = ("rrtmg_sw", "repwvl")  # phase 18's spectra: RRTMG_SW 112 (+ ecCKD 32 LW), repwvl
+GAS_N = 128  # columns per side of phase 18
 REPWVL_NWVL = 15  # the UCLA-LES offline benchmark's `-specint repwvl` table
 DISORT_STREAMS = 8  # per hemisphere (PprtsSolver's `disort_streams` default)
-CROP = 16  # columns per side of phase 19's card-vs-CPU crops
+SMALL_N = 32  # columns per side of phases 16's and 20's spectral runs through kernels and plain
+CROP = 8  # columns per side of the card-vs-CPU crops (phases 19, 27)
+ICON_CROP = 16  # the ICON BiCGStab crop: every lane of its first solar chunk converges there
 # card vs CPU on the crops: fluxes within 5e-5 of the field's largest magnitude (the float32
 # rounding of the 2str RRTMG_SW + ecCKD crop is 1.5e-5 of it, 1.4e-2 W/m2 against the same code
 # in float64: tools/torch_float32_rounding.py), absorption within 1e-4 W/m3
@@ -546,12 +568,19 @@ def ptxas_report(cuda_ops) -> list:
 
 
 def phase_build(cuda_ops):
+    """Build and load the extension, then the ptxas report: (the report's
+    lines, the line on the build's times); the caller logs them."""
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(1) as ex:
-        ptx = ex.submit(ptxas_report, cuda_ops)
-        cuda_ops.load_extension()
-        lines = ptx.result()
-    log(f"build: kernels built and loaded in {time.time() - t0:.1f} s")
+    cuda_ops.load_extension()
+    t_ext = time.time() - t0
+    lines = ptxas_report(cuda_ops)
+    return lines, (f"build: kernels built and loaded in {t_ext:.1f} s, then the ptxas report in "
+                   f"{time.time() - t0 - t_ext:.1f} s")
+
+
+def log_build(built):
+    lines, text = built
+    log(text)
     for ln in lines:
         log(f"build ptxas {ln}")
     return lines
@@ -885,14 +914,16 @@ def phase_urban(cuda_ops, opp, Grid, PprtsSolver, Buildings, sundir_from_angles,
     return launches
 
 
-def phase_profile(resolve, label, stages_of, top=12):
+def phase_profile(resolve, label, stages_of, top=12, warm=False, window=False):
     """Where the time of a warm re-solve goes.  `resolve(i)` changes the
     scene a little (i odd) or back (i even), re-solves from the cached
-    solution and returns a line on its iterations: once with each stage
+    solution (after one unmeasured re-solve unless the solver is `warm`
+    already) and returns a line on its iterations: once with each stage
     (`stages_of`: (owner, attribute name) pairs) timed on the host around a
     synchronise, then (changed back) under torch.profiler, whose kernel
     durations give the device busy time and the kernels with the most
-    device time."""
+    device time (`window`: resolve(2) solves a part of what resolve(1)
+    does, and the busy share is of its own wall)."""
     def timed_resolve(i):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -900,7 +931,8 @@ def phase_profile(resolve, label, stages_of, top=12):
         torch.cuda.synchronize()
         return text, (time.perf_counter() - t0) * 1e3
 
-    timed_resolve(0)
+    if not warm:
+        timed_resolve(0)
     stages = {}
 
     def timed(name, fn):
@@ -931,10 +963,13 @@ def phase_profile(resolve, label, stages_of, top=12):
         log(f"profile {label}: the profiler recorded no device time; device busy share not "
             "measured")
         return
+    if window:  # the profiled re-solve is a part of the timed one: its share is of itself
+        share = f"{100 * busy_ms / wall_prof_ms:.1f}% of the profiled wall {wall_prof_ms:.1f} ms"
+    else:
+        share = (f"{100 * busy_ms / wall_ms:.1f}% of the unprofiled wall {wall_ms:.1f} ms "
+                 f"(profiled wall {wall_prof_ms:.1f} ms)")
     log(f"profile {label} device: busy {busy_ms:.1f} ms in "
-        f"{sum(n for _, n in by_name.values())} kernels "
-        f"= {100 * busy_ms / wall_ms:.1f}% of the unprofiled wall {wall_ms:.1f} ms "
-        f"(profiled wall {wall_prof_ms:.1f} ms; {text_p})")
+        f"{sum(n for _, n in by_name.values())} kernels = {share}; {text_p}")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"profile {label}   {t:9.2f} ms {n:6d} launches  {name[:100]}")
 
@@ -997,7 +1032,8 @@ def profile_urban(opp, Grid, PprtsSolver, Buildings, sundir_from_angles, seed):
 
 def profile_spectral(spec):
     """Phase 12's solver: the cloud field rolled by one cell and back, a
-    warm re-solve of the whole spectrum each time."""
+    warm re-solve of the whole spectrum (timed by stages), then of one
+    chunk of each spectrum (profiled)."""
     import tenstream_tpu_torch.spectral.specint as specint_mod
     from tenstream_tpu_torch.pprts.solver import PprtsSolver
     from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
@@ -1005,16 +1041,21 @@ def profile_spectral(spec):
     solver, atm, lwc, gas = spec
 
     def resolve(i):
+        # the profiled re-solve (i = 2) takes one chunk of each spectrum: the whole spectrum
+        # puts ~150k kernels into the trace
         specint_mod.specint_pprts(solver, atm, albedo=0.15, lthermal=True, lsolar=True,
                                   specint=gas, lwc=np.roll(lwc, i % 2, axis=1),
-                                  band_chunk=CHUNK)
-        it = [n for k, sol in solver.solutions.items() for n in sol.niter_diff]
-        return f"{len(it)} bands, niter sum {sum(it)}, max {max(it)}"
+                                  band_chunk=CHUNK, bands=(0, CHUNK) if i == 2 else None)
+        it = [n for (_, g), n in _band_niters(solver).items() if i != 2 or g < CHUNK]
+        return (f"{len(it)} bands, niter sum {sum(it)}, max {max(it)}"
+                + (f"; profiled: g-points 0-{CHUNK - 1} of each spectrum" if i == 2 else ""))
 
     stages = _solver_stages() + [(PprtsSolver, "_collapse"), (specint_mod, "delta_scale"),
                                  (EcckdGasOptics, "solar"), (EcckdGasOptics, "thermal"),
                                  (EcckdGasOptics, "cloud_optprops_gpt")]
-    phase_profile(resolve, f"spectral {NX}x{NY}x{NZ} ecCKD {NGPT}+{NGPT}", stages)
+    # phase 12's solver holds the perturbed steps' states: resolve(1) is a one-cell change
+    phase_profile(resolve, f"spectral {NX}x{NY}x{NZ} ecCKD {NGPT}+{NGPT}", stages, warm=True,
+                  window=True)
 
 
 @contextlib.contextmanager
@@ -1315,7 +1356,8 @@ def check_urban_spectral(spec, b, solid, res, label, sun):
 def phase_urban_spectral(cuda_ops, opp, seed, smi, k3):
     """This slice's path: buildings inside specint_pprts at 256 x 256, ecCKD
     32 + 32 in chunks of 8 through K3: a cold call, an identical warm call,
-    a call with the sun moved, and the sun moved back under torch.profiler."""
+    a call with the sun moved, and the sun moved back under torch.profiler
+    (one chunk of each spectrum)."""
     from tenstream_tpu_torch.pprts.sun import sundir_from_angles
 
     spec, b, solid = make_urban_spectral(NX, NY, seed, opp)
@@ -1352,19 +1394,21 @@ def phase_urban_spectral(cuda_ops, opp, seed, smi, k3):
 
     def sun_back():
         solver.set_angles(sundir_from_angles(*SUN))
-        return spectral_solve(spec, None, cuda_ops, "urban spectral profiled (sun back)",
-                              buildings=b)
+        return spectral_solve(spec, None, cuda_ops, "urban spectral profiled (sun back, "
+                              f"g-points 0-{CHUNK - 1})", buildings=b, bands=(0, CHUNK))
 
+    # the profiled window is one chunk of each spectrum: the whole call puts ~400k kernels into
+    # the trace, and reading it took longer than the call
     (_, wall_p, _), by_name = device_kernels(sun_back)
     busy = sum(t for t, _ in by_name.values())
     if busy == 0:
         log("urban spectral profile: the profiler recorded no device time; busy share not "
             "measured")
     else:
-        log(f"urban spectral profile: device busy {busy:.1f} ms in "
-            f"{sum(n for _, n in by_name.values())} kernels = {100 * busy / (wall_p * 1e3):.1f}% "
-            f"of the profiled call's wall {wall_p * 1e3:.1f} ms (the unprofiled sun-moved call: "
-            f"{walls['sun moved'] * 1e3:.1f} ms)")
+        log(f"urban spectral profile (sun back, g-points 0-{CHUNK - 1} of each spectrum): device "
+            f"busy {busy:.1f} ms in {sum(n for _, n in by_name.values())} kernels = "
+            f"{100 * busy / (wall_p * 1e3):.1f}% of the profiled call's wall {wall_p * 1e3:.1f} "
+            f"ms (the unprofiled sun-moved call, all g-points: {walls['sun moved'] * 1e3:.1f} ms)")
         for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
             log(f"urban spectral profile   {t:9.2f} ms {n:6d} launches  {name[:100]}")
     return launches
@@ -1409,12 +1453,12 @@ def phase_urban_spectral_parity(cuda_ops, ediff, opp, seed):
 
 
 def phase_options(cuda_ops, ediff, opp, seed):
-    """The 3-D options at 64 x 64, each through the kernels and through their
-    plain versions with phase 13's gates: McICA on bench.py's scene with a
+    """The 3-D options, each through the kernels and through their plain
+    versions with phase 13's gates: at SMALL_N x SMALL_N McICA on bench.py's scene with a
     partial cloud fraction, the adaptive spectral skip over three steps
-    (equal skip counts), and one 8_10 solve on the committed production
-    table; before them the McICA draws on the card against the same draws
-    on the CPU."""
+    (equal skip counts), and at 64 x 64 one 8_10 solve on the committed
+    production table; before them the McICA draws on the card against the
+    same draws on the CPU."""
     from tenstream_tpu_torch.core.prng import Threefry
     from tenstream_tpu_torch.optprop.facade import OptProp
     from tenstream_tpu_torch.optprop.lut import LUT
@@ -1433,7 +1477,7 @@ def phase_options(cuda_ops, ediff, opp, seed):
 
     outs, iters, cf = [], [], None
     for plain in (False, True):
-        spec = make_spectral_solver(64, 64, seed, opp)
+        spec = make_spectral_solver(SMALL_N, SMALL_N, seed, opp)
         lwc = spec[2]
         if cf is None:  # partly cloudy cells: 30-100% of each cloudy cell
             rng = np.random.default_rng(seed)
@@ -1446,12 +1490,12 @@ def phase_options(cuda_ops, ediff, opp, seed):
             raise AssertionError("options McICA: K1 launched where it should not, or not at all")
         outs.append(tuple(res))
         iters.append(_band_niters(spec[0]))
-    _compare_solves(f"options McICA 64x64x{NZ} kernels vs plain", outs)
+    _compare_solves(f"options McICA {SMALL_N}x{SMALL_N}x{NZ} kernels vs plain", outs)
     _compare_band_niters("options McICA", iters)
 
     runs = []
     for plain in (False, True):
-        spec = make_spectral_solver(64, 64, seed, opp)
+        spec = make_spectral_solver(SMALL_N, SMALL_N, seed, opp)
         steps = []
         with kernels_or_plain(cuda_ops, ediff, plain):
             for t in (0.0, 60.0, 120.0):
@@ -1534,18 +1578,19 @@ def spectral_step(spec, lwc, calls, cuda_ops, label, report_chunks=True):
 
 
 def phase_gas_optics(cuda_ops, opp, seed, smi):
-    """Phase 18: phase 12's scene and solver set-up at 256 x 256 with the
-    RRTMG_SW (+ ecCKD LW) and the repwvl spectra, a fresh solver each: a
+    """Phase 18: phase 12's scene and solver set-up at GAS_N x GAS_N with
+    the RRTMG_SW (+ ecCKD LW) and the repwvl spectra, a fresh solver each: a
     cold step and a perturbed step (the cloud field rolled by one cell)."""
     out = {}
+    n = GAS_N
     for which in GAS_SETS:
         calls = gas_calls(which)
-        spec = make_spectral_solver(NX, NY, seed, opp)
+        spec = make_spectral_solver(n, n, seed, opp)
         solver, atm, lwc, _ = spec
         label = f"gas optics {which}"
         ngpt = {n: int(g.solar(atm).tau.shape[0] if ls else g.thermal(atm).tau.shape[0])
                 for n, g, ls, _ in calls}
-        log(f"{label}: {NX}x{NY}x{NZ}, atm_collapse {K_COLLAPSE}, chunks of {CHUNK}, "
+        log(f"{label}: {n}x{n}x{NZ}, atm_collapse {K_COLLAPSE}, chunks of {CHUNK}, "
             f"specint_cache f32, g-points {ngpt}")
         torch.cuda.reset_peak_memory_stats()
         cuda_ops.reset_launch_counts()
@@ -1554,7 +1599,7 @@ def phase_gas_optics(cuda_ops, opp, seed, smi):
         res, pert, _ = spectral_step(spec, lwc, calls, cuda_ops, f"{label} perturbed")
         launches = dict(cuda_ops.LAUNCHES)
         log(f"{label}: cold {cold * 1e3:.1f} ms, perturbed {pert * 1e3:.1f} ms = "
-            f"{NX * NY / pert:.1f} columns/s ({smi}); launches {launches}; peak device memory "
+            f"{n * n / pert:.1f} columns/s ({smi}); launches {launches}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         check_spectral_result(label, res, atm, lwc, solar_weight(calls, atm))
         for name in ("fused_A_dots", "orbit_contract"):
@@ -1593,20 +1638,33 @@ def crop_errors(outs):
     return errs, rel
 
 
-def card_vs_cpu(label, run):
-    """`run(device)` on a 16 x 16 crop, on the card and on the CPU (the port
-    on both): fluxes within CROP_FLUX_RTOL of their largest magnitude,
-    absorption within CROP_ABSO_ATOL; TF32 or the device's linear algebra
-    would show here."""
+def card_vs_cpu(label, run, n=None):
+    """`run(device)` on an n x n crop (default CROP), on the card and on the
+    CPU (the port on both): fluxes within CROP_FLUX_RTOL of their largest
+    magnitude, absorption within CROP_ABSO_ATOL; TF32 or the device's linear
+    algebra would show here."""
+    n = n or CROP
     outs = [tuple(a.cpu() for a in run(dev) if a is not None) for dev in ("cuda", "cpu")]
     errs, rel = crop_errors(outs)
-    log(f"{label} {CROP}x{CROP} crop, card vs CPU: max abs "
+    log(f"{label} {n}x{n} crop, card vs CPU: max abs "
         + ", ".join(f"{e:.3e}" for e in errs[:-1]) + f" W/m2 ({rel:.2e} of the largest flux), "
         f"abso {errs[-1]:.3e} W/m3")
     if rel > CROP_FLUX_RTOL or errs[-1] > CROP_ABSO_ATOL:
         raise AssertionError(f"{label}: card and CPU differ on the crop (flux rtol "
                              f"{CROP_FLUX_RTOL}, abso atol {CROP_ABSO_ATOL})")
     return outs[1]
+
+
+@contextlib.contextmanager
+def cpu_threads(n):
+    """torch's CPU threads for an n x n wedge crop: one runs an 8 x 8 crop's
+    small tensors fastest, four a 16 x 16 one (measured on the chip machine's CPU)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 1 if n <= 8 else 4))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def oned_solver(solver_type, nz, nx, ny, dz, dx, device, sun):
@@ -1624,7 +1682,7 @@ def phase_oned(seed, smi, means_3d):
     RRTMG_SW 112 + ecCKD 32 LW on phase 18's scene at 256 x 256; (b) a
     Schwarzschild thermal solve and a DISORT solar+thermal solve of phase
     4's band at 256 x 256; (c) DISORT through specint_pprts with ecCKD 32 +
-    32 at 64 x 64.  Each also on a 16 x 16 crop on the card and on the CPU."""
+    32 at 64 x 64.  Each also on a CROP x CROP crop on the card and on the CPU."""
     atm, lwc = build_bench_atm(NX, NY, seed)
     lwc = np.roll(lwc, 1, axis=1)  # phase 18's perturbed field
     dz = atm.dz.astype(np.float32)
@@ -1640,9 +1698,15 @@ def phase_oned(seed, smi, means_3d):
         f"{NX * NY / wall:.1f} columns/s ({smi}); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     check_toa("oned 2str rrtmg_sw", res.edir, solar_weight(calls, atm), mu_spec)
-    m2 = tuple(float(a.mean()) for a in (res.eup[0], res.edn[-1], res.edir[-1]))
+    # against phase 18's 3-D perturbed step, on its field at GAS_N x GAS_N
+    atm_g, lwc_g = build_bench_atm(GAS_N, GAS_N, seed)
+    res_g, _ = oned_specint(oned_solver("2str", atm_g.nlay, GAS_N, GAS_N, dz, 100.0, "cuda",
+                                        SPECTRAL_SUN), atm_g, np.roll(lwc_g, 1, axis=1), calls)
+    m2 = tuple(float(a.mean()) for a in (res_g.eup[0], res_g.edn[-1], res_g.edir[-1]))
     m3 = means_3d["rrtmg_sw"]
-    log(f"oned 2str vs 3_10 (phase 18 rrtmg_sw, perturbed step), domain means: TOA up {m2[0]:.3f}"
+    del res_g
+    log(f"oned 2str vs 3_10 (phase 18 rrtmg_sw, perturbed step, {GAS_N}x{GAS_N}), domain means: "
+        f"TOA up {m2[0]:.3f}"
         f" vs {m3[0]:.3f}, surface diffuse down {m2[1]:.3f} vs {m3[1]:.3f}, surface edir "
         f"{m2[2]:.3f} vs {m3[2]:.3f} W/m2 (not gated)")
     c = min(CROP, NX)
@@ -1736,12 +1800,12 @@ def phase_oned(seed, smi, means_3d):
 
 
 def phase_gas_optics_parity(cuda_ops, ediff, opp, seed):
-    """Phase 20: phase 18's two spectra at 64 x 64 through K1/K2 and through
-    their plain versions on the card, with phase 13's gates."""
+    """Phase 20: phase 18's two spectra at SMALL_N x SMALL_N through K1/K2 and
+    through their plain versions on the card, with phase 13's gates."""
     for which in GAS_SETS:
         outs, iters = [], []
         for plain in (False, True):
-            spec = make_spectral_solver(64, 64, seed, opp)
+            spec = make_spectral_solver(SMALL_N, SMALL_N, seed, opp)
             with kernels_or_plain(cuda_ops, ediff, plain):
                 res, _, launches = spectral_step(
                     spec, spec[2], gas_calls(which), cuda_ops,
@@ -1752,7 +1816,8 @@ def phase_gas_optics_parity(cuda_ops, ediff, opp, seed):
                                      "not, or not at all")
             outs.append(tuple(res))
             iters.append(_band_niters(spec[0]))
-        _compare_solves(f"gas optics parity {which} 64x64x{NZ} kernels vs plain", outs)
+        _compare_solves(f"gas optics parity {which} {SMALL_N}x{SMALL_N}x{NZ} kernels vs plain",
+                        outs)
         _compare_band_niters(f"gas optics parity {which}", iters)
 
 
@@ -2029,6 +2094,7 @@ SPECTRAL_SCHEME = "3_30"  # phase 24's scheme: the widest
 # phase 24's band chunk: at 8 its cold call runs out of the card's 80 GB (61.8 GiB in use at
 # the failing allocation, PERF.md section 4)
 SCHEME_CHUNK = 4
+SCHEME_SPEC_N = 128  # columns per side of phase 24's spectral run
 
 
 def scheme_opp(name, OptProp, LUT):
@@ -2258,13 +2324,15 @@ def clouds_beyond_table(opp, gas, atm, lwc):
 
 def phase_spectral_scheme(cuda_ops, OptProp, LUT, seed, smi):
     """Phase 24: phase 12's full-spectrum run (ecCKD 32 + 32 on bench.py's
-    scene at 256 x 256, atm_collapse, the f32 warm cache) on a 3_30 solver
-    in band chunks of SCHEME_CHUNK: a cold call and one perturbed step."""
+    scene, atm_collapse, the f32 warm cache) at SCHEME_SPEC_N x SCHEME_SPEC_N
+    on a 3_30 solver in band chunks of SCHEME_CHUNK: a cold call and one
+    perturbed step."""
     opp = scheme_opp(SPECTRAL_SCHEME, OptProp, LUT)
     label = f"spectral {SPECTRAL_SCHEME}"
-    log(f"{label}: band chunks of {SCHEME_CHUNK}; chunks of {CHUNK} do not fit the card's 80 GB "
-        f"(61.8 GiB in use at the failing allocation, PERF.md section 4)")
-    spec = make_spectral_solver(NX, NY, seed, opp)
+    n = SCHEME_SPEC_N
+    log(f"{label}: band chunks of {SCHEME_CHUNK}; at 256x256 chunks of {CHUNK} do not fit the "
+        f"card's 80 GB (61.8 GiB in use at the failing allocation, PERF.md section 4)")
+    spec = make_spectral_solver(n, n, seed, opp)
     solver, atm, lwc, gas = spec
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2273,9 +2341,9 @@ def phase_spectral_scheme(cuda_ops, OptProp, LUT, seed, smi):
     lwc = np.roll(lwc, 1, axis=1)
     res, pert, _ = spectral_solve(spec, lwc, cuda_ops, f"{label} perturbed", chunk=SCHEME_CHUNK)
     launches = dict(cuda_ops.LAUNCHES)
-    log(f"{label}: {NX}x{NY}x{NZ}, atm_collapse {K_COLLAPSE}, ecCKD {NGPT}+{NGPT}, band chunks of "
+    log(f"{label}: {n}x{n}x{NZ}, atm_collapse {K_COLLAPSE}, ecCKD {NGPT}+{NGPT}, band chunks of "
         f"{SCHEME_CHUNK}: walls cold {cold * 1e3:.1f} ms, perturbed {pert * 1e3:.1f} ms = "
-        f"{NX * NY / pert:.1f} columns/s ({smi}); launches {launches}; peak device memory "
+        f"{n * n / pert:.1f} columns/s ({smi}); launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     # a table whose w0 axis ends below the clouds' w0 clamps them to its last w0, and they
     # absorb as such clouds do, some 200-400 K/day; the JAX package gives the same on the same
@@ -2302,9 +2370,9 @@ WEDGE_BALANCE_RTOL = 0.01  # of the incoming beam: the JAX gate (tests/test_plex
 WEDGE_EDIR_RTOL = 1e-5  # TOA edir = edirTOA x mu
 WEDGE_CHUNK = 8
 WEDGE_18_8 = 64  # columns per side of the 18_8 solve on its test table
-WEDGE_ROT = 32  # columns per side of the rotation check
+WEDGE_ROT = 16  # columns per side of the rotation check
 WEDGE_ROT_ANGLE = 33.0
-WEDGE_PROFILE_STEPS = 50  # fixed-point steps of phase 26's profiled chunk
+WEDGE_PROFILE_STEPS = 25  # fixed-point steps of phase 26's profiled chunk
 # The solvers' defaults (n_inner 24, BiCGStab, diff_iters 300/1000) do not solve bench.py's
 # column, in the JAX package or the port (tools/torch_wedge_column.py, ROADMAP section 3): 24
 # side-exchange sweeps carry 20.7% of a transparent beam through its 2.5 km layers of 100 m
@@ -2472,14 +2540,15 @@ def wedge_runs(label, make, fields, planck, mu, smi, budget=None):
     return out
 
 
-def phase_wedge(cuda_ops, seed, smi):
+def phase_wedge(cuda_ops, wopp, seed, smi):
     """Phase 25: the structured wedge solver (5_8) at 256 x 256 x 39 on the
-    committed full-density table; then 18_8 on its test table at 64 x 64."""
+    committed full-density table (`wopp`: wedge_opp()); then 18_8 on its
+    test table at 64 x 64."""
     from tenstream_tpu_torch.plexrt.mesh import fish_mesh
     from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
     from tenstream_tpu_torch.pprts.sun import sundir_from_angles
 
-    opp, name = wedge_opp()
+    opp, name = wopp
     dz, fields, planck = wedge_scene(NX, seed)
     sun = sundir_from_angles(*SPECTRAL_SUN)
     mu = float(np.cos(np.deg2rad(SPECTRAL_SUN[1])))
@@ -2507,7 +2576,6 @@ def phase_wedge(cuda_ops, seed, smi):
     check_finite(f"{label} thermal", s18.get_result(sol_t))
     wedge_balance(f"{label} solar", s18, s18.get_result(sol_s), mu)
     torch.cuda.empty_cache()
-    return opp
 
 
 def check_wedge_spectral(label, res, atm, lwc2, weight):
@@ -2645,7 +2713,7 @@ def phase_wedge_icon(cuda_ops, opp, seed, smi):
     """Phase 27: an ICON grid file of trimesh_from_structured(256, 256)
     written and read back, solved by PlexrtSolverIcon on phase 25's scene
     (defaults timed, NCA, and the gated solve with its lateral escape); the
-    rotation check at 32 x 32; card against CPU at 16 x 16 for both wedge
+    rotation check at 16 x 16; card against CPU on crops for both wedge
     solvers."""
     from tenstream_tpu_torch.plexrt import icon
     from tenstream_tpu_torch.plexrt.solver_unstructured import PlexrtSolverIcon
@@ -2724,13 +2792,12 @@ def wedge_sundir(phi_deg, theta_deg):
 
 
 def wedge_card_vs_cpu(seed):
-    """Both wedge solvers on a 16 x 16 crop on the card and on the CPU,
-    monochromatic solar+thermal on WEDGE_EXACT (converged solves; a stall
-    exit's iterate is not reproducible across devices), and through
-    specint_plexrt (max_gpt 8): the fish solver's solar and thermal lanes
-    on WEDGE_EXACT, the ICON solver's one chunk of 8 solar lanes on its
-    default BiCGStab (n_inner 128), every lane converged: phase 19's
-    gates."""
+    """Both wedge solvers on a crop on the card and on the CPU, monochromatic
+    solar+thermal on WEDGE_EXACT (converged solves; a stall exit's iterate
+    is not reproducible across devices), and through specint_plexrt (max_gpt
+    8): the fish solver's solar and thermal lanes on WEDGE_EXACT (CROP), the
+    ICON solver's one chunk of 8 solar lanes on its default BiCGStab
+    (n_inner 128; ICON_CROP), every lane converged: phase 19's gates."""
     from tenstream_tpu_torch.plexrt import icon
     from tenstream_tpu_torch.plexrt.mesh import fish_mesh
     from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
@@ -2739,60 +2806,254 @@ def wedge_card_vs_cpu(seed):
     from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
     from tenstream_tpu_torch.spectral.specint_plexrt import specint_plexrt
 
-    n = CROP
-    dz, fields, planck = wedge_scene(n, seed)
-    atm, lwc = build_bench_atm(n, n, seed)
-    lwc2 = both_orientations(lwc)
     opps = {dev: wedge_opp(dev)[0] for dev in ("cuda", "cpu")}
-    mesh = icon.trimesh_from_structured(n, n, 100.0, 100.0)
 
-    def solver(kind, dev, dzv, **kw):
+    def scene(n):
+        dz, fields, planck = wedge_scene(n, seed)
+        atm, lwc = build_bench_atm(n, n, seed)
+        return dz, fields, planck, atm, both_orientations(lwc)
+
+    def solver(kind, n, dev, dzv, **kw):
         if kind == "fish":
             s = PlexrtSolver(fish_mesh(len(dzv), n, n, 100.0, 100.0, dzv), opps[dev], **kw)
         else:
-            s = PlexrtSolverIcon(mesh, dzv, opps[dev], **kw)
+            s = PlexrtSolverIcon(icon.trimesh_from_structured(n, n, 100.0, 100.0), dzv, opps[dev],
+                                 **kw)
         s.set_angles(sundir_from_angles(*SPECTRAL_SUN))
         return s
 
-    def mono(kind):
+    def mono(kind, n):
         cells = (lambda a: a) if kind == "fish" else icon_cells
+        dz, fields, planck, _, _ = scene(n)
 
         def run(dev):
-            s = solver(kind, dev, dz, **WEDGE_EXACT)
+            s = solver(kind, n, dev, dz, **WEDGE_EXACT)
             s.set_optical_properties(WEDGE_ALBEDO, *(cells(a) for a in fields),
                                      planck=cells(planck))
             return s.get_result(s.solve(lthermal=True, lsolar=True, edirTOA=1000.0))
         return run
 
-    def fish_spectral(dev):
-        s = solver("fish", dev, atm.dz.astype(np.float32), **WEDGE_EXACT)
-        return specint_plexrt(s, atm, WEDGE_ALBEDO, True, True,
-                              specint=EcckdGasOptics(n_gpt=NGPT), lwc=lwc2,
-                              max_gpt=WEDGE_CHUNK, band_chunk=WEDGE_CHUNK)
+    def fish_spectral(n):
+        *_, atm, lwc2 = scene(n)
 
-    def icon_spectral(dev):
-        # the default diffuse solver's lanes: the crop's first solar chunk, on which every
-        # BiCGStab lane of the ICON solver converges (its open boundary lets the diffuse
-        # light out; the fish mesh's periodic column stalls, ROADMAP section 3)
-        s = solver("icon", dev, atm.dz.astype(np.float32), n_inner=WEDGE_EXACT["n_inner"])
-        label = f"wedge icon specint_plexrt BiCGStab on {dev}"
-        res, _, text, above = wedge_specint(s, atm, icon_cells(lwc2), EcckdGasOptics(n_gpt=NGPT),
-                                            label, lthermal=False, max_gpt=WEDGE_CHUNK,
-                                            band_chunk=WEDGE_CHUNK)
-        log(f"{label}: {text}")
-        if above:
-            raise AssertionError(f"{label}: {above} lanes above their tolerance")
-        return res
+        def run(dev):
+            s = solver("fish", n, dev, atm.dz.astype(np.float32), **WEDGE_EXACT)
+            return specint_plexrt(s, atm, WEDGE_ALBEDO, True, True,
+                                  specint=EcckdGasOptics(n_gpt=NGPT), lwc=lwc2,
+                                  max_gpt=WEDGE_CHUNK, band_chunk=WEDGE_CHUNK)
+        return run
 
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, 4))  # small CPU tensors: fewer threads run faster
-    try:
-        for kind, spectral, what in (("fish", fish_spectral, "fixed point, solar + thermal"),
-                                     ("icon", icon_spectral, "BiCGStab, solar")):
-            card_vs_cpu(f"wedge {kind} monochromatic", mono(kind))
-            card_vs_cpu(f"wedge {kind} specint_plexrt ({what}, max_gpt {WEDGE_CHUNK})", spectral)
-    finally:
-        torch.set_num_threads(threads)
+    def icon_spectral(n):
+        *_, atm, lwc2 = scene(n)
+
+        def run(dev):
+            # the default diffuse solver's lanes: the crop's first solar chunk, on which every
+            # BiCGStab lane of the ICON solver converges (its open boundary lets the diffuse
+            # light out; the fish mesh's periodic column stalls, ROADMAP section 3)
+            s = solver("icon", n, dev, atm.dz.astype(np.float32), n_inner=WEDGE_EXACT["n_inner"])
+            label = f"wedge icon specint_plexrt BiCGStab on {dev}"
+            res, _, text, above = wedge_specint(s, atm, icon_cells(lwc2),
+                                                EcckdGasOptics(n_gpt=NGPT), label, lthermal=False,
+                                                max_gpt=WEDGE_CHUNK, band_chunk=WEDGE_CHUNK)
+            log(f"{label}: {text}")
+            if above:
+                raise AssertionError(f"{label}: {above} lanes above their tolerance")
+            return res
+        return run
+
+    for kind, spectral, n, what in (
+            ("fish", fish_spectral, CROP, "fixed point, solar + thermal"),
+            ("icon", icon_spectral, ICON_CROP, "BiCGStab, solar")):
+        with cpu_threads(CROP):
+            card_vs_cpu(f"wedge {kind} monochromatic", mono(kind, CROP))
+        with cpu_threads(n):
+            card_vs_cpu(f"wedge {kind} specint_plexrt ({what}, max_gpt {WEDGE_CHUNK})",
+                        spectral(n), n=n)
+
+
+# ---------------------------------------------------------------------------
+# wedge tables (phase 28): the wedge photon tracer, plain PyTorch on the card
+# ---------------------------------------------------------------------------
+
+TRACE_APEX = (0.5, 0.866)  # a near-equilateral cell, (a)'s shape
+TRACE_PHOTONS = 400  # (a) and (d)
+ICON_PHOTONS = 2000  # examples/ex_plexrt_icon.py's wedge_lut_for_mesh(mesh, n_photons=2000)
+SHAPED_N = 16  # columns per side of (d)'s distorted mesh
+
+
+def trace_axes():
+    """(a)'s axes: two values per axis, three phi (tests/test_torch_wedge_tables.py's)."""
+    from tenstream_tpu_torch.plexrt.optprop import WedgeAxes
+
+    f = lambda *v: np.array(v, np.float32)
+    return WedgeAxes(f(0.5, 4.0), f(0.5, 0.99), f(0.5, 1.0), f(0.0, 0.85),
+                     np.linspace(0.0, 360.0, 3).astype(np.float32), f(20.0, 60.0))
+
+
+def _lut_on(lut, device):
+    return lut._replace(**{k: getattr(lut, k).to(device)
+                           for k in ("dir2dir", "dir2diff", "diff2diff")})
+
+
+def check_wedge_table(label, lut):
+    for k in ("dir2dir", "dir2diff", "diff2diff"):
+        t = getattr(lut, k)
+        if not bool(torch.isfinite(t).all()) or t.sum(-1).max().item() > 1.0 + 1e-3:
+            raise AssertionError(f"{label}: {k} has non-finite entries or row sums above 1")
+
+
+def phase_wedge_tables(cuda_ops, seed, smi):
+    """Phase 28: wedge table creation on the card.  (a) create_wedge_lut at
+    TRACE_APEX on trace_axes() at 400 photons, on the card and on the CPU
+    from one seed: every coefficient within 2 photons' weight + 1e-5; (b) the
+    ICON user's table, wedge_lut_for_mesh(trimesh_equilateral(256, 256, 100),
+    n_photons=2000) traced on the card (test_axes at the mean apex): wall,
+    photons/s, photon-steps/s, the live share per step, peak memory, the
+    busy share, finite rows within 1; (c) PlexrtSolverIcon on that mesh with
+    (b)'s table, phase 25's scene on WEDGE_EXACT: converged, TOA edir, the
+    solar balance with the lateral escape, and (ungated) the flux difference
+    from the canonical test table (tests/data/luts, the same axes): the shape
+    effect; (d) WedgeOptPropShaped (four corner tables at (a)'s axes traced on
+    the card by wedge_optprop_for_mesh) on a distorted 16 x 16 mesh, solved
+    on the card and on the CPU with the same tables: phase 19's crop gates;
+    (e) K1-K4 launch 0 times."""
+    from tenstream_tpu_torch.plexrt import icon
+    from tenstream_tpu_torch.plexrt import optprop as W
+    from tenstream_tpu_torch.plexrt import wedge_boxmc
+    from tenstream_tpu_torch.plexrt.solver_unstructured import PlexrtSolverIcon
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    cuda_ops.reset_launch_counts()
+    sun = sundir_from_angles(*SPECTRAL_SUN)
+    mu = float(np.cos(np.deg2rad(SPECTRAL_SUN[1])))
+
+    # (a) the tracer on the card against the CPU
+    a = trace_axes()
+    fa = W.WedgeAxes(a.tau, a.w0, a.aspect, a.g)
+    luts = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        luts[dev] = W.create_wedge_lut(a, fa, TRACE_PHOTONS, seed=seed, apex=TRACE_APEX,
+                                       device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        log(f"wedge tables (a) create_wedge_lut on {dev}: {time.perf_counter() - t0:.2f} s")
+    diffs = [(getattr(luts["cuda"], k).cpu() - getattr(luts["cpu"], k)).abs()
+             for k in ("dir2dir", "dir2diff", "diff2diff")]
+    d = torch.cat([x.reshape(-1) for x in diffs])
+    bound = 2.0 / TRACE_PHOTONS + 1e-5
+    log(f"wedge tables (a) card vs CPU at apex {TRACE_APEX}, {TRACE_PHOTONS} photons: "
+        f"{int((d > 0).sum())} of {d.numel()} coefficients differ at all, max "
+        f"{d.max().item():.3e} (gate {bound:.3e}), {int((d > 1e-5).sum())} by more than 1e-5")
+    if d.max().item() > bound:
+        raise AssertionError("wedge tables (a): card and CPU tables differ by more than two "
+                             "photons' weight")
+
+    # (b) the ICON user's table
+    mesh = icon.trimesh_equilateral(NX, NY, 100.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        wedge_boxmc.reset_stats()
+        t0 = time.perf_counter()
+        lut = W.wedge_lut_for_mesh(mesh, n_photons=ICON_PHOTONS, basename=tmp, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = dict(wedge_boxmc.STATS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_wedge_table("wedge tables (b)", lut)
+    # the busy share on the table's diffuse sources, timed and then traced again under
+    # torch.profiler (the whole table would put ~10^6 launches into one trace)
+    diffuse = lambda: W._trace_jobs([(lut.faxes, src, False, 100 + src) for src in range(W.NDIFF)],
+                                    ICON_PHOTONS, apex=lut.apex, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    diffuse()
+    torch.cuda.synchronize()
+    wall_diff = time.perf_counter() - t0
+    _, by_name = device_kernels(diffuse)
+    busy = sum(t for t, _ in by_name.values())
+    live = np.asarray(stats["live"], np.float64)
+    label = f"wedge tables (b) wedge_lut_for_mesh(trimesh_equilateral({NX}, {NY}))"
+    log(f"{label}: apex ({lut.apex[0]:.4f}, {lut.apex[1]:.4f}), {lut.dir2dir[..., 0, 0].numel()} "
+        f"direct x {W.n_dir_src()} sources + {lut.diff2diff[..., 0, 0].numel()} diffuse x "
+        f"{W.NDIFF}, {stats['photons']} photons in {wall:.2f} s = {stats['photons'] / wall:.4g} "
+        f"photons/s, {stats['photon_steps']} photon-steps = {stats['photon_steps'] / wall:.4g}/s "
+        f"({smi}); {stats['steps']} steps, live share per step mean "
+        f"{live.mean() / stats['photons']:.4f} (first 10 steps "
+        f"{live[:10].sum() / live.sum():.3f} of the photon-steps); peak device memory "
+        f"{peak:.2f} GiB")
+    log(f"{label}: its diffuse sources alone {wall_diff * 1e3:.1f} ms; under torch.profiler "
+        f"device busy {busy:.1f} ms in {sum(n for _, n in by_name.values())} kernel launches = "
+        f"{100 * busy / (wall_diff * 1e3):.1f}% of that wall")
+
+    # (c) the solve on that table, against the canonical table of the same axes
+    dz, fields, planck = wedge_scene(NX, seed)
+    fields = tuple(icon_cells(x) for x in fields)
+    planck = icon_cells(planck)
+    solver = PlexrtSolverIcon(mesh, dz, W.WedgeOptProp(lut), **WEDGE_EXACT)
+    solver.set_angles(sun)
+    label = f"wedge tables (c) ICON {mesh.ncell} cells x {NZ} on (b)'s table"
+    torch.cuda.reset_peak_memory_stats()
+    sol_s, sol_t, wall, text, lateral = wedge_solves(solver, fields, planck, label,
+                                                     budget=icon_budget)
+    res = solver.get_result(sol_s)
+    log(f"{label} {WEDGE_EXACT}: wall {wall * 1e3:.1f} ms; {text}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; param-phi map "
+        f"{'on' if solver._use_param_phi else 'off'}")
+    check_finite(f"{label} thermal", solver.get_result(sol_t))
+    wedge_balance(f"{label} solar", solver, res, mu, lateral=lateral)
+    del solver, sol_s, sol_t
+    canon = W.WedgeOptProp(W.load_or_create_wedge_lut(W.test_axes(), None, 1500, SCHEME_LUT_DIR,
+                                                      device="cuda"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the shape warning: the point of the comparison
+        solver = PlexrtSolverIcon(mesh, dz, canon, **WEDGE_EXACT)
+    solver.set_angles(sun)
+    solver.set_optical_properties(WEDGE_ALBEDO, *fields)
+    sol_c, lateral_c = icon_budget(solver)
+    res_c = solver.get_result(sol_c)
+    parts = []
+    for name, x, y in zip(("edir", "edn", "eup", "abso"), res, res_c):
+        parts.append(f"{name} max |diff| {(x - y).abs().max().item():.4g}, domain mean "
+                     f"{x.mean().item():.4f} vs {y.mean().item():.4f}")
+    log(f"wedge tables (c) shape effect (ungated): (b)'s table vs the canonical test table "
+        f"(test_axes, 1500 photons, the param-phi map on): " + "; ".join(parts)
+        + f"; lateral escape {lateral:.4f} vs {lateral_c:.4f} W/m2")
+    del solver, res, res_c, sol_c, canon, lut
+    torch.cuda.empty_cache()
+
+    # (d) shape-blended tables on a distorted mesh, card against CPU
+    base = icon.trimesh_from_structured(SHAPED_N, SHAPED_N, 100.0, 100.0)
+    rng = np.random.default_rng(2)
+    dmesh = icon.trimesh_from_points(base.verts + rng.uniform(-18.0, 18.0, base.verts.shape),
+                                     base.tris)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        shaped = W.wedge_optprop_for_mesh(dmesh, a, n_photons=TRACE_PHOTONS, basename=tmp,
+                                          device="cuda")
+        torch.cuda.synchronize()
+        t_tab = time.perf_counter() - t0
+    if not isinstance(shaped, W.WedgeOptPropShaped) or len(shaped.luts) != 4:
+        raise AssertionError("wedge tables (d): the distorted mesh did not get 4 blended tables")
+    opps = {"cuda": shaped, "cpu": W.WedgeOptPropShaped([_lut_on(l, "cpu") for l in shaped.luts])}
+    dzs, fs, ps = wedge_scene(SHAPED_N, seed)
+    fs, ps = tuple(icon_cells(x) for x in fs), icon_cells(ps)
+    log(f"wedge tables (d): 4 corner tables at apexes "
+        + ", ".join(f"({x:.3f}, {y:.3f})" for x, y in shaped.apexes)
+        + f" traced on the card in {t_tab:.2f} s")
+
+    def shaped_run(dev):
+        s = PlexrtSolverIcon(dmesh, dzs, opps[dev], **WEDGE_EXACT)
+        s.set_angles(sun)
+        s.set_optical_properties(WEDGE_ALBEDO, *fs, planck=ps)
+        return s.get_result(s.solve(lthermal=True, lsolar=True, edirTOA=1000.0))
+
+    with cpu_threads(SHAPED_N):
+        card_vs_cpu(f"wedge tables (d) WedgeOptPropShaped {SHAPED_N}x{SHAPED_N} distorted",
+                    shaped_run, n=SHAPED_N)
+    no_cube_kernels(cuda_ops, "wedge tables")
 
 
 def instantiation_rows(cuda_ops, by_scheme, scheme_launches, dense_launches, main_launches,
@@ -2862,8 +3123,24 @@ def main():
         walls[label] = round(now - clock[0], 1)
         clock[0] = now
 
-    ptx = phase_build(cuda_ops)
-    lap("2 build")
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        # the wedge phases launch no kernel: they run while the kernels build
+        built = ex.submit(phase_build, cuda_ops)
+        wopp = wedge_opp()
+        phase_wedge(cuda_ops, wopp, args.seed, smi)
+        lap("25 wedge")
+        wopp = wopp[0]
+        phase_wedge_spectral(cuda_ops, wopp, args.seed, smi)
+        lap("26 wedge spectral")
+        phase_wedge_icon(cuda_ops, wopp, args.seed, smi)
+        del wopp
+        torch.cuda.empty_cache()
+        lap("27 wedge ICON")
+        phase_wedge_tables(cuda_ops, args.seed, smi)
+        torch.cuda.empty_cache()
+        lap("28 wedge tables")
+        ptx = log_build(built.result())
+    lap("2 build (its wait after 25-28)")
     opp = OptProp(LUT.load(LUT_PATH, device="cuda"), device="cuda")
     idx = opp._solver_orbit_idx
     sundir = sundir_from_angles(*SUN)
@@ -2907,14 +3184,6 @@ def main():
                                           Options, sundir, args.seed)
     spectral_launches = phase_spectral_scheme(cuda_ops, OptProp, LUT, args.seed, smi)
     lap("21-24 schemes")
-    wopp = phase_wedge(cuda_ops, args.seed, smi)
-    lap("25 wedge")
-    phase_wedge_spectral(cuda_ops, wopp, args.seed, smi)
-    lap("26 wedge spectral")
-    phase_wedge_icon(cuda_ops, wopp, args.seed, smi)
-    del wopp
-    torch.cuda.empty_cache()
-    lap("27 wedge ICON")
     insts = instantiation_rows(cuda_ops, by_scheme, scheme_launches, dense_launches, launches,
                                spectral_launches)
     report["boxmc_trace"] = phase_boxmc(cuda_tracer, lutgen, args.seed)

@@ -13,7 +13,15 @@ the JAX versions the package runs under).
   and returns the xor of the two output words (the partitionable layout;
   the classic layout hashed the two halves of the flat counter range).
 - `uniform(shape)` maps 32 random bits to float32 as JAX does: the top 23
-  bits become the mantissa of a number in [1, 2), minus 1.
+  bits become the mantissa of a number in [1, 2), minus 1; with bounds it
+  returns max(minval, f * (maxval - minval) + minval), as JAX does.
+- `split(n)` is `jax.random.split(key, n)` in the partitionable mode
+  (`_threefry_split_foldlike`): child i is the output word pair of
+  threefry2x32(key, (i >> 32, i & 0xffffffff)).
+
+Batched keys are int64 tensors of shape (..., 2) (`Threefry.words`,
+`split_keys`, `fold_in_keys`, `uniform_keys`): each key hashes its own
+counters, as `jax.vmap` over keys does.
 
 The words are held in int64 tensors masked to 32 bits, so the generator
 runs on the CPU and the card alike with torch's integer ops.
@@ -34,10 +42,11 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & _MASK
 
 
-def threefry2x32(k0: int, k1: int, x0: torch.Tensor,
+def threefry2x32(k0, k1, x0: torch.Tensor,
                  x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The 20-round threefry2x32 hash of the word pairs (x0, x1) (int64
-    tensors holding uint32 values) under the key (k0, k1)."""
+    tensors holding uint32 values) under the key (k0, k1): ints, or int64
+    tensors that broadcast against the counters."""
     ks = (k0 & _MASK, k1 & _MASK, (k0 ^ k1 ^ 0x1BD11BDA) & _MASK)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -62,6 +71,15 @@ class Threefry:
         seed = int(seed)
         return cls((seed >> 32) & _MASK if seed >= 0 else 0, seed & _MASK)
 
+    def split(self, n: int = 2) -> Tuple["Threefry", ...]:
+        """`jax.random.split(key, n)`."""
+        w = split_keys(self.words(), n)
+        return tuple(Threefry(int(a), int(b)) for a, b in w.tolist())
+
+    def words(self, device="cpu") -> torch.Tensor:
+        """The key as an int64 tensor of shape (2,)."""
+        return torch.tensor(self.key, dtype=torch.int64, device=device)
+
     def fold_in(self, data: int) -> "Threefry":
         """`jax.random.fold_in(key, data)`."""
         x0 = torch.zeros(1, dtype=torch.int64)
@@ -76,7 +94,45 @@ class Threefry:
         y0, y1 = threefry2x32(*self.key, count >> 32, count & _MASK)
         return (y0 ^ y1).reshape(tuple(shape))
 
-    def uniform(self, shape: Sequence[int], device="cuda") -> torch.Tensor:
-        """`jax.random.uniform(key, shape, float32)`: float32 in [0, 1)."""
-        mant = (self.bits(shape, device) >> 9) | 0x3F800000
-        return mant.to(torch.int32).view(torch.float32) - 1.0
+    def uniform(self, shape: Sequence[int], device="cuda", minval: float = 0.0,
+                maxval: float = 1.0) -> torch.Tensor:
+        """`jax.random.uniform(key, shape, float32, minval, maxval)`."""
+        return to_uniform(self.bits(shape, device), minval, maxval)
+
+
+def to_uniform(bits: torch.Tensor, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """32 random bits -> float32 in [minval, maxval) as JAX maps them."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return f
+    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=f.device) - lo
+    # XLA contracts f * span + lo into one fused multiply-add: the float64
+    # product of two float32 values is exact, so one rounding of the float64
+    # sum gives the fused result
+    fused = (f.double() * span.double() + lo.double()).float()
+    return torch.maximum(lo, fused)
+
+
+def split_keys(keys: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """`jax.random.split` of each key in keys (..., 2): (..., n, 2)."""
+    i = torch.arange(n, dtype=torch.int64, device=keys.device)
+    y0, y1 = threefry2x32(keys[..., 0:1], keys[..., 1:2], i >> 32, i & _MASK)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def fold_in_keys(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """`jax.random.fold_in(key, d)` for keys (..., 2) and int data that
+    broadcast: (..., 2)."""
+    d = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & _MASK
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(d), d)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def uniform_keys(keys: torch.Tensor, counters: torch.Tensor, minval: float = 0.0,
+                 maxval: float = 1.0) -> torch.Tensor:
+    """Element i of `jax.random.uniform(key, shape, minval=, maxval=)` for
+    each key of keys (..., 2) and each flat index i of counters (int64),
+    broadcast against each other."""
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], counters >> 32, counters & _MASK)
+    return to_uniform(y0 ^ y1, minval, maxval)

@@ -132,11 +132,6 @@ class WedgeSolverBase:
 
     def __init__(self, opp: WedgeOptProp, n_inner: int, diff_iters: int, diff_rtol: float,
                  diff_solver: str, device):
-        if hasattr(opp, "bind_cells"):
-            from tenstream_tpu_torch.plexrt.optprop import TRACER_ITEM
-
-            raise NotImplementedError(
-                f"shape-blended wedge optprops (bind_cells) are not ported ({TRACER_ITEM})")
         self.opp = opp
         self.device = opp.device if device is None else torch.device(device)
         self.n_inner = n_inner

@@ -62,6 +62,13 @@ class PlexrtSolverIcon(WedgeSolverBase):
         cx = (ac * abh).sum(-1) / L
         cy = (ac[:, 1] * abh[:, 0] - ac[:, 0] * abh[:, 1]) / L
         self._wedge_C = (t(cx), t(np.maximum(cy, 1e-6)))
+        if hasattr(opp, "bind_cells"):
+            # shape-blended tables (`WedgeOptPropShaped`) map the raw azimuth
+            # onto each table's own shape: no single-table azimuth map here
+            opp.bind_cells(cx, np.maximum(cy, 1e-6))
+            self._table_apex = (1.0, 1.0)
+            self._use_param_phi = False
+            return
         # the table's triangle (canonical right triangle (1, 1) unless a
         # shape-aware table was traced for this mesh): the azimuth map
         # targets this shape

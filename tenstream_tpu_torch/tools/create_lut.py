@@ -4,13 +4,17 @@
     python -m tenstream_tpu_torch.tools.create_lut 3_10 [--preset default|mockup|bench|production]
         [--photons N] [--out DIR] [--no-kernel] [--device cuda|cpu]
         [--max-rounds N] [--dir-max-rounds N] [--compose-dir-from DONOR_LUT]
+    python -m tenstream_tpu_torch.tools.create_lut wedge_5_8 [--preset mockup|default]
+        [--photons N] [--out DIR] [--device cuda|cpu]
 
 Tables are written in the JAX package's npz format under the output dir
 (default `data/luts`, or $TENSTREAM_TPU_LUT_DIR), keyed by the axis
 configuration; interrupted runs resume from per-source checkpoints.  On
 `--device cuda` (the default) K4 traces on the card; `--device cpu` runs
 its plain PyTorch version.  `--no-kernel` sends every source to the
-general tracer.
+general tracer.  `wedge_5_8` and `wedge_18_8` trace wedge tables with the
+wedge tracer (`plexrt.wedge_boxmc`) on the test axes (`mockup`) or the
+full-density axes (any other preset).
 """
 
 from __future__ import annotations
@@ -61,10 +65,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.scheme.startswith("wedge_"):
-        from tenstream_tpu_torch.plexrt.optprop import TRACER_ITEM
+        # wedge tables (plexrt solvers): fixed photon counts over the wedge
+        # parameter space, mirror-symmetrized
+        from tenstream_tpu_torch.plexrt import optprop as W
 
-        raise NotImplementedError(f"wedge LUTs are traced by the wedge photon tracer ({TRACER_ITEM}); "
-                                  "the wedge solvers load the committed tables")
+        axes = W.test_axes() if args.preset == "mockup" else W.default_axes()
+        t0 = time.time()
+        lut = W.load_or_create_wedge_lut(axes, n_photons=args.photons, basename=args.out,
+                                         scheme=args.scheme[len("wedge_"):], device=args.device,
+                                         verbose=True)
+        print(f"done in {time.time() - t0:.1f}s; dir table {tuple(lut.dir2dir.shape)}, "
+              f"diff table {tuple(lut.diff2diff.shape)}")
+        return
 
     from tenstream_tpu_torch.optprop import lut as L
 

@@ -32,6 +32,7 @@ from tenstream_tpu_torch.pprts.grid import Grid
 from tenstream_tpu_torch.pprts.solver import PprtsSolver
 from tenstream_tpu_torch.pprts.sun import sundir_from_angles
 from tenstream_tpu_torch.streams import get_scheme
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LUT_8_10 = os.path.join(REPO, "data", "luts", "LUT_8_10_production.npz")

@@ -21,6 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from tenstream_tpu.boxmc import pallas_tracer as jpt
 from tenstream_tpu_torch.boxmc import cuda_tracer as ct
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 ATOL = 1e-5
 

@@ -29,6 +29,7 @@ from tenstream_tpu_torch.boxmc import schemes as tschemes
 from tenstream_tpu_torch.boxmc.cuda_tracer import kernel_refusal
 from tenstream_tpu_torch.boxmc.tracer import run_boxmc
 from tenstream_tpu_torch.optprop import lut as tlut
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 N = 20000
 

@@ -38,12 +38,23 @@ from tenstream_tpu_torch.pprts import solver as tsolver
 from tenstream_tpu_torch.pprts.grid import Grid
 from tenstream_tpu_torch.pprts.sun import sundir_from_angles
 from tenstream_tpu_torch.streams import get_scheme as tget
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLUX_ATOL = 0.1
 ABSO_ATOL = 1e-4
 ABSO_ATOL_CLOSED_FORM = 1e-3
 NZ, NX, NY = 5, 6, 7
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small torch ops: one intra-op thread runs them as fast as many
+    and does not oversubscribe the CPU when test files run in parallel."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _solid(seed=0):

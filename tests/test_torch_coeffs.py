@@ -24,8 +24,19 @@ from tenstream_tpu_torch.convert import lut_from_arrays
 from tenstream_tpu_torch.optprop.facade import OptProp
 from tenstream_tpu_torch.pprts import coeffs as tc
 from tenstream_tpu_torch.pprts import sun as tsun
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small torch ops: one intra-op thread runs them as fast as many
+    and does not oversubscribe the CPU when test files run in parallel."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -43,6 +43,7 @@ from tenstream_tpu_torch.pprts.operators import OrbitCoeff
 from tenstream_tpu_torch.pprts.solver import PprtsSolver
 from tenstream_tpu_torch.pprts.sun import sundir_from_angles
 from tenstream_tpu_torch.streams import get_scheme as tget
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 K = 8  # layers to collapse

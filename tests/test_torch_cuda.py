@@ -1,8 +1,9 @@
 """The CUDA kernels K1 (`fused_A_dots`), K2 (`orbit_contract`), K3
 (`diffuse_apply_dense`) and K4 (`boxmc_trace`) against their plain PyTorch
 versions, on the card; and the 1-D column solvers (Schwarzschild, DISORT,
-`PprtsSolver`'s 1-D types) and the wedge solvers (`plexrt`, with NCA and
-`specint_plexrt`) on the card against the CPU.
+`PprtsSolver`'s 1-D types), the wedge solvers (`plexrt`, with NCA and
+`specint_plexrt`) and the wedge photon tracer and table creation on the card
+against the CPU.
 
 These tests need an NVIDIA GPU (marker `cuda`) and skip without one.  The
 file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -676,3 +677,42 @@ def test_cuda_specint_plexrt_matches_cpu(cuda_device, kind, diff_solver):
     for a, b in zip(results[0][:3], results[1][:3]):
         _near(a, b, 5e-5)
     assert float((results[0].abso.cpu() - results[1].abso).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,apex", [("5_8", None), ("18_8", (0.5, 0.866)), ("5_5", None)])
+def test_cuda_wedge_tracer_matches_cpu(cuda_device, scheme, apex):
+    """The wedge photon tracer (`plexrt/wedge_boxmc.py`) on the card against
+    the CPU under the same keys: equal draws, so only float32 rounding can
+    move a photon (every coefficient within two photons' weight + 1e-5)."""
+    from tenstream_tpu_torch.core import prng
+    from tenstream_tpu_torch.plexrt.wedge_boxmc import WEDGE_SCHEMES, run_wedge_boxmc
+
+    n = 2000
+    entries = np.array([(1.5, 0.9, 0.5, 1.0, 30.0, 40.0), (15.0, 0.99999, 0.85, 0.4, 200.0, 75.0),
+                        (0.1, 0.5, 0.0, 2.5, 100.0, 0.0)], np.float32)
+    keys = prng.fold_in_keys(prng.Threefry.from_seed(3).words(), torch.arange(len(entries)))
+    for ldir in (True, False):
+        src = WEDGE_SCHEMES[scheme][1] - 1 if not ldir else 1
+        out = [run_wedge_boxmc(keys, src, ldir, *entries.T, n_photons=n, scheme=scheme, apex=apex,
+                               device=dev) for dev in (cuda_device, "cpu")]
+        for a, b in zip(*out):
+            assert (a.cpu() - b).abs().max().item() <= 2.0 / n + 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_create_wedge_lut_matches_cpu(cuda_device, tmp_path):
+    """A wedge table traced on the card equals the CPU's within two photons'
+    weight, and loads back from its cache file."""
+    from tenstream_tpu_torch.plexrt import optprop as W
+
+    f = lambda *v: np.array(v, np.float32)
+    a = W.WedgeAxes(f(0.5, 4.0), f(0.5, 0.99), f(0.5, 1.0), f(0.0, 0.85),
+                    np.linspace(0.0, 360.0, 3).astype(np.float32), f(20.0, 60.0))
+    luts = [W.load_or_create_wedge_lut(a, n_photons=400, basename=str(tmp_path / d), apex=(0.5, 0.866),
+                                       device=d) for d in ("cuda", "cpu")]
+    again = W.load_or_create_wedge_lut(a, n_photons=400, basename=str(tmp_path / "cuda"),
+                                       apex=(0.5, 0.866), device="cuda")
+    for k in ("dir2dir", "dir2diff", "diff2diff"):
+        assert (getattr(luts[0], k).cpu() - getattr(luts[1], k)).abs().max().item() <= 2 / 400 + 1e-5
+        assert torch.equal(getattr(again, k), getattr(luts[0], k))

@@ -50,11 +50,22 @@ from tenstream_tpu_torch.pprts import precond as tprecond
 from tenstream_tpu_torch.pprts import sources as tsources
 from tenstream_tpu_torch.pprts import sun as tsun
 from tenstream_tpu_torch.streams import get_scheme as tget
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELD_ATOL = 3e-6
 BF16_ATOL = 5e-6
 INTERP_ATOL = 2e-6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small torch ops: one intra-op thread runs them as fast as many
+    and does not oversubscribe the CPU when test files run in parallel."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _bf16_values(a: np.ndarray) -> np.ndarray:

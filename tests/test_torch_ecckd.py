@@ -27,9 +27,20 @@ import tenstream_tpu_torch.spectral.gasoptics as tgas
 from tenstream_tpu.ops.planck import planck_radiance_wavenumber as jplanck
 from tenstream_tpu_torch.convert import atmosphere_from_arrays
 from tenstream_tpu_torch.ops.planck import planck_radiance_wavenumber as tplanck
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 RTOL = 1e-6
 RTOL_F32_QUADRATURE = 3e-6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small torch ops: one intra-op thread runs them as fast as many
+    and does not oversubscribe the CPU when test files run in parallel."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _f32(a, b, rtol=RTOL, atol=0.0, msg=""):

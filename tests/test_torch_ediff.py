@@ -22,8 +22,19 @@ from tenstream_tpu_torch.pprts import ediff as tediff
 from tenstream_tpu_torch.pprts import precond as tprecond
 from tenstream_tpu_torch.pprts.operators import OrbitCoeff
 from tenstream_tpu_torch.streams import get_scheme as tget
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 NZ, NX, NY = 6, 16, 16
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small torch ops: one intra-op thread runs them as fast as many
+    and does not oversubscribe the CPU when test files run in parallel."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _system(seed=0):

@@ -17,6 +17,17 @@ from tenstream_tpu.pprts import edir as jedir
 from tenstream_tpu.streams import get_scheme as jget
 from tenstream_tpu_torch.pprts import edir as tedir
 from tenstream_tpu_torch.streams import get_scheme as tget
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small torch ops: one intra-op thread runs them as fast as many
+    and does not oversubscribe the CPU when test files run in parallel."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _dir2dir(nd, nz, nx, ny, seed):

@@ -29,6 +29,7 @@ from tenstream_tpu.boxmc.schemes import get_box_scheme
 from tenstream_tpu.optprop import lut as jlut
 from tenstream_tpu_torch.optprop import lut as tlut
 from tenstream_tpu_torch.tools import create_lut as tool
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 RTOL = 1e-6
 
@@ -359,5 +360,15 @@ def test_create_lut_on_the_cpu_and_in_both_packages(tmp_path, monkeypatch):
         "tau", "w0", "aspect", "g", "phi", "theta"))), jlut.LUTAxes(
         TINY[1].tau, TINY[1].w0, TINY[1].aspect, TINY[1].g), basename=str(tmp_path))
     _assert_lut_equal(lut, j, rtol=0)
-    with pytest.raises(NotImplementedError, match="M18"):
-        tool.main(["wedge_5_8"])
+    # wedge_5_8 --preset mockup traces the wedge test axes (made tiny here) into the same dir
+    from tenstream_tpu.plexrt import optprop as jopt
+    from tenstream_tpu_torch.plexrt import optprop as topt
+
+    tiny = lambda m: m.WedgeAxes(*(np.array(v, np.float32) for v in (
+        (1e-10, 1.0), (0.0, 0.9), (1.0,), (0.0,), (0.0, 360.0), (0.0,))))
+    monkeypatch.setattr(topt, "test_axes", lambda: tiny(topt))
+    tool.main(["wedge_5_8", "--preset", "mockup", "--out", str(tmp_path), "--device", "cpu",
+               "--photons", "100"])
+    monkeypatch.setattr(jopt, "create_wedge_lut", None)
+    w = jopt.load_or_create_wedge_lut(tiny(jopt), n_photons=100, basename=str(tmp_path))
+    assert np.asarray(w.dir2dir).shape == (2, 2, 1, 1, 2, 1, 4, 5)

@@ -40,6 +40,7 @@ from tenstream_tpu_torch.pprts.sun import sundir_from_angles
 from tenstream_tpu_torch.spectral import mcica as tmcica
 from tenstream_tpu_torch.spectral import specint_pprts
 from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LUT_PATH = os.path.join(REPO, "data", "luts", "LUT_3_10_production.npz")

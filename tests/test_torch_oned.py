@@ -37,6 +37,7 @@ from tenstream_tpu_torch.pprts import oned
 from tenstream_tpu_torch.pprts.grid import Grid
 from tenstream_tpu_torch.pprts.solver import PprtsSolver
 from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 RTOL_2STR = 1e-5

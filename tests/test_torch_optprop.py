@@ -22,11 +22,22 @@ from tenstream_tpu.optprop.lut import load_or_create_lut, mockup_axes
 from tenstream_tpu_torch.convert import lut_from_arrays
 from tenstream_tpu_torch.optprop.facade import OptProp
 from tenstream_tpu_torch.optprop.lut import LUT
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRODUCTION = os.path.join(REPO, "data", "luts", "LUT_3_10_production.npz")
 INTERP_ATOL = 2e-6
 DIR2DIR_ATOL = 5e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small torch ops: one intra-op thread runs them as fast as many
+    and does not oversubscribe the CPU when test files run in parallel."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", params=["small", "production"])

@@ -22,6 +22,7 @@ from tenstream_tpu_torch.plexrt import mesh as tmesh
 from tenstream_tpu_torch.plexrt import param_phi as tpp
 from tenstream_tpu_torch.utils import hdf5reader as th5
 from tenstream_tpu_torch.utils import io as tio
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 PP_RTOL = 1e-6
 

@@ -1,8 +1,8 @@
 """The port's wedge tables, lookups and tuple BiCGStab against the JAX
 package (`plexrt/optprop.py` lookup half, `ops/interp.py::interp_multilinear`
 against the port's channels-first `interp_multilinear_cf`,
-`ops/krylov.py::bicgstab_tree`), and every wedge entry point the port
-leaves out refusing by name.
+`ops/krylov.py::bicgstab_tree`), table creation through the port's
+entry points on tiny grids, and the sharded solve refusing by name.
 
 Gates: cache keys and file names equal; lookups within 1e-6 of the
 value's magnitude (float32 sums of 2^k corner products in the JAX corner
@@ -29,11 +29,11 @@ from tenstream_tpu_torch.plexrt import optprop as topt
 from tenstream_tpu_torch.plexrt.mesh import fish_mesh
 from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
 from tenstream_tpu_torch.plexrt.solver_unstructured import PlexrtSolverIcon
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 LUTDIR = os.path.join(HERE, "data", "luts")
 LOOKUP_RTOL = 1e-6
-ITEM = "M18 remainder"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -199,50 +199,97 @@ def test_bicgstab_lanes_stop_on_their_own():
 
 
 # ---------------------------------------------------------------------------
-# refusals: what the port leaves out raises NotImplementedError naming its item
+# table creation: what used to refuse now traces (tests/test_torch_wedge_*.py
+# hold the tracer and the tables to JAX's)
 # ---------------------------------------------------------------------------
 
+def _tiny_axes(mod):
+    f = lambda *v: np.array(v, np.float32)
+    return mod.WedgeAxes(f(1e-10, 1.0), f(0.0, 0.9), f(1.0, 2.0), f(0.0), f(0.0, 360.0), f(0.0))
+
+
 def test_create_wedge_lut_refuses():
-    with pytest.raises(NotImplementedError, match=ITEM):
-        topt.create_wedge_lut(topt.test_axes(), None, 100)
+    """create_wedge_lut traces a table on the CPU: the tables' shapes, row
+    sums within 1, a transparent cell's beam straight through."""
+    a = _tiny_axes(topt)
+    lut = topt.create_wedge_lut(a, topt.WedgeAxes(a.tau, a.w0, a.aspect, a.g), 200,
+                                device="cpu")
+    assert lut.dir2dir.shape == (2, 2, 2, 1, 2, 1, topt.n_dir_src(), 5)
+    assert lut.dir2diff.shape == (2, 2, 2, 1, 2, 1, 4, 8) and lut.diff2diff.shape == (2, 2, 2, 1, 8, 8)
+    for t in (lut.dir2dir + 0, lut.diff2diff):
+        assert (t.sum(-1) <= 1.0 + 1e-3).all() and (t >= 0).all()
+    # theta 0, tau 0: the top source's photons all leave through the bottom
+    np.testing.assert_allclose(lut.dir2dir[0, 0, 0, 0, 0, 0, 0].numpy(), [0, 0, 0, 0, 1], atol=1e-6)
 
 
-def test_missing_table_refuses_and_writes_nothing(tmp_path):
-    axes = topt.WedgeAxes(np.array([1e-10, 1.0], np.float32), np.array([0.0, 0.9], np.float32),
-                          np.array([1.0, 2.0], np.float32), np.array([0.0], np.float32),
-                          np.array([0.0, 360.0], np.float32), np.array([0.0], np.float32))
-    with pytest.raises(NotImplementedError, match=ITEM):
-        topt.load_or_create_wedge_lut(axes, n_photons=100, basename=str(tmp_path), device="cpu")
-    assert os.listdir(tmp_path) == []
+def test_missing_table_refuses_and_writes_nothing(tmp_path, monkeypatch):
+    """A missing table is traced into its cache file; the port loads it back
+    unchanged, and the JAX package finds it under the same key without
+    tracing."""
+    axes = _tiny_axes(topt)
+    made = topt.load_or_create_wedge_lut(axes, n_photons=100, basename=str(tmp_path), device="cpu")
+    path = topt.wedge_lut_path(axes, topt.WedgeAxes(axes.tau, axes.w0, axes.aspect, axes.g), 100,
+                               str(tmp_path))
+    assert sorted(os.listdir(tmp_path)) == [os.path.basename(path)]  # no checkpoint: a small grid
+    again = topt.load_or_create_wedge_lut(axes, n_photons=100, basename=str(tmp_path), device="cpu")
+    monkeypatch.setattr(jopt, "create_wedge_lut", None)  # would raise if it tried to trace
+    j = jopt.load_or_create_wedge_lut(_tiny_axes(jopt), n_photons=100, basename=str(tmp_path))
+    for k in ("dir2dir", "dir2diff", "diff2diff"):
+        assert torch.equal(getattr(made, k), getattr(again, k))
+        np.testing.assert_array_equal(getattr(made, k).numpy(), np.asarray(getattr(j, k)))
 
 
 def test_wedge_lut_for_mesh_without_a_committed_table_refuses(tmp_path):
+    """wedge_lut_for_mesh traces the table at the mesh's mean cell shape,
+    under the name the JAX package gives it."""
     m = ticon.trimesh_equilateral(3, 3, 100.0)
-    with pytest.raises(NotImplementedError, match=ITEM):
-        topt.wedge_lut_for_mesh(m, basename=str(tmp_path), device="cpu")
-    # the shape the JAX package would trace at
+    lut = topt.wedge_lut_for_mesh(m, _tiny_axes(topt), n_photons=100, basename=str(tmp_path),
+                                  device="cpu")
+    np.testing.assert_allclose(lut.apex, (0.5, np.sqrt(3) / 2), atol=1e-6)
+    # the shape the JAX package traces at
     assert np.allclose(topt.mesh_cell_shapes(m), jopt.mesh_cell_shapes(jicon.trimesh_equilateral(
         3, 3, 100.0)))
+    a = _tiny_axes(topt)
+    path = topt.wedge_lut_path(a, topt.WedgeAxes(a.tau, a.w0, a.aspect, a.g), 100, str(tmp_path),
+                               apex=lut.apex)
+    assert os.listdir(tmp_path) == [os.path.basename(path)]
 
 
-def test_shape_blended_optprops_refuse():
-    m = ticon.trimesh_equilateral(3, 3, 100.0)
-    with pytest.raises(NotImplementedError, match=ITEM):
-        topt.wedge_optprop_for_mesh(m)
-    with pytest.raises(NotImplementedError, match=ITEM):
+def test_shape_blended_optprops_refuse(tmp_path):
+    """wedge_optprop_for_mesh: one mean-shape table for a uniform mesh, four
+    corner tables blended per cell for a distorted one; a blend needs a
+    table."""
+    axes = _tiny_axes(topt)
+    kw = dict(n_photons=100, basename=str(tmp_path), device="cpu")
+    uniform = topt.wedge_optprop_for_mesh(ticon.trimesh_equilateral(3, 3, 100.0), axes, **kw)
+    assert isinstance(uniform, topt.WedgeOptProp)
+    base = ticon.trimesh_from_structured(3, 3, 100.0, 100.0)
+    rng = np.random.default_rng(2)
+    m = ticon.trimesh_from_points(base.verts + rng.uniform(-18.0, 18.0, base.verts.shape),
+                                  base.tris)
+    blend = topt.wedge_optprop_for_mesh(m, axes, **kw)
+    assert isinstance(blend, topt.WedgeOptPropShaped) and len(blend.luts) == 4
+    np.testing.assert_allclose(blend._w.sum(0).numpy(), 1.0, atol=1e-6)
+    assert len(os.listdir(tmp_path)) == 5
+    with pytest.raises(ValueError, match="at least one"):
         topt.WedgeOptPropShaped([])
 
 
 def test_icon_solver_refuses_a_shaped_optprop():
+    """The ICON solver binds a shaped optprop's cells (the per-cell apexes,
+    cy at least 1e-6) and leaves the azimuth map to it, as JAX's does."""
     class Shaped:
         lut = None
         device = torch.device("cpu")
 
         def bind_cells(self, cx, cy):
-            pass
+            self.cells = (cx, cy)
 
-    with pytest.raises(NotImplementedError, match=ITEM):
-        PlexrtSolverIcon(ticon.trimesh_from_structured(2, 2, 100.0, 100.0), 100.0, Shaped())
+    opp = Shaped()
+    mesh = ticon.trimesh_from_structured(2, 2, 100.0, 100.0)
+    s = PlexrtSolverIcon(mesh, 100.0, opp)
+    assert not s._use_param_phi and s._table_apex == (1.0, 1.0)
+    np.testing.assert_allclose(opp.cells, topt.mesh_cell_shapes(mesh))
 
 
 def test_wedge_set_mesh_refuses():
@@ -254,11 +301,18 @@ def test_wedge_set_mesh_refuses():
             s.set_mesh(object())
 
 
-def test_create_lut_tool_refuses_wedge_schemes():
+def test_create_lut_tool_refuses_wedge_schemes(tmp_path, monkeypatch):
+    """`create_lut wedge_18_8 --preset mockup` traces the 18_8 table of the
+    test axes (here made tiny) with the wedge tracer."""
     from tenstream_tpu_torch.tools.create_lut import main
 
-    with pytest.raises(NotImplementedError, match=ITEM):
-        main(["wedge_5_8", "--preset", "mockup", "--device", "cpu"])
+    monkeypatch.setattr(topt, "test_axes", lambda: _tiny_axes(topt))
+    main(["wedge_18_8", "--preset", "mockup", "--device", "cpu", "--photons", "100",
+          "--out", str(tmp_path)])
+    (name,) = os.listdir(tmp_path)
+    assert name.startswith("WEDGE_LUT_18_8_")
+    z = np.load(tmp_path / name)
+    assert z["dir2dir"].shape[-2:] == (15, 18) and z["diff2diff"].shape[-2:] == (8, 8)
 
 
 def test_shape_warning_on_a_far_shape():

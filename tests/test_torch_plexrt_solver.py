@@ -26,6 +26,7 @@ from tenstream_tpu_torch.convert import wedge_lut_from_arrays
 from tenstream_tpu_torch.plexrt.mesh import fish_mesh
 from tenstream_tpu_torch.plexrt.optprop import WedgeOptProp
 from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 LUTDIR = os.path.join(HERE, "data", "luts")

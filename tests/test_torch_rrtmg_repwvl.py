@@ -22,8 +22,19 @@ from tenstream_tpu_torch.spectral import fu_ice as tfu
 from tenstream_tpu_torch.spectral import repwvl as trep
 from tenstream_tpu_torch.spectral import rrtmg_sw as trr
 from tenstream_tpu_torch.spectral.specint import _BACKENDS
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 GSELS = (slice(None), slice(8, 13), np.array([3, 11, 0, 7]))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small torch ops: one intra-op thread runs them as fast as many
+    and does not oversubscribe the CPU when test files run in parallel."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _eq(a, b, rtol=1e-6, msg=""):

@@ -40,6 +40,7 @@ from tenstream_tpu_torch.optprop.facade import OptProp
 from tenstream_tpu_torch.pprts.grid import Grid
 from tenstream_tpu_torch.pprts.solver import PprtsSolver
 from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "data", "golden_3_10.npz")
@@ -47,6 +48,16 @@ FLUX_ATOL = 0.1
 ABSO_ATOL = 1e-4
 ABSO_ATOL_CLOSED_FORM = 1e-3
 NZ, NX, NY = 8, 12, 12
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small torch ops: one intra-op thread runs them as fast as many
+    and does not oversubscribe the CPU when test files run in parallel."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -3,7 +3,7 @@
 reference's own results.
 
 Scenes: bench.py's scene at 4x4 columns (its 39-layer z grid and cloud
-boxes), sun (120, 40), albedo 0.15.
+boxes, `torch_specint_3_10.py`), sun (120, 40), albedo 0.15.
 
 Gates:
   * 1-D paths (2str, DISORT) against JAX: every field within a fraction of
@@ -12,9 +12,11 @@ Gates:
     JAX package solves every g-point in one call) and with chunks of 8
     (the port sums the chunks in g-point order; the rounding of the
     other order of sums is inside the same bounds);
-  * 3_10 paths against JAX, the rule of `tests/test_torch_specint.py`:
-    fluxes within 0.1 W/m2, absorption within 1e-4 W/m3 (LUT-interpolated
-    dir2dir), per-band niter within 2;
+  * 3_10 paths against JAX (`test_torch_specint_rrtmg_3_10.py`,
+    `test_torch_specint_repwvl_3_10.py`, `test_torch_specint_two_spectra.py`,
+    on `torch_specint_3_10.py`'s scene), the rule of
+    `tests/test_torch_specint.py`: fluxes within 0.1 W/m2, absorption within
+    1e-4 W/m3 (LUT-interpolated dir2dir), per-band niter within 2;
   * the port's 2str path against the Fortran reference's results at
     `tests/test_reference_results.py`'s tolerances (evidence that does
     not go through JAX).
@@ -27,16 +29,12 @@ import numpy as np
 import pytest
 import torch
 
-from tenstream_tpu.atm import setup_standard_atmosphere as jsetup
-from tenstream_tpu.core.config import Options as JOptions
-from tenstream_tpu.optprop.facade import OptProp as JOptProp
-from tenstream_tpu.optprop.lut import load_or_create_lut, mockup_axes
 from tenstream_tpu.pprts.grid import Grid as JGrid
 from tenstream_tpu.pprts.solver import PprtsSolver as JSolver
 from tenstream_tpu.pprts.sun import sundir_from_angles as jsun
 from tenstream_tpu.spectral.specint import specint_pprts as jspecint
 from tenstream_tpu_torch.atm import Atmosphere
-from tenstream_tpu_torch.convert import atmosphere_from_arrays, lut_from_arrays
+from tenstream_tpu_torch.convert import atmosphere_from_arrays
 from tenstream_tpu_torch.core.config import Options
 from tenstream_tpu_torch.optprop.facade import OptProp
 from tenstream_tpu_torch.optprop.lut import LUT
@@ -47,14 +45,11 @@ from tenstream_tpu_torch.pprts.sun import sundir_from_angles
 from tenstream_tpu_torch.spectral import specint_pprts
 from tenstream_tpu_torch.spectral.specint import _BACKENDS
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-NX = NY = 4
-SUN = (120.0, 40.0)
+from torch_specint_3_10 import HERE, NX, NY, SUN, bench_scene, port_solver as _port_solver
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
+
 RTOL_2STR = 1e-5
 RTOL_DISORT = 1e-4
-FLUX_ATOL = 0.1
-ABSO_ATOL = 1e-4
-K_COLLAPSE = 16
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,23 +60,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def bench_scene(nx, ny, seed=7):
-    """bench.py's `build_scene` at nx x ny columns."""
-    z_low = np.arange(0.0, 24 * 100.0 + 1.0, 100.0)
-    z_high = np.geomspace(24 * 100.0 + 250.0, 20e3, 16)
-    atm = jsetup(z_grid=np.concatenate([z_high[::-1], z_low[::-1][1:]]))
-    rng = np.random.default_rng(seed)
-    lwc = np.zeros((atm.nlay, nx, ny), np.float32)
-    zc = atm.zlev[:-1]
-    cloudy = np.where((zc > 600.0) & (zc < 2000.0))[0]
-    for _ in range(max(4, nx * ny // 16)):
-        i, j = rng.integers(0, nx), rng.integers(0, ny)
-        k = rng.choice(cloudy)
-        di, dj = rng.integers(1, 4), rng.integers(1, 4)
-        lwc[k:k + 2, i:i + di, j:j + dj] = rng.uniform(0.1, 0.6)
-    return atm, lwc
 
 
 def _extras(case, nz):
@@ -110,13 +88,6 @@ CASES_1D = {
     "schwarzschild-ecckd": ("schwarzschild", "ecckd", "", True),
     "disort-ecckd": ("disort", "ecckd", "", True),
 }
-
-
-def _port_solver(solver_type, nlay, dz, opp=None, opts=None):
-    s = PprtsSolver(Grid.create(nlay, NX, NY, 100.0, 100.0, dz, device="cpu"), opp,
-                    options=Options(dict(opts or {}), read_env=False), solver_type=solver_type)
-    s.set_angles(sundir_from_angles(*SUN))
-    return s
 
 
 @pytest.fixture(scope="module")
@@ -176,85 +147,6 @@ def test_rrtmg_sw_thermal_raises_through_specint():
     s.set_angles(sundir_from_angles(*SUN))
     with pytest.raises(NotImplementedError, match="RRTMG_LW"):
         specint_pprts(s, atm, albedo=0.15, lthermal=True, lsolar=True, specint="rrtmg_sw")
-
-
-# ---------------------------------------------------------------------------
-# the 3_10 solver with the RRTMG_SW and repwvl backends
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture(scope="module")
-def jlut():
-    return load_or_create_lut("3_10", mockup_axes(True), mockup_axes(False), n_photons=2000,
-                              basename=os.path.join(HERE, "data", "luts"))
-
-
-def _3d_solvers(jlut):
-    jatm, _ = bench_scene(NX, NY)
-    opts = {"atm_collapse": K_COLLAPSE, "specint_cache": "f32"}
-    dz = np.asarray(jatm.dz, np.float32)
-    js = JSolver(JGrid.create(jatm.nlay, NX, NY, 100.0, 100.0, dz),
-                 JOptProp(jlut, analytic_dir2dir=False),
-                 options=JOptions(dict(opts), read_env=False))
-    js.set_angles(jsun(*SUN))
-    ts = _port_solver(None, jatm.nlay, dz,
-                      OptProp(lut_from_arrays(jlut, "cpu"), analytic_dir2dir=False, device="cpu"),
-                      opts)
-    return js, ts
-
-
-def _band_niters(solver):
-    out = {}
-    for tag, rows in solver._band_rows.items():
-        for g, (key, row) in rows.items():
-            sol = solver.solutions.get(key)
-            if sol is not None:
-                out[(tag, g)] = int(np.atleast_1d(np.asarray(sol.niter_diff))[row])
-    return out
-
-
-def _check_3d(rj, rt, nj, nt, label):
-    for name, a, b in zip(("edir", "edn", "eup"), rj[:3], rt[:3]):
-        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=FLUX_ATOL,
-                                   err_msg=f"{label} {name}")
-    np.testing.assert_allclose(rt[3].numpy(), np.asarray(rj[3]), atol=ABSO_ATOL,
-                               err_msg=f"{label} abso")
-    assert nj.keys() == nt.keys(), label
-    worst = max(abs(nj[k] - nt[k]) for k in nj)
-    assert worst <= 2, f"{label}: per-band niter differs by {worst}"
-
-
-@pytest.mark.parametrize("backend,lthermal,chunk", [("rrtmg_sw", False, 16),
-                                                    ("repwvl", True, 15)])
-def test_specint_3_10_gas_optics_match_jax(jlut, backend, lthermal, chunk):
-    js, ts = _3d_solvers(jlut)
-    jatm, lwc = bench_scene(NX, NY)
-    kw = dict(albedo=0.15, lthermal=lthermal, lsolar=True, specint=backend, lwc=lwc,
-              band_chunk=chunk)
-    rj = jspecint(js, jatm, **kw)
-    rt = specint_pprts(ts, atmosphere_from_arrays(jatm), **kw)
-    _check_3d(rj, rt, _band_niters(js), _band_niters(ts), backend)
-    assert ts.nz_solve == jatm.nlay - (K_COLLAPSE - 1)
-
-
-def test_one_3_10_solver_two_solar_spectra_matches_jax(jlut):
-    """One solver sees ecCKD's 32 solar g-points and then RRTMG_SW's 112:
-    the warm cache and the frozen regroup order are keyed by "solar" only,
-    so in both packages RRTMG's g-points 0-31 run in ecCKD's frozen order,
-    warm from ecCKD's states of the same index, and 32-111 follow cold in
-    natural order; the order stays ecCKD's.  Both converge to the same
-    fields (reference behaviour, ROADMAP section 3)."""
-    js, ts = _3d_solvers(jlut)
-    jatm, lwc = bench_scene(NX, NY)
-    tatm = atmosphere_from_arrays(jatm)
-    kw = dict(albedo=0.15, lthermal=False, lsolar=True, lwc=lwc, band_chunk=16)
-    for backend in ("ecckd", "rrtmg_sw"):
-        rj = jspecint(js, jatm, specint=backend, **kw)
-        rt = specint_pprts(ts, tatm, specint=backend, **kw)
-        _check_3d(rj, rt, _band_niters(js), _band_niters(ts), f"two spectra, {backend}")
-    order = ts._band_order["solar"]
-    np.testing.assert_array_equal(order, np.asarray(js._band_order["solar"]))
-    assert sorted(order.tolist()) == list(range(32))
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from tenstream_tpu_torch.pprts.sun import sundir_from_angles
 from tenstream_tpu_torch.spectral import specint_pprts
 from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
 
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 from test_torch_specint import (  # noqa: E402,F401 (_one_torch_thread is an autouse fixture)
     ABSO_ATOL,
     K_COLLAPSE,

@@ -41,6 +41,7 @@ from tenstream_tpu_torch.plexrt.optprop import WedgeOptProp
 from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
 from tenstream_tpu_torch.plexrt.solver_unstructured import PlexrtSolverIcon
 from tenstream_tpu_torch.spectral.specint_plexrt import specint_plexrt
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 LUTDIR = os.path.join(HERE, "data", "luts")

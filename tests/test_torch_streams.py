@@ -12,6 +12,7 @@ import pytest
 
 from tenstream_tpu import streams as jstreams
 from tenstream_tpu_torch import streams as tstreams
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -123,10 +124,12 @@ def test_entry_points_default_to_the_card():
     from tenstream_tpu_torch.boxmc import cuda_tracer
     from tenstream_tpu_torch.optprop import lut
     from tenstream_tpu_torch.optprop.facade import OptProp
-    from tenstream_tpu_torch.plexrt import nca, optprop
+    from tenstream_tpu_torch.plexrt import nca, optprop, wedge_boxmc
     from tenstream_tpu_torch.pprts.grid import Grid
 
     for fn in (optprop.load_or_create_wedge_lut, optprop.wedge_lut_for_mesh,
+               optprop.create_wedge_lut, optprop.wedge_optprop_for_mesh,
+               wedge_boxmc.run_wedge_boxmc,
                convert.wedge_lut_from_arrays, nca.NcaTables.load, Grid.create, lut.LUT.load, OptProp.__init__, convert.lut_from_arrays,
                convert.buildings_from_arrays, convert.buildings_from_object, lut.create_lut, lut.create_production_lut,
                lut.compose_production_lut, lut.load_or_create_lut, cuda_tracer.run_boxmc_cuda):

@@ -36,6 +36,7 @@ from tenstream_tpu_torch.pprts.grid import Grid
 from tenstream_tpu_torch.pprts.solver import PprtsSolver
 from tenstream_tpu_torch.pprts.sun import sundir_from_angles
 from tenstream_tpu_torch.spectral import vegetation as tveg
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "..", "examples"))

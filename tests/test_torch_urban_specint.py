@@ -44,6 +44,7 @@ from tenstream_tpu_torch.pprts.solver import PprtsSolver
 from tenstream_tpu_torch.pprts.sun import sundir_from_angles
 from tenstream_tpu_torch.spectral import specint_pprts
 from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LUT_PATH = os.path.join(REPO, "data", "luts", "LUT_3_10_production.npz")
@@ -152,28 +153,6 @@ def test_urban_face_emission_is_the_spectral_planck_sum(ecckd_calls):
     want = 0.4 * roof["incoming"][m] + 0.6 * np.pi * B
     np.testing.assert_allclose(roof["outgoing"][m], want, rtol=1e-5)
     assert ts._buildings.fluxes is not None
-
-
-def test_urban_gray_solar_matches_jax(jlut):
-    js, ts, jbld, tbld, jatm, solid = _solvers(jlut)
-    rj = jspecint(js, jatm, albedo=0.15, lthermal=False, lsolar=True, specint="gray",
-                  band_chunk=8, buildings=jbld)
-    rt = specint_pprts(ts, atmosphere_from_arrays(jatm), albedo=0.15, lthermal=False,
-                       lsolar=True, specint="gray", band_chunk=8, buildings=tbld)
-    _check([np.asarray(a) for a in rj], [a.numpy() for a in rt], solid, "gray solar")
-    _check_faces(_fluxes(jbld.fluxes, np.asarray), _fluxes(tbld.fluxes, lambda t: t.numpy()),
-                 "gray solar")
-
-
-def test_urban_gray_thermal_raises_as_jax(jlut):
-    js, ts, jbld, tbld, jatm, _ = _solvers(jlut)
-    with pytest.raises(NotImplementedError, match="planck_at") as ej:
-        jspecint(js, jatm, albedo=0.15, lthermal=True, lsolar=False, specint="gray",
-                 buildings=jbld)
-    with pytest.raises(NotImplementedError, match="planck_at") as et:
-        specint_pprts(ts, atmosphere_from_arrays(jatm), albedo=0.15, lthermal=True,
-                      lsolar=False, specint="gray", buildings=tbld)
-    assert str(ej.value) == str(et.value)
 
 
 def test_urban_static_planck_refused_as_jax(jlut):

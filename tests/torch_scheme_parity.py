@@ -5,12 +5,13 @@ the table the JAX package's own scheme tests use), loaded by path.
 
 The scene follows `tests/test_torch_8_10.py`: 5x6x6 cells of 100 m, a box
 cloud, albedo 0.15, solar at two suns (the beam travelling +x/+y and
--x/-y) and thermal.  Gates: fluxes within 0.1 W/m2, absorption within
+-x/-y, both at 40 degrees) and thermal.  Gates: fluxes within 0.1 W/m2, absorption within
 1e-4 W/m3 (the golden gates), niter within 2, and for the solar solves
 the energy balance of the JAX end-to-end tests (`tests/test_scheme_e2e_all.py`):
 TOA up + column absorption + net surface flux within 6% of the incoming
 beam.  The dense solve (`pprts_orbit_coeffs=False`, kernel K3 on the card)
-is held to the orbit solve (K1/K2) with the same gates."""
+is held to the orbit solve (K1/K2) with the same gates, solar at the -x/-y
+beam 60 degrees from the zenith."""
 
 import glob
 import os
@@ -28,6 +29,7 @@ from tenstream_tpu_torch.optprop.facade import OptProp
 from tenstream_tpu_torch.pprts.grid import Grid
 from tenstream_tpu_torch.pprts.solver import PprtsSolver
 from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+import torch_jax_cache  # noqa: F401  (one XLA compile per program per run)
 
 LUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "luts")
 FLUX_ATOL = 0.1  # W/m2
@@ -36,9 +38,17 @@ NITER_SLACK = 2
 BALANCE_RTOL = 0.06  # of the incoming beam, as tests/test_scheme_e2e_all.py
 NZ, NX, NY, DZ = 5, 6, 6, 100.0
 EDIR_TOA = 1000.0
-# (phi, theta, lthermal): the beam travelling +x/+y, the beam travelling -x/-y, thermal
-CASES = {"solar_beam_pos": (30.0, 40.0, False), "solar_beam_neg": (210.0, 60.0, False),
-         "thermal": (30.0, 40.0, True)}
+# (phi, theta, lthermal): the beam travelling +x/+y, the beam travelling -x/-y, thermal (no
+# sun).  The JAX solves repeat the programs of the JAX package's own scheme tests on this grid
+# (`tests/test_scheme_e2e_all.py`: a cold solve at (210, 40), then a warm one at (30, 40), and a
+# cold thermal solve without a sun; `tests/test_scheme_3_16.py`: a cold solve at (30, 40)), so
+# JAX's persistent compilation cache (`torch_jax_cache.py`) compiles each program once per run.
+CASES = {"solar_beam_pos": (30.0, 40.0, False), "solar_beam_neg": (210.0, 40.0, False),
+         "thermal": (None, None, True)}
+E2E_ORDER = ["solar_beam_neg", "solar_beam_pos", "thermal"]  # test_scheme_e2e_all.py's order
+# the dense-vs-orbit check (the port alone) takes the steep -x/-y beam: larger side-face
+# fractions through K1/K2 and K3
+DENSE_SOLAR = (210.0, 60.0)
 
 
 def lut_path(scheme: str) -> str:
@@ -77,7 +87,8 @@ def torch_solver(jlut, orbit: bool = True):
 def run(solver, sun, lthermal):
     ka, ks, g, planck = scene()
     solver.set_optical_properties(0.15, ka, ks, g, planck=planck if lthermal else None)
-    solver.set_angles(sun)
+    if sun is not None:
+        solver.set_angles(sun)
     solver.solve(lthermal=lthermal, lsolar=not lthermal, edirTOA=EDIR_TOA)
     res = [None if a is None else np.asarray(a) for a in solver.get_result()]
     return res, int(np.asarray(solver.solutions[0].niter_diff))
@@ -100,8 +111,9 @@ def assert_close(got, ref, label):
 
 
 class JaxSolvers:
-    """One JAX solver per scheme for a test module (each solve after the first
-    of a kind reuses its compiles)."""
+    """One JAX solver per scheme for a test module's solar cases (the second
+    solar solve starts warm from the first); thermal solves run cold on a
+    solver of their own."""
 
     def __init__(self):
         self._cache = {}
@@ -116,10 +128,12 @@ class JaxSolvers:
 def check_solve_matches_jax(solvers: JaxSolvers, scheme: str, case: str):
     phi, theta, lthermal = CASES[case]
     jlut, js = solvers.get(scheme)
+    if lthermal:
+        js = jax_solver(jlut)
     ts = torch_solver(jlut)
     assert ts.scheme.name == scheme and ts.opp._solver_orbit_idx is not None  # the orbit path
-    ref, nj = run(js, jsun(phi, theta), lthermal)
-    got, nt = run(ts, sundir_from_angles(phi, theta), lthermal)
+    ref, nj = run(js, None if lthermal else jsun(phi, theta), lthermal)
+    got, nt = run(ts, None if lthermal else sundir_from_angles(phi, theta), lthermal)
     assert_close(got, ref, f"{scheme} {case}")
     assert abs(nt - nj) <= NITER_SLACK, (nt, nj)
     if not lthermal:
@@ -131,12 +145,12 @@ def check_solve_matches_jax(solvers: JaxSolvers, scheme: str, case: str):
 
 def check_dense_matches_orbit(scheme: str):
     """The dense solve (K3's path on the card) against the orbit solve
-    (K1/K2's), solar at the -x/-y beam and thermal."""
+    (K1/K2's), solar at the steep -x/-y beam (DENSE_SOLAR) and thermal."""
     jlut = JLUT.load(lut_path(scheme))
     for case in ("solar_beam_neg", "thermal"):
-        phi, theta, lthermal = CASES[case]
-        outs = [run(torch_solver(jlut, orbit), sundir_from_angles(phi, theta), lthermal)
-                for orbit in (True, False)]
+        lthermal = CASES[case][2]
+        sun = None if lthermal else sundir_from_angles(*DENSE_SOLAR)
+        outs = [run(torch_solver(jlut, orbit), sun, lthermal) for orbit in (True, False)]
         (orb, no), (dense, nd) = outs
         assert_close(dense, orb, f"{scheme} {case} dense vs orbit")
         assert abs(nd - no) <= NITER_SLACK, (case, nd, no)
