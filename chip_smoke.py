@@ -201,6 +201,39 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  from wedge_optprop_for_mesh (four corner tables traced on the card)
                  on a distorted 16 x 16 mesh, card against CPU with phase 19's gates;
                  (e) K1-K4 never launched.
+ 29. mcdmda   -- the domain Monte Carlo (pprts/mcdmda.py, plain PyTorch: no TPU
+                 kernel lies on it) on phase 4's band at 256 x 256 x 39, albedo
+                 0.15, sun (120, 40), 2^24 photons (256 per column): (a) wall,
+                 photons/s, photon-steps/s, the live share per step, niter,
+                 leftover, peak memory, the busy share of its first 32 steps
+                 (profiled); its own energy closes within 1%; an 8 x 8 crop with
+                 the same key on the card and on the CPU, every tally within 1e-4
+                 of its field's largest value and niter equal; K1-K4 never
+                 launched; (b) (after 21-24) the solar solves of the same band
+                 against it at the JAX tests' tolerances: the 3_10 PprtsSolver on
+                 the production LUT through K1/K2 and phase 25's PlexrtSolver 5_8
+                 WEDGE_EXACT solve: domain-mean TOA eup within 0.04 x 1000 mu,
+                 surface edir + edn within 0.05 x 1000 mu, the correlation of the
+                 surface field summed over 4 x 4 columns above 0.8 (3_10; the
+                 wedge's printed against the JAX test's 0.85, which the JAX wedge
+                 solver misses on this band too: tools/torch_mc_column.py).
+ 30. ann      -- the ANN coefficient backend (optprop/ann.py): (a) the committed
+                 net on the card against the LUT facade on the 512 draws of
+                 tests/test_ann.py::test_production_ann_committed (diffuse and
+                 dir2diff mean |err| below 0.01, dir2dir within 1e-5); (b)
+                 phase 4's band at 256 x 256 x 39 through PprtsSolver(grid,
+                 AnnOptProp), solar + thermal, cold and warm with the cloud field
+                 rolled one cell: walls, K3 launches (a net has no orbit
+                 channels: dense coefficients), peak memory; every lane at res <=
+                 1.5 tol and niter < 3000, K3 launched and K1/K2 not, edir equal
+                 to the LUT solve's within 1e-4 x edirTOA (the domain-mean edn and
+                 eup against the LUT solve printed, not gated); (c) an 8 x 8
+                 crop through K3 and through its plain version (equal
+                 iterations) and on the CPU (phase 19's gates); (d)
+                 tools/train_ann on the production LUT with the committed net's
+                 settings (hidden 128,128,128, batch 8192) but 100 epochs of its
+                 150: wall, losses, off-grid diff2diff and dir2diff mean |err|
+                 against the LUT below 0.01.
  10. boxmc    -- K4 boxmc_trace, the BoxMC photon tracer: one launch of 4096
                  entries drawn with --seed from the production diffuse grid
                  for the orbit-representative sources 0 and 2 and one from
@@ -228,11 +261,12 @@ digests recorded from the earlier K4 design, and phase 3 holds K3's
 outputs at every (type, shape) it checks against digests recorded from
 the first K3 design: they must be equal bit for bit.
 
-The phases run in the order 1, 25-28 (while 2 builds), 3-8, 12, 13, 9, 14-24, 10, 11.  Each path resets
+The phases run in the order 1, 25-28 and 29 (a) (while 2 builds), 3-8, 12, 13, 9, 14-24,
+29 (b), 30, 10, 11.  Each path resets
 the kernel launch counts before it runs and reads them after; the kernels
 JSON takes K1's and K2's launches from phase 12 (the main path), K3's from
-phase 14 (the urban spectral path, where its entry is timed) and K4's from
-the LUT pass; under "instantiations" K1-K3 list each table set or dof
+phase 14 (the urban spectral path, where its entry is timed; its launches on
+the ANN path, phase 30 (b), under "launches_ann") and K4's from the LUT pass; under "instantiations" K1-K3 list each table set or dof
 count with its phase-21 time and bound and its launches (3_10's on the
 paths above, the others' in phase 22 for K1/K2 and in phase 23's dense
 solves for K3; 3_30's K1/K2 also under "launches_spectral", phase 24's).  The line before the last is a JSON
@@ -2536,14 +2570,17 @@ def wedge_runs(label, make, fields, planck, mu, smi, budget=None):
     log(f"{label} {WEDGE_EXACT}: wall {wall * 1e3:.1f} ms; {text}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     check_finite(f"{label} exact thermal", solver.get_result(sol_t))
-    wedge_balance(f"{label} exact solar", solver, solver.get_result(sol_s), mu, lateral=lateral)
-    return out
+    exact = solver.get_result(sol_s)
+    wedge_balance(f"{label} exact solar", solver, exact, mu, lateral=lateral)
+    return out + (exact,)
 
 
 def phase_wedge(cuda_ops, wopp, seed, smi):
     """Phase 25: the structured wedge solver (5_8) at 256 x 256 x 39 on the
     committed full-density table (`wopp`: wedge_opp()); then 18_8 on its
-    test table at 64 x 64."""
+    test table at 64 x 64.  Returns the 5_8 WEDGE_EXACT solar solve for
+    phase 29: (domain-mean TOA eup, surface edir + edn per column, the two
+    triangles averaged)."""
     from tenstream_tpu_torch.plexrt.mesh import fish_mesh
     from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
     from tenstream_tpu_torch.pprts.sun import sundir_from_angles
@@ -2562,7 +2599,11 @@ def phase_wedge(cuda_ops, wopp, seed, smi):
         return s
 
     cuda_ops.reset_launch_counts()
-    wedge_runs(label, make, fields, planck, mu, smi)
+    edir, edn, eup, _ = wedge_runs(label, make, fields, planck, mu, smi)[2]
+    # phase 29's yardstick: the WEDGE_EXACT solar solve, the two triangles of
+    # every rectangle averaged
+    exact = (eup[0].mean().item(), (edir[-1] + edn[-1]).mean(0).cpu())
+    del edir, edn, eup
     no_cube_kernels(cuda_ops, label)
     torch.cuda.empty_cache()
 
@@ -2576,6 +2617,7 @@ def phase_wedge(cuda_ops, wopp, seed, smi):
     check_finite(f"{label} thermal", s18.get_result(sol_t))
     wedge_balance(f"{label} solar", s18, s18.get_result(sol_s), mu)
     torch.cuda.empty_cache()
+    return exact
 
 
 def check_wedge_spectral(label, res, atm, lwc2, weight):
@@ -2743,7 +2785,7 @@ def phase_wedge_icon(cuda_ops, opp, seed, smi):
         return s
 
     cuda_ops.reset_launch_counts()
-    solver, sol_t = wedge_runs(label, make, fields, planck, mu, smi, budget=icon_budget)
+    solver, sol_t, _ = wedge_runs(label, make, fields, planck, mu, smi, budget=icon_budget)
     solver.set_optical_properties(WEDGE_ALBEDO, *fields, planck=planck)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3056,6 +3098,337 @@ def phase_wedge_tables(cuda_ops, seed, smi):
     no_cube_kernels(cuda_ops, "wedge tables")
 
 
+MC_PHOTONS = 2 ** 24  # 256 per column at 256 x 256
+MC_PROFILE_STEPS = 32  # steps of the MC's profiled window (its first, fullest steps)
+MC_CROP_PHOTONS = 256 * CROP * CROP
+MC_CROP_RTOL = 1e-4  # card vs CPU: every tally within 1e-4 of its field's largest value
+MC_EUP_TOL, MC_DN_TOL = 0.04, 0.05  # x edirTOA x mu: tests/test_mcdmda.py:87-95
+MC_CC_MIN = {"3_10": 0.8, "wedge": 0.85}  # tests/test_mcdmda.py:92, tests/test_plexrt.py:198
+MC_BLOCK = 4  # columns per side of the blocks the surface fields are summed over
+
+
+def mc_scene(n, seed):
+    """Phase 29's scene: phase 4's band at n x n (dz, kabs, ksca, g)."""
+    dz, kabs, ksca, g, _ = build_scene(n, n, seed)
+    return dz, kabs, ksca, g
+
+
+def mc_crop_cpu(path_in: str, path_out: str) -> None:
+    """Phase 29 (a)'s CPU crop, run in a process of its own beside the card's
+    MC: solve_mcdmda on the CPU (one thread) from the npz at path_in, the
+    tallies and niter to path_out."""
+    from tenstream_tpu_torch.core.prng import Threefry
+    from tenstream_tpu_torch.pprts import mcdmda
+
+    torch.set_num_threads(1)
+    z = np.load(path_in)
+    t0 = time.perf_counter()
+    r = mcdmda.solve_mcdmda(Threefry.from_seed(int(z["seed"])), z["kabs"], z["ksca"], z["g"],
+                            z["dz"], 100.0, 100.0, float(z["albedo"]), z["sun"], 1000.0,
+                            n_photons=int(z["n"]), device="cpu")
+    np.savez(path_out, niter=r.niter, wall=time.perf_counter() - t0,
+             **{k: getattr(r, k).numpy() for k in r._fields[:4]})
+
+
+def phase_mcdmda(cuda_ops, seed, smi):
+    """Phase 29 (a): the domain Monte Carlo (plain PyTorch, no kernel) on
+    phase 4's band at 256 x 256 x 39, albedo 0.15, sun (120, 40), edirTOA
+    1000, 2^24 photons: wall, photons/s, photon-steps/s, the live share
+    per step, niter, leftover, peak memory, the busy share of its first
+    MC_PROFILE_STEPS steps (profiled); its energy closes within 1%; an 8 x 8
+    crop with the same key on the card and on the CPU: every tally within
+    1e-4 of its field's largest value; K1-K4 launch 0 times.  Returns the
+    MC's result (on the card)."""
+    from tenstream_tpu_torch.core.prng import Threefry
+    from tenstream_tpu_torch.pprts import mcdmda
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    cuda_ops.reset_launch_counts()
+    dz, kabs, ksca, g = mc_scene(NX, seed)
+    sun = sundir_from_angles(*SPECTRAL_SUN)
+    mu = float(np.cos(np.deg2rad(SPECTRAL_SUN[1])))
+    run = lambda n, max_iter=4000, crop=None: mcdmda.solve_mcdmda(
+        Threefry.from_seed(seed), *(a if crop is None else a[:, :crop, :crop]
+                                    for a in (kabs, ksca, g)),
+        dz, 100.0, 100.0, WEDGE_ALBEDO, sun, 1000.0, n_photons=n, max_iter=max_iter, device="cuda")
+    label = f"mcdmda {NX}x{NY}x{NZ}"
+    with tempfile.TemporaryDirectory() as tmp:
+        # the crop's CPU side runs in a process of its own while the card works
+        crop_in, crop_out = os.path.join(tmp, "in.npz"), os.path.join(tmp, "out.npz")
+        np.savez(crop_in, **{k: a[:, :CROP, :CROP] for k, a in
+                             (("kabs", kabs), ("ksca", ksca), ("g", g))},
+                 dz=dz, sun=sun, albedo=WEDGE_ALBEDO, seed=seed, n=MC_CROP_PHOTONS)
+        proc = subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; "
+                                 "chip_smoke.mc_crop_cpu(*sys.argv[1:])", crop_in, crop_out],
+                                cwd=REPO)
+        try:
+            mc, crop_card = _mcdmda_card(run, label, dz, mu, smi)
+            if proc.wait(timeout=600) != 0:
+                raise AssertionError(f"{label}: the CPU crop failed (exit {proc.returncode})")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        z = np.load(crop_out)
+        crop_cpu = {k: torch.as_tensor(z[k]) for k in mc._fields[:4]}
+        log(f"{label} {CROP}x{CROP} crop on the CPU (a process of its own, one thread): "
+            f"{MC_CROP_PHOTONS} photons, niter {int(z['niter'])}, {float(z['wall']):.2f} s")
+    errs = []
+    for name in mc._fields[:4]:
+        a, b = getattr(crop_card, name).cpu(), crop_cpu[name]
+        errs.append((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30))
+    log(f"{label} {CROP}x{CROP} crop, card vs CPU with one key: max |diff| / field max "
+        + ", ".join(f"{n} {e:.3e}" for n, e in zip(mc._fields[:4], errs))
+        + f"; niter {crop_card.niter} vs {int(z['niter'])}")
+    if max(errs) > MC_CROP_RTOL or crop_card.niter != int(z["niter"]):
+        raise AssertionError(f"{label}: card and CPU differ on the crop")
+    no_cube_kernels(cuda_ops, label)
+    return mc
+
+
+def _mcdmda_card(run, label, dz, mu, smi):
+    """Phase 29 (a) on the card: the MC at full size (timed, then its first
+    steps profiled), its energy gate, and the crop: (result, crop result)."""
+    from tenstream_tpu_torch.pprts import mcdmda
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mcdmda.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc = run(MC_PHOTONS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = dict(mcdmda.STATS)
+    live = np.asarray(stats["live"], np.float64)
+    log(f"{label}: {MC_PHOTONS} photons, albedo {WEDGE_ALBEDO}, sun {SPECTRAL_SUN}: wall "
+        f"{wall:.2f} s = {MC_PHOTONS / wall:.4g} photons/s, {stats['photon_steps']} "
+        f"photon-steps = {stats['photon_steps'] / wall:.4g}/s ({smi}); niter {mc.niter}, "
+        f"leftover {mc.leftover.item():.3e}; live share per step mean "
+        f"{live.mean() / MC_PHOTONS:.4f} (first 10 steps {live[:10].sum() / live.sum():.3f} of "
+        f"the photon-steps, {int((live < 1000).sum())} steps under 1000 live photons); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    wedge_profile(f"{label} first {MC_PROFILE_STEPS} steps",
+                  lambda: run(MC_PHOTONS, MC_PROFILE_STEPS))
+    for name in mc._fields[:4]:
+        if not bool(torch.isfinite(getattr(mc, name)).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+    dzt = torch.as_tensor(dz, device="cuda")[:, None, None]
+    parts = (mc.eup_toa.mean().item(), (mc.abso * dzt).sum(0).mean().item(),
+             mc.sfc_absorbed.mean().item())
+    incoming = 1000.0 * mu
+    off = abs(sum(parts) - incoming) / incoming
+    log(f"{label}: energy TOA up {parts[0]:.4f} + absorbed {parts[1]:.4f} + surface absorbed "
+        f"{parts[2]:.4f} = {sum(parts):.4f} W/m2 of the incoming {incoming:.4f}: {100 * off:.4f}% "
+        f"off (gate 1%); surface edn {mc.edn_srfc.mean().item():.4f} W/m2")
+    if off > 0.01:
+        raise AssertionError(f"{label}: the MC's energy is {100 * off:.3f}% off")
+    t0 = time.perf_counter()
+    crop = run(MC_CROP_PHOTONS, crop=CROP)
+    torch.cuda.synchronize()
+    log(f"{label} {CROP}x{CROP} crop on the card: {MC_CROP_PHOTONS} photons, niter "
+        f"{crop.niter}, {time.perf_counter() - t0:.2f} s")
+    return mc, crop
+
+
+def _blocks(a):
+    """(n, n) -> (n / MC_BLOCK, n / MC_BLOCK) sums."""
+    n = a.shape[0] // MC_BLOCK
+    return a.reshape(n, MC_BLOCK, n, MC_BLOCK).sum((1, 3))
+
+
+def mc_compare(label, mc, eup_mean, dn_map, mu, cc_min, gate_cc=True):
+    """A solver's solar solve against the MC: domain-mean TOA eup within
+    MC_EUP_TOL x 1000 mu, domain-mean surface edir + edn within MC_DN_TOL x
+    1000 mu, and (with gate_cc) the surface field's correlation, summed over
+    MC_BLOCK x MC_BLOCK columns, above cc_min."""
+    mc_eup = mc.eup_toa.mean().item()
+    mc_dn = mc.edn_srfc.double().cpu()
+    dn = dn_map.double().cpu()
+    d_eup, d_dn = eup_mean - mc_eup, dn.mean().item() - mc_dn.mean().item()
+    x, y = _blocks(mc_dn).reshape(-1).numpy(), _blocks(dn).reshape(-1).numpy()
+    cc = float(np.corrcoef(x, y)[0, 1])
+    log(f"{label} vs MC: TOA eup {eup_mean:.4f} vs {mc_eup:.4f} ({d_eup:+.4f}, gate "
+        f"{MC_EUP_TOL * 1000 * mu:.2f}); surface edir+edn {dn.mean().item():.4f} vs "
+        f"{mc_dn.mean().item():.4f} ({d_dn:+.4f}, gate {MC_DN_TOL * 1000 * mu:.2f}); correlation "
+        f"of the {MC_BLOCK}x{MC_BLOCK}-column sums {cc:.4f} "
+        + (f"(gate > {cc_min})" if gate_cc else f"(not gated: the JAX test's {cc_min}, which the "
+           "JAX wedge solver misses on this band too, tools/torch_mc_column.py, ROADMAP §3)"))
+    if (abs(d_eup) > MC_EUP_TOL * 1000 * mu or abs(d_dn) > MC_DN_TOL * 1000 * mu
+            or (gate_cc and not cc > cc_min)):
+        raise AssertionError(f"{label}: the solver misses the Monte Carlo")
+
+
+def phase_mcdmda_solvers(cuda_ops, opp, mc, wedge_exact, seed):
+    """Phase 29 (b): the solar solves of the same band against the MC: the
+    3_10 PprtsSolver on the production LUT through K1/K2, and phase 25's
+    PlexrtSolver 5_8 WEDGE_EXACT solve (its fish mesh repeats the cube field
+    on both triangles)."""
+    from tenstream_tpu_torch.pprts.grid import Grid
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    mu = float(np.cos(np.deg2rad(SPECTRAL_SUN[1])))
+    dz, kabs, ksca, g = mc_scene(NX, seed)
+    solver = PprtsSolver(Grid.create(NZ, NX, NY, 100.0, 100.0, dz, device="cuda"), opp)
+    solver.set_angles(sundir_from_angles(*SPECTRAL_SUN))
+    solver.set_optical_properties(WEDGE_ALBEDO, kabs, ksca, g)
+    cuda_ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = solver.solve(lthermal=False, lsolar=True, edirTOA=1000.0)
+    edir, edn, eup, _ = solver.get_result()
+    torch.cuda.synchronize()
+    log(f"mcdmda 3_10 solar solve {NX}x{NY}x{NZ}: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+        f"bicgstab {sol.niter_bicgstab} + polish {sol.niter_polish}, res/tol "
+        f"{sol.diff_res / sol.diff_tol:.4f}, launches {dict(cuda_ops.LAUNCHES)}")
+    if not sol.diff_res <= 1.5 * sol.diff_tol:
+        raise AssertionError("mcdmda 3_10 solve: not converged")
+    for name in ("fused_A_dots", "orbit_contract"):
+        if cuda_ops.LAUNCHES[name] == 0:
+            raise AssertionError(f"mcdmda 3_10 solve: {name} was not launched")
+    mc_compare("mcdmda 3_10 (production LUT)", mc, eup[0].mean().item(), edir[-1] + edn[-1], mu,
+               MC_CC_MIN["3_10"])
+    mc_compare(f"mcdmda wedge 5_8 {WEDGE_EXACT} (phase 25)", mc, wedge_exact[0], wedge_exact[1],
+               mu, MC_CC_MIN["wedge"], gate_cc=False)
+
+
+ANN_PATH = os.path.join(REPO, "data", "ann", "ANN_3_10_production.npz")
+# the committed net's settings, but 100 epochs of its 150: (d) took 20.8-31.2 s at 150
+ANN_HIDDEN, ANN_EPOCHS, ANN_BATCH = (128, 128, 128), 100, 8192
+ANN_COEFF_TOL = 0.01  # mean |err| against the LUT: tests/test_ann.py:98, 103
+
+
+def ann_draws(fa, device, n=512):
+    """tests/test_ann.py::test_production_ann_committed's draws."""
+    rng = np.random.default_rng(11)
+    tau = np.exp(rng.uniform(np.log(fa.tau[0] + 1e-12), np.log(fa.tau[-1]), n))
+    w0 = rng.uniform(fa.w0[0], fa.w0[-1], n)
+    asp = np.exp(rng.uniform(np.log(fa.aspect[0]), np.log(fa.aspect[-1]), n))
+    g = rng.uniform(fa.g[0], fa.g[-1], n)
+    return [torch.as_tensor(a.astype(np.float32), device=device) for a in (tau, w0, g, asp)]
+
+
+def phase_ann(cuda_ops, ediff, opp, seed, smi):
+    """Phase 30: the ANN coefficient backend.  (a) the committed net on the
+    card against the LUT facade on the 512 draws of
+    test_production_ann_committed: diffuse and dir2diff mean |err| below
+    0.01, dir2dir (both closed form) within 1e-5; (b) phase 4's band at 256
+    x 256 x 39 through PprtsSolver(grid, ann), solar + thermal, cold, then
+    warm with the cloud field rolled one cell: walls, K3 launches, peak
+    memory; every lane at res <= 1.5 tol and niter < 3000, K3 launched and
+    K1/K2 not; edir equal to the LUT solve's within 1e-4 x edirTOA (the
+    domain-mean edn / eup differences printed, not gated); (c) an 8 x 8 crop
+    through K3 and through its plain version (equal iterations) and on the
+    CPU (phase 19's gates); (d) tools/train_ann.train on the production LUT
+    with the committed net's settings but ANN_EPOCHS: wall, losses, off-grid mean |err|
+    against the LUT below 0.01 for diff2diff and dir2diff.  Returns K3's
+    launches in (b)."""
+    from tenstream_tpu_torch.optprop.ann import AnnOptProp
+    from tenstream_tpu_torch.pprts.grid import Grid
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+    from tenstream_tpu_torch.tools import train_ann
+
+    ann = AnnOptProp.load(ANN_PATH, device="cuda")
+    sundir = sundir_from_angles(*SUN)
+
+    # (a) coefficients
+    args = ann_draws(opp.lut.diff_axes, "cuda")
+    e_diff = (opp.diff_coeffs(*args) - ann.diff_coeffs(*args)).abs().mean().item()
+    t_lut, s_lut = opp.dir_coeffs(*args, 25.0, 45.0)
+    t_ann, s_ann = ann.dir_coeffs(*args, 25.0, 45.0)
+    e_dd = (t_lut - t_ann).abs().max().item()
+    e_df = (s_lut - s_ann).abs().mean().item()
+    log(f"ann (a) committed net vs LUT facade on 512 draws: diff2diff mean |err| {e_diff:.4e}, "
+        f"dir2diff mean |err| {e_df:.4e} (gates {ANN_COEFF_TOL}), dir2dir max |diff| {e_dd:.3e} "
+        f"(gate 1e-5)")
+    if not (e_diff < ANN_COEFF_TOL and e_df < ANN_COEFF_TOL and e_dd <= 1e-5):
+        raise AssertionError("ann (a): the committed net misses the LUT")
+
+    # (b) the solve at full size, then the LUT solve of the same band
+    solver, fields = make_solver(NX, NY, seed, ann, Grid, PprtsSolver, sundir)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, iters = solve_and_report(solver, fields, cuda_ops, "ann (b) cold")
+    t_cold = time.perf_counter() - t0
+    kabs, ksca, g, planck = fields
+    rolled = tuple(np.roll(a, 1, axis=1) for a in (kabs, ksca, g)) + (planck,)
+    t0 = time.perf_counter()
+    _, iters_w = solve_and_report(solver, rolled, cuda_ops, "ann (b) warm")
+    t_warm = time.perf_counter() - t0
+    launches = dict(cuda_ops.LAUNCHES)
+    log(f"ann (b) {NX}x{NY}x{NZ} solar+thermal through PprtsSolver(grid, AnnOptProp): cold "
+        f"{t_cold * 1e3:.1f} ms, warm (rolled) {t_warm * 1e3:.1f} ms ({smi}); launches "
+        f"{launches}; peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if max(iters + iters_w) >= 3000:
+        raise AssertionError("ann (b): a solve reached 3000 iterations")
+    if launches["diffuse_apply_dense"] == 0 or launches["fused_A_dots"] or launches["orbit_contract"]:
+        raise AssertionError(f"ann (b): K3 must run and K1/K2 not: {launches}")
+    del solver
+    lut_solver, _ = make_solver(NX, NY, seed, opp, Grid, PprtsSolver, sundir)
+    ref, _ = solve_and_report(lut_solver, fields, cuda_ops, "ann (b) LUT solve")
+    del lut_solver
+    e_edir = (out[0] - ref[0]).abs().max().item()
+    log(f"ann (b) against the LUT solve of the same band: edir max |diff| {e_edir:.3e} W/m2 "
+        f"(gate {1e-4 * 1000.0:.1f}); domain means edn {out[1].mean().item():.4f} vs "
+        f"{ref[1].mean().item():.4f}, eup {out[2].mean().item():.4f} vs "
+        f"{ref[2].mean().item():.4f} W/m2 (not gated)")
+    if e_edir > 1e-4 * 1000.0:
+        raise AssertionError("ann (b): edir differs from the LUT solve's")
+    del out, ref
+    torch.cuda.empty_cache()
+
+    # (c) an 8 x 8 crop: K3 against its plain version, the card against the CPU
+    crop = tuple(a[..., :CROP, :CROP] for a in fields)
+    dz = build_scene(CROP, CROP, seed)[0]
+
+    def crop_solver(dev):
+        s = PprtsSolver(Grid.create(NZ, CROP, CROP, 100.0, 100.0, dz, device=dev),
+                        AnnOptProp.load(ANN_PATH, device=dev))
+        s.set_angles(sundir)
+        return s
+
+    outs, its = [], []
+    for plain in (False, True):
+        with kernels_or_plain(cuda_ops, ediff, plain):
+            o, it = solve_and_report(crop_solver("cuda"), crop, cuda_ops,
+                                     f"ann (c) crop {'plain' if plain else 'K3'}")
+        outs.append(o)
+        its.append(it)
+    _compare_solves(f"ann (c) {CROP}x{CROP} K3 vs plain", outs)
+    if its[0] != its[1]:
+        raise AssertionError(f"ann (c): iteration counts differ, {its[0]} vs {its[1]}")
+
+    def crop_run(dev):
+        s = crop_solver(dev)
+        s.set_optical_properties(0.15, *crop[:3], planck=crop[3])
+        sol = s.solve(lthermal=True, lsolar=True, edirTOA=1000.0)
+        for part in (sol, sol.thermal):
+            if not part.diff_res <= 1.5 * part.diff_tol:
+                raise AssertionError(f"ann (c) crop on {dev}: not converged")
+        return s.get_result()
+
+    with cpu_threads(CROP):
+        card_vs_cpu("ann (c)", crop_run)
+
+    # (d) training with the committed net's settings, ANN_EPOCHS epochs
+    with tempfile.TemporaryDirectory() as tmp:
+        _, rep = train_ann.train(LUT_PATH, ANN_HIDDEN, ANN_EPOCHS, ANN_BATCH, seed=0,
+                                 device="cuda", out=os.path.join(tmp, "ann.npz"),
+                                 log=lambda *a: log("ann (d)", *a))
+    err = rep["errors"]
+    log(f"ann (d) tools/train_ann.train hidden {ANN_HIDDEN}, {ANN_EPOCHS} epochs, batch "
+        f"{ANN_BATCH}: {rep['wall']:.2f} s ({smi}); losses dir {rep['dir_loss']:.4e} diff "
+        f"{rep['diff_loss']:.4e}; off-grid mean |err| diff2diff {err['diff2diff'][0]:.4e}, "
+        f"dir2diff {err['dir2diff'][0]:.4e} (gates {ANN_COEFF_TOL})")
+    if not (err["diff2diff"][0] < ANN_COEFF_TOL and err["dir2diff"][0] < ANN_COEFF_TOL):
+        raise AssertionError("ann (d): the trained net misses the LUT")
+    return launches["diffuse_apply_dense"]
+
+
 def instantiation_rows(cuda_ops, by_scheme, scheme_launches, dense_launches, main_launches,
                        spectral_launches):
     """Per kernel, its instantiations: (scheme, nd, norb, ms, bound_ms,
@@ -3127,7 +3500,7 @@ def main():
         # the wedge phases launch no kernel: they run while the kernels build
         built = ex.submit(phase_build, cuda_ops)
         wopp = wedge_opp()
-        phase_wedge(cuda_ops, wopp, args.seed, smi)
+        wedge_exact = phase_wedge(cuda_ops, wopp, args.seed, smi)
         lap("25 wedge")
         wopp = wopp[0]
         phase_wedge_spectral(cuda_ops, wopp, args.seed, smi)
@@ -3139,8 +3512,11 @@ def main():
         phase_wedge_tables(cuda_ops, args.seed, smi)
         torch.cuda.empty_cache()
         lap("28 wedge tables")
+        mc = phase_mcdmda(cuda_ops, args.seed, smi)
+        torch.cuda.empty_cache()
+        lap("29a mcdmda")
         ptx = log_build(built.result())
-    lap("2 build (its wait after 25-28)")
+    lap("2 build (its wait after 25-29a)")
     opp = OptProp(LUT.load(LUT_PATH, device="cuda"), device="cuda")
     idx = opp._solver_orbit_idx
     sundir = sundir_from_angles(*SUN)
@@ -3184,6 +3560,13 @@ def main():
                                           Options, sundir, args.seed)
     spectral_launches = phase_spectral_scheme(cuda_ops, OptProp, LUT, args.seed, smi)
     lap("21-24 schemes")
+    phase_mcdmda_solvers(cuda_ops, opp, mc, wedge_exact, args.seed)
+    del mc
+    torch.cuda.empty_cache()
+    lap("29b mcdmda solvers")
+    ann_launches = phase_ann(cuda_ops, ediff, opp, args.seed, smi)
+    torch.cuda.empty_cache()
+    lap("30 ann")
     insts = instantiation_rows(cuda_ops, by_scheme, scheme_launches, dense_launches, launches,
                                spectral_launches)
     report["boxmc_trace"] = phase_boxmc(cuda_tracer, lutgen, args.seed)
@@ -3198,6 +3581,8 @@ def main():
                             launches=launches[kname], **report[kname]))
         if kname in insts:
             kernels[-1]["instantiations"] = insts[kname]
+        if kname == "diffuse_apply_dense":
+            kernels[-1]["launches_ann"] = ann_launches  # phase 30 (b): the ANN path
     log(f"phase walls [s]: {json.dumps(walls)}, total {sum(walls.values()):.1f}")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -10,9 +10,10 @@ then keeps the dense coefficient form, as the JAX one does).
 `wedge_lut_from_arrays` does the same for a JAX `WedgeLUT` (the wedge
 solvers' tables), `buildings_from_arrays` for the fields of a JAX
 `Buildings` (`buildings_from_object` reads them off the object, `temp`
-included), and `atmosphere_from_arrays` for an `Atmosphere` (the
+included), `atmosphere_from_arrays` for an `Atmosphere` (the
 spectral driver's input, host float64 arrays that pass through as
-copies).
+copies), and `ann_from_arrays` for a trained `AnnOptProp` (its layer
+arrays and losses).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from tenstream_tpu_torch.atm import Atmosphere
+from tenstream_tpu_torch.optprop.ann import AnnOptProp
 from tenstream_tpu_torch.optprop.lut import LUT, LUTAxes
 from tenstream_tpu_torch.plexrt.optprop import WedgeAxes, WedgeLUT
 from tenstream_tpu_torch.pprts.buildings import Buildings
@@ -82,3 +84,14 @@ def atmosphere_from_arrays(obj) -> Atmosphere:
         gases={k: np.array(v) for k, v in obj.gases.items()},
         lwc=opt(obj.lwc), reliq=opt(obj.reliq), iwc=opt(obj.iwc), reice=opt(obj.reice),
         cfrac=opt(obj.cfrac), skin_temperature=opt(obj.skin_temperature))
+
+
+def ann_from_arrays(obj, device="cuda") -> AnnOptProp:
+    """The port's `AnnOptProp` on `device` from any object with a JAX
+    `AnnOptProp`'s fields (`scheme`, its name or a scheme with `.name`;
+    `_dir_params` / `_diff_params`, lists of (w, b) arrays; `dir_loss`,
+    `diff_loss`): both packages then evaluate the same net."""
+    layers = lambda ps: [(np.asarray(w, np.float32), np.asarray(b, np.float32)) for w, b in ps]
+    return AnnOptProp.from_params(getattr(obj.scheme, "name", obj.scheme),
+                                  layers(obj._dir_params), layers(obj._diff_params),
+                                  float(obj.dir_loss), float(obj.diff_loss), device)

@@ -15,6 +15,10 @@ the JAX versions the package runs under).
 - `uniform(shape)` maps 32 random bits to float32 as JAX does: the top 23
   bits become the mantissa of a number in [1, 2), minus 1; with bounds it
   returns max(minval, f * (maxval - minval) + minval), as JAX does.
+- `normal(shape)` is `jax.random.normal(key, shape, float32)`: sqrt(2) *
+  erfinv(u) of u uniform in (nextafter(-1, 0), 1), with XLA's float32
+  erfinv (Giles' polynomials, their products and sums as one rounding);
+  it differs from JAX's by at most a few ulp (its log1p is not XLA's).
 - `split(n)` is `jax.random.split(key, n)` in the partitionable mode
   (`_threefry_split_foldlike`): child i is the output word pair of
   threefry2x32(key, (i >> 32, i & 0xffffffff)).
@@ -32,6 +36,7 @@ from __future__ import annotations
 import math
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -99,6 +104,11 @@ class Threefry:
         """`jax.random.uniform(key, shape, float32, minval, maxval)`."""
         return to_uniform(self.bits(shape, device), minval, maxval)
 
+    def normal(self, shape: Sequence[int], device="cuda") -> torch.Tensor:
+        """`jax.random.normal(key, shape, float32)`."""
+        lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+        return erfinv(self.uniform(shape, device, lo, 1.0)) * float(np.float32(math.sqrt(2.0)))
+
 
 def to_uniform(bits: torch.Tensor, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
     """32 random bits -> float32 in [minval, maxval) as JAX maps them."""
@@ -112,6 +122,26 @@ def to_uniform(bits: torch.Tensor, minval: float = 0.0, maxval: float = 1.0) -> 
     # sum gives the fused result
     fused = (f.double() * span.double() + lo.double()).float()
     return torch.maximum(lo, fused)
+
+
+# XLA's ErfInv32: Giles, "Approximating the erfinv function", single precision
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                  0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                  0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 erfinv of |x| < 1 as XLA evaluates it (`lax.erf_inv`)."""
+    w = -torch.log1p(-(x * x).double()).float()
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, w.double().sqrt().float() - 3.0).double()
+    coef = lambda i: torch.where(lt, float(np.float32(_ERFINV_W_LT_5[i])),
+                                 float(np.float32(_ERFINV_W_GE_5[i]))).double()
+    p = coef(0)
+    for i in range(1, len(_ERFINV_W_LT_5)):
+        p = (coef(i) + p * w).float().double()  # one rounding: XLA contracts it
+    return p.float() * x
 
 
 def split_keys(keys: torch.Tensor, n: int = 2) -> torch.Tensor:
