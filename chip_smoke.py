@@ -234,6 +234,27 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  settings (hidden 128,128,128, batch 8192) but 100 epochs of its
                  150: wall, losses, off-grid diff2diff and dir2diff mean |err|
                  against the LUT below 0.01.
+ 31. decomposed -- the cube solver and the main path over a torch.distributed
+                 group (parallel/mesh.py): (a) phase 12's run at 256 x 256 x 39 on
+                 a one-rank NCCL group, the solver on a Mesh (every shift a halo
+                 exchange, K1 in halo mode, K2 between halo-aware gather and
+                 scatter), its cold, identical warm and first perturbed steps
+                 held to phase 12's: every band's niter equal, fields within
+                 0.1 W/m2 and 1e-4 W/m3 (the largest differences printed, and
+                 whether they are 0), K1 launched in halo mode only; (b) four
+                 processes (this script with --decomposed-rank) in a 2 x 2 gloo
+                 group, all on cuda:0 (NCCL takes one rank per card), with blocks
+                 of 32 x 32 of the 64 x 64 cloud scene: one solar + thermal band
+                 on orbit coefficients (K1/K2) and one on dense ones (K3),
+                 through the kernels' halo mode and through their plain
+                 versions, each held to this process's one-rank solve and to
+                 the other (0.1 W/m2, 1e-4 W/m3, niter within NITER_SLACK); (c)
+                 K1 and K3 in halo mode against the periodic launch at the same
+                 block (a periodic ring: bit for bit) and against their plain
+                 halo versions (another ring), timed beside the periodic
+                 launch (K1 at the main path's chunk and at a 128 x 128 block,
+                 K3 at one band and at 31 (b)'s block), and K2 at the 128 x 128
+                 block.
  10. boxmc    -- K4 boxmc_trace, the BoxMC photon tracer: one launch of 4096
                  entries drawn with --seed from the production diffuse grid
                  for the orbit-representative sources 0 and 2 and one from
@@ -261,12 +282,14 @@ digests recorded from the earlier K4 design, and phase 3 holds K3's
 outputs at every (type, shape) it checks against digests recorded from
 the first K3 design: they must be equal bit for bit.
 
-The phases run in the order 1, 25-28 and 29 (a) (while 2 builds), 3-8, 12, 13, 9, 14-24,
-29 (b), 30, 10, 11.  Each path resets
+The phases run in the order 1, 25-28 and 29 (a) (while 2 builds), 3-8, 12, 13, 9, 31,
+14-24, 29 (b), 30, 10, 11.  Each path resets
 the kernel launch counts before it runs and reads them after; the kernels
 JSON takes K1's and K2's launches from phase 12 (the main path), K3's from
 phase 14 (the urban spectral path, where its entry is timed; its launches on
-the ANN path, phase 30 (b), under "launches_ann") and K4's from the LUT pass; under "instantiations" K1-K3 list each table set or dof
+the ANN path, phase 30 (b), under "launches_ann") and K4's from the LUT pass;
+two more entries are K1's and K3's halo modes, launched on phase 31 (a) and
+31 (b), timed in 31 (c); under "instantiations" K1-K3 list each table set or dof
 count with its phase-21 time and bound and its launches (3_10's on the
 paths above, the others' in phase 22 for K1/K2 and in phase 23's dense
 solves for K3; 3_30's K1/K2 also under "launches_spectral", phase 24's).  The line before the last is a JSON
@@ -330,9 +353,9 @@ SUN_MOVED = (253.0, 37.0)  # the urban warm solve's sun
 CSRC = "tenstream_tpu_torch/csrc/"
 # wrapper name -> (tag, CUDA source, line of the kernel in it, TPU kernel it replaces)
 KERNELS = {
-    "fused_A_dots": ("K1", CSRC + "orbit_ops.cu", 199, "tenstream_tpu/pprts/pallas_ops.py:264"),
-    "orbit_contract": ("K2", CSRC + "orbit_ops.cu", 133, "tenstream_tpu/pprts/pallas_ops.py:100"),
-    "diffuse_apply_dense": ("K3", CSRC + "dense_ops.cu", 191,
+    "fused_A_dots": ("K1", CSRC + "orbit_ops.cu", 207, "tenstream_tpu/pprts/pallas_ops.py:264"),
+    "orbit_contract": ("K2", CSRC + "orbit_ops.cu", 141, "tenstream_tpu/pprts/pallas_ops.py:100"),
+    "diffuse_apply_dense": ("K3", CSRC + "dense_ops.cu", 201,
                             "tenstream_tpu/pprts/pallas_ops.py:64"),
     "boxmc_trace": ("K4", CSRC + "boxmc_ops.cu", 189, "tenstream_tpu/boxmc/pallas_tracer.py:118"),
 }
@@ -1254,13 +1277,20 @@ def phase_spectral(cuda_ops, opp, seed, smi):
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launch_counts()
     walls = {}
+    # the first three steps' results and per-band iterations, for phase 31 (a)
+    steps = []
+    keep = lambda r: steps.append((tuple(a.cpu() for a in r), _band_niters(solver)))
     res, walls["cold"], _ = spectral_solve(spec, lwc, cuda_ops, "spectral cold")
+    keep(res)
     res, walls["warm identical"], _ = spectral_solve(spec, lwc, cuda_ops, "spectral warm")
+    keep(res)
     pert = []
     for k in range(2):
         lwc = np.roll(lwc, 1, axis=1 + (k % 2))
         res, wall, _ = spectral_solve(spec, lwc, cuda_ops, f"spectral perturbed {k + 1}")
         pert.append(wall)
+        if k == 0:
+            keep(res)
     launches = dict(cuda_ops.LAUNCHES)
     spec = (solver, atm, lwc, gas)
     log(f"spectral: walls " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in walls.items())
@@ -1271,7 +1301,7 @@ def phase_spectral(cuda_ops, opp, seed, smi):
     for name in ("fused_A_dots", "orbit_contract"):
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
-    return launches, spec
+    return launches, spec, steps
 
 
 def check_toa(label, edir, weight, mu):
@@ -3429,6 +3459,371 @@ def phase_ann(cuda_ops, ediff, opp, seed, smi):
     return launches["diffuse_apply_dense"]
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the cube solver and the main path decomposed over ranks
+# ---------------------------------------------------------------------------
+
+DECOMP_N = 64  # 31 (b): phase 13's 64 x 64 scene ...
+DECOMP_LAYOUT = (2, 2)  # ... in 2 x 2 blocks of 32 x 32, one process each, all on cuda:0
+DECOMP_TIMEOUT = 420.0  # [s] for the four ranks of 31 (b)
+BLOCK_N = 128  # the strong-scaling block (256 x 256 on 2 x 2 cards), timed in 31 (c)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _wrap_pad(t):
+    """t (..., nx, ny) with its periodic one-cell ring: what `Mesh.pad`
+    gives a rank that is its own neighbour."""
+    t = torch.cat([t[..., -1:, :], t, t[..., :1, :]], dim=-2)
+    return torch.cat([t[..., -1:], t, t[..., :1]], dim=-1).contiguous()
+
+
+def _random_ring(t, seed):
+    """t padded by a one-cell ring of other random values (a neighbour's)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.rand(tuple(t.shape[:-2]) + (t.shape[-2] + 2, t.shape[-1] + 2), device="cuda",
+                   generator=g) * float(t.max())
+    p[..., 1:-1, 1:-1] = t
+    return p.contiguous()
+
+
+@contextlib.contextmanager
+def halo_or_plain(cuda_ops, ediff, plain: bool):
+    """Run the block on K1-K3 or (plain) on their plain PyTorch versions, in
+    halo mode on a mesh, on the card either way."""
+    saved = (ediff.fused_A_dots, cuda_ops.orbit_contract, cuda_ops.diffuse_apply_dense)
+    if plain:
+        ediff.fused_A_dots = (lambda scheme, idx, orb, u, w, alb, halo=False:
+                              cuda_ops.fused_A_dots_plain(scheme, idx, orb, u, w, alb, halo))
+        cuda_ops.orbit_contract = (lambda scheme, idx, orb, src:
+                                   cuda_ops.orbit_contract_plain(idx, orb, src))
+        cuda_ops.diffuse_apply_dense = cuda_ops.diffuse_apply_dense_plain
+    try:
+        yield
+    finally:
+        ediff.fused_A_dots, cuda_ops.orbit_contract, cuda_ops.diffuse_apply_dense = saved
+
+
+def phase_decomposed_main(cuda_ops, opp, seed, smi, steps):
+    """31 (a): the main path at full width through the decomposed code: a
+    one-rank NCCL group, phase 12's solver set-up on a `Mesh`, and phase
+    12's first three steps (cold, warm identical, perturbed), each held to
+    phase 12's: the same niter in every band and fields within the kernel
+    gates (the largest differences printed, and whether they are 0).
+    Returns its kernel launches and those in halo mode."""
+    import torch.distributed as dist
+
+    from tenstream_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    init_distributed(f"localhost:{_free_port()}", num_processes=1, process_id=0, device="cuda")
+    try:
+        mesh = make_mesh(1, 1)
+        spec = make_spectral_solver(NX, NY, seed, opp)
+        solver, atm, lwc, gas = spec
+        solver.set_mesh(mesh)
+        log(f"decomposed: {mesh}, {dist.get_backend()} group; phase 12's {NX}x{NY}x{NZ} "
+            f"spectral run through the halo path")
+        torch.cuda.reset_peak_memory_stats()
+        cuda_ops.reset_launch_counts()
+        walls = []
+        for k, (label, (ref, ref_iters)) in enumerate(zip(("cold", "warm identical",
+                                                          "perturbed 1"), steps)):
+            if k == 2:
+                lwc = np.roll(lwc, 1, axis=1)
+            res, wall, _ = spectral_solve(spec, lwc, cuda_ops, f"decomposed {label}",
+                                          report_chunks=False)
+            walls.append(wall)
+            errs = [(a.cpu() - b).abs().max().item() for a, b in zip(res, ref)]
+            iters = _band_niters(solver)
+            differ = {b: (iters[b], ref_iters.get(b)) for b in iters
+                      if iters[b] != ref_iters.get(b)}
+            log(f"decomposed {label} vs phase 12: max abs edir {errs[0]:.3e} edn {errs[1]:.3e} "
+                f"eup {errs[2]:.3e} W/m2, abso {errs[3]:.3e} W/m3 (all 0: {max(errs) == 0.0}); "
+                f"niter equal in {len(iters) - len(differ)} of {len(iters)} bands")
+            if max(errs[:3]) > FLUX_ATOL or errs[3] > ABSO_ATOL:
+                raise AssertionError(f"decomposed {label}: differs from phase 12 beyond the gates")
+            if differ or iters.keys() != ref_iters.keys():
+                raise AssertionError(f"decomposed {label}: per-band niter differ {differ}")
+        launches, halo = dict(cuda_ops.LAUNCHES), dict(cuda_ops.HALO_LAUNCHES)
+        check_spectral_result("decomposed", res, atm, lwc, gas.solar(atm).weight)
+        log(f"decomposed: walls {', '.join(f'{w * 1e3:.1f} ms' for w in walls)}, perturbed "
+            f"{NX * NY / walls[2]:.1f} columns/s ({smi}); launches {launches}, in halo mode "
+            f"{halo}; peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if halo["fused_A_dots"] == 0 or halo["fused_A_dots"] != launches["fused_A_dots"]:
+            raise AssertionError("decomposed: K1 must run in halo mode only, and did not")
+        if launches["orbit_contract"] == 0:
+            raise AssertionError("decomposed: K2 was not launched")
+        del spec, solver, res
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return launches, halo
+
+
+def _decomposed_fields(seed):
+    dz, kabs, ksca, g, planck = build_scene(DECOMP_N, DECOMP_N, seed)
+    return dz, (kabs, ksca, g, planck)
+
+
+def decomposed_rank(rank: int, port: int, out: str, seed: int) -> None:
+    """31 (b), one rank of the 2 x 2 gloo group on cuda:0: the 64 x 64
+    cloud band solar + thermal on orbit coefficients (K1/K2) and on dense
+    ones (K3), each through the kernels' halo mode and through their plain
+    versions; writes this rank's blocks, iterations and launches."""
+    import torch.distributed as dist
+
+    from tenstream_tpu_torch.core.config import Options
+    from tenstream_tpu_torch.optprop.facade import OptProp
+    from tenstream_tpu_torch.optprop.lut import LUT
+    from tenstream_tpu_torch.parallel.mesh import init_distributed, make_mesh, shard_fields
+    from tenstream_tpu_torch.pprts import cuda_ops, ediff
+    from tenstream_tpu_torch.pprts.grid import Grid
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    nxp, nyp = DECOMP_LAYOUT
+    init_distributed(f"localhost:{port}", num_processes=nxp * nyp, process_id=rank,
+                     device="cuda", backend="gloo")
+    mesh = make_mesh(nxp, nyp)
+    cuda_ops.load_extension()
+    opp = OptProp(LUT.load(LUT_PATH, device="cuda"), device="cuda")
+    dz, fields = _decomposed_fields(seed)
+    blocks = shard_fields(mesh, *fields)
+    result = {}
+    for kind in ("orbit", "dense"):
+        for plain in (False, True):
+            opts = Options({"pprts_orbit_coeffs": kind == "orbit"}, read_env=False)
+            solver = PprtsSolver(Grid.create(dz.size, DECOMP_N, DECOMP_N, 100.0, 100.0, dz,
+                                             device="cuda"), opp, options=opts)
+            solver.set_mesh(mesh)
+            solver.set_angles(sundir_from_angles(*SUN))
+            solver.set_optical_properties(0.15, *blocks[:3], planck=blocks[3])
+            tag = f"{kind}_{'plain' if plain else 'kernels'}"
+            cuda_ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with halo_or_plain(cuda_ops, ediff, plain):
+                sol = solver.solve(lthermal=True, lsolar=True, edirTOA=1000.0)
+                fluxes = solver.get_result()
+            torch.cuda.synchronize()
+            result[tag + "_wall"] = np.asarray(time.perf_counter() - t0)
+            for name, a in zip(("edir", "edn", "eup", "abso"), fluxes):
+                result[f"{tag}_{name}"] = a.cpu().numpy()
+            result[tag + "_niter"] = np.asarray([sol.niter_diff, sol.thermal.niter_diff])
+            result[tag + "_launches"] = np.asarray(
+                [cuda_ops.LAUNCHES[k] for k in ("fused_A_dots", "orbit_contract",
+                                                "diffuse_apply_dense")]
+                + [cuda_ops.HALO_LAUNCHES[k] for k in ("fused_A_dots", "diffuse_apply_dense")])
+    np.savez(out, **result)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_decomposed_ranks(cuda_ops, opp, Grid, PprtsSolver, Options, sundir, seed):
+    """31 (b): real neighbours on one card.  Four processes form a 2 x 2
+    gloo group, each on cuda:0 (NCCL takes one rank per card), with blocks
+    of 32 x 32 of the 64 x 64 cloud scene; each solves one solar + thermal
+    band on orbit coefficients (K1 / K2) and on dense ones (K3) through the
+    kernels' halo mode and through their plain versions.  Both are held to
+    the one-rank solve (this process, no mesh, the kernels) and to each
+    other: fluxes within 0.1 W/m2, absorption within 1e-4 W/m3, niter per
+    sub-solve within NITER_SLACK.  Returns K3's launches in halo mode."""
+    ref = {}
+    for kind in ("orbit", "dense"):
+        opts = Options({"pprts_orbit_coeffs": kind == "orbit"}, read_env=False)
+        dz, fields = _decomposed_fields(seed)
+        solver = PprtsSolver(Grid.create(dz.size, DECOMP_N, DECOMP_N, 100.0, 100.0, dz,
+                                         device="cuda"), opp, options=opts)
+        solver.set_angles(sundir)
+        o, it = solve_and_report(solver, fields, cuda_ops, f"decomposed one-rank {kind}")
+        ref[kind] = ([a.cpu().numpy() for a in o], (it[0] + it[1], it[2] + it[3]))
+    nxp, nyp = DECOMP_LAYOUT
+    world = nxp * nyp
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, logs = [], []
+        for r in range(world):
+            lg = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            logs.append(lg)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                 "--decomposed-rank", str(r), "--port", str(port), "--out",
+                 os.path.join(tmp, f"rank{r}.npz")], cwd=REPO, stdout=lg,
+                stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, DECOMP_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for lg in logs:
+                lg.close()
+        wall = time.perf_counter() - t0
+        codes = [p.returncode for p in procs]
+        if any(c != 0 for c in codes):
+            for r in range(world):
+                with open(os.path.join(tmp, f"rank{r}.log")) as fh:
+                    log(f"decomposed rank {r} (exit {codes[r]}):\n" + fh.read()[-4000:])
+            raise AssertionError(f"decomposed ranks: exit codes {codes} (killed after "
+                                 f"{DECOMP_TIMEOUT:.0f} s where a rank hung)")
+        outs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(world)]
+    glob_ = lambda key: np.concatenate(
+        [np.concatenate([outs[px * nyp + py][key] for py in range(nyp)], axis=-1)
+         for px in range(nxp)], axis=-2)
+    k3_halo = 0
+    for kind in ("orbit", "dense"):
+        got = {}
+        for mode in ("kernels", "plain"):
+            tag = f"{kind}_{mode}"
+            fields = [glob_(f"{tag}_{n}") for n in ("edir", "edn", "eup", "abso")]
+            iters = tuple(int(v) for v in outs[0][tag + "_niter"])
+            if any(tuple(int(v) for v in o[tag + "_niter"]) != iters for o in outs):
+                raise AssertionError(f"decomposed {tag}: the ranks report other niter")
+            launches = sum(o[tag + "_launches"] for o in outs)
+            got[mode] = (fields, iters)
+            walls = max(float(o[tag + "_wall"]) for o in outs)
+            log(f"decomposed 2x2 {tag}: niter solar/thermal {iters}, wall {walls * 1e3:.1f} ms, "
+                f"launches over the ranks K1 {launches[0]} K2 {launches[1]} K3 {launches[2]}, in "
+                f"halo mode K1 {launches[3]} K3 {launches[4]}")
+            # K1 and K3 launch in halo mode only; K2 beside K1 on the orbit path
+            if mode == "plain":
+                ok = not any(launches)
+            elif kind == "orbit":
+                ok = (launches[3] > 0 and launches[3] == launches[0] and launches[1] > 0
+                      and launches[2] == 0)
+            else:
+                ok = launches[4] > 0 and launches[4] == launches[2] and launches[0] == 0
+                k3_halo = int(launches[4])
+            if not ok:
+                raise AssertionError(f"decomposed {tag}: wrong kernel launches {launches}")
+        for (a, b), (fa, ia), (fb, ib) in (
+                (("kernels", "one rank"), got["kernels"], ref[kind]),
+                (("kernels", "plain"), got["kernels"], got["plain"])):
+            errs = [float(np.abs(x - y).max()) for x, y in zip(fa, fb)]
+            dn = max(abs(x - y) for x, y in zip(ia, ib))
+            log(f"decomposed 2x2 {kind} {a} vs {b}: max abs edir {errs[0]:.3e} edn {errs[1]:.3e} "
+                f"eup {errs[2]:.3e} W/m2, abso {errs[3]:.3e} W/m3; niter {ia} vs {ib}")
+            if max(errs[:3]) > FLUX_ATOL or errs[3] > ABSO_ATOL:
+                raise AssertionError(f"decomposed {kind} {a} vs {b}: beyond the gates")
+            if dn > NITER_SLACK[("kernels", "plain")]:
+                raise AssertionError(f"decomposed {kind} {a} vs {b}: niter {ia} vs {ib}")
+    log(f"decomposed 2x2 on one card: {wall:.1f} s for the four ranks (start-up included)")
+    return k3_halo
+
+
+def phase_halo_kernels(cuda_ops, scheme, idx, nx, ny):
+    """31 (c): K1 and K3 in halo mode against their periodic launches at the
+    same block (a periodic ring: equal bit for bit) and against their plain
+    halo versions (a random ring), timed beside the periodic launch: K1 at
+    the main path's band chunk (a one-rank block of 256 x 256) and at the
+    strong-scaling block (128 x 128), K3 at the single-band urban shape and
+    at phase 31 (b)'s 32 x 32 block; K2 timed at the 128 x 128 block."""
+    norb = int(idx.max()) + 1
+    nd = scheme.ndiff
+    report = {"fused_A_dots": {}, "diffuse_apply_dense": {}, "orbit_contract": {}}
+    for (B, z, x, y, tag) in ((CHUNK, NZ_SOLVE, nx, ny, "main"),
+                              (CHUNK, NZ_SOLVE, BLOCK_N, BLOCK_N, "block")):
+        orb, u, w, alb, src = _k_inputs(B, z, x, y, norb, seed=z + x + 1)
+        Au, dots = cuda_ops.fused_A_dots(scheme, idx, orb, u, w, alb)
+        op, up = _wrap_pad(orb), _wrap_pad(u)
+        Au_h, dots_h = cuda_ops.fused_A_dots(scheme, idx, op, up, w, alb, halo=True)
+        same = bool(torch.equal(Au, Au_h) and torch.equal(dots, dots_h))
+        opr, upr = _random_ring(orb, 5), _random_ring(u, 6)
+        Au_r, dots_r = cuda_ops.fused_A_dots(scheme, idx, opr, upr, w, alb, halo=True)
+        Au_p, dots_p = cuda_ops.fused_A_dots_plain(scheme, idx, opr, upr, w, alb, halo=True)
+        err = (Au_r - Au_p).abs().max().item()
+        derr = ((dots_r - dots_p).abs() / dots_p.abs()).max().item()
+        del Au, Au_h, Au_r, Au_p
+        log(f"kernels halo K1 {tag} B={B} nz={z} {x}x{y}: periodic ring equal to the periodic "
+            f"launch bit for bit: {same}; random ring vs plain max abs {err:.3e}, dots rel "
+            f"{derr:.3e}")
+        if not (same and err <= FIELD_ATOL and derr <= DOT_RTOL):
+            raise AssertionError(f"K1's halo mode at {tag}: not the periodic launch, or not its "
+                                 "plain version")
+        groups = cuda_ops.orbit_groups(idx)
+        per_cell = sum(len(ss) + 1 for gd in groups for _, ss in gd)
+        nxy, pxy = x * y, (x + 2) * (y + 2)
+        nbytes = 4 * B * (nd * (z + 1) * pxy + 2 * nd * (z + 1) * nxy + norb * z * pxy + nxy + 2)
+        flops = B * (z * nxy * per_cell + (z + 1) * nxy * nd * 5)
+        periodic_ms = cuda_ms(lambda: cuda_ops.fused_A_dots(scheme, idx, orb, u, w, alb), 20)
+        args = (scheme, idx, opr, upr, w, alb)
+        e = _report_entry(f"fused_A_dots halo mode ({tag}, B={B} nz={z} {x}x{y})", err,
+                          cuda_ms(lambda: cuda_ops.fused_A_dots(*args, halo=True), 20),
+                          cuda_ms(lambda: cuda_ops.fused_A_dots_plain(*args, halo=True), 3),
+                          nbytes, flops)
+        pad_ms = cuda_ms(lambda: _wrap_pad(u), 20)
+        log(f"kernels halo K1 {tag}: periodic launch {periodic_ms:.4f} ms; the ring of u on one "
+            f"card (two cat copies) {pad_ms:.4f} ms")
+        if tag == "main":
+            report["fused_A_dots"].update(e, periodic_ms=periodic_ms)
+        else:
+            report["fused_A_dots"].update({f"block{BLOCK_N}_{k}": v for k, v in e.items()},
+                                          **{f"block{BLOCK_N}_periodic_ms": periodic_ms})
+            cost = _kernel_cost(cuda_ops, scheme, idx, B, z, x, y, norb)["orbit_contract"]
+            k2 = _report_entry(f"orbit_contract at the {x}x{y} block", 0.0,
+                               cuda_ms(lambda: cuda_ops.orbit_contract(scheme, idx, orb, src), 20),
+                               cuda_ms(lambda: cuda_ops.orbit_contract_plain(idx, orb, src), 3),
+                               *cost)
+            report["orbit_contract"] = {f"block{BLOCK_N}_{k}": k2[k]
+                                        for k in ("ms", "plain_ms", "bound_ms")}
+        del orb, u, w, alb, src, op, up, opr, upr
+        torch.cuda.empty_cache()
+    cshift, _ = cuda_ops._shift_tables(scheme)
+    for (B, z, x, y, tag) in ((1, URBAN_NZ, nx, ny, "single"), (1, NZ, 32, 32, "block")):
+        c, xf = k3_inputs(B, z, x, y, torch.float32, seed=11)
+        ref = cuda_ops.diffuse_apply_dense(scheme, c, xf)
+        own = (xf[..., 0, :].contiguous(), xf[..., :, 0].contiguous())
+        torch.full_like(xf, float("nan"))
+        out, ox, oy = cuda_ops.diffuse_apply_dense(scheme, c, xf, halo=own)
+        for d, (_, cx, cy) in enumerate(cshift):
+            if cx == -1:
+                out[:, d, :, 0, :] = ox[:, d]
+            elif cy == -1:
+                out[:, d, :, :, 0] = oy[:, d]
+        same = bool(torch.equal(out, ref))
+        g = torch.Generator(device="cuda").manual_seed(12)
+        hal = (torch.rand((B, nd, z + 1, y), device="cuda", generator=g),
+               torch.rand((B, nd, z + 1, x), device="cuda", generator=g))
+        torch.full_like(xf, float("nan"))
+        got = cuda_ops.diffuse_apply_dense(scheme, c, xf, halo=hal)
+        want = cuda_ops.diffuse_apply_dense_plain(scheme, c, xf, halo=hal)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        log(f"kernels halo K3 {tag} B={B} nz={z} {x}x{y}: own planes folded back equal to the "
+            f"periodic launch bit for bit: {same}; other halo planes vs plain max abs {err:.3e}")
+        if not (same and err <= FIELD_ATOL):
+            raise AssertionError(f"K3's halo mode at {tag}: not the periodic launch, or not its "
+                                 "plain version")
+        ncell, nface = z * x * y, (z + 1) * x * y
+        edge = 4 * B * nd * (z + 1) * (x + y)
+        nbytes = B * (nd * nd * ncell * 4 + 2 * nd * nface * 4) + 2 * edge
+        periodic_ms = cuda_ms(lambda: cuda_ops.diffuse_apply_dense(scheme, c, xf), 20)
+        e = _report_entry(f"diffuse_apply_dense halo mode ({tag}, B={B} nz={z} {x}x{y})", err,
+                          cuda_ms(lambda: cuda_ops.diffuse_apply_dense(scheme, c, xf, halo=hal),
+                                  20),
+                          cuda_ms(lambda: cuda_ops.diffuse_apply_dense_plain(scheme, c, xf,
+                                                                             halo=hal), 3),
+                          nbytes, B * 2 * nd * nd * ncell)
+        log(f"kernels halo K3 {tag}: periodic launch {periodic_ms:.4f} ms")
+        if tag == "single":
+            report["diffuse_apply_dense"].update(e, periodic_ms=periodic_ms)
+        else:
+            report["diffuse_apply_dense"].update({f"block32_{k}": v for k, v in e.items()},
+                                                 block32_periodic_ms=periodic_ms)
+        del c, xf, ref, out, ox, oy, got, want
+        torch.cuda.empty_cache()
+    return report
+
+
 def instantiation_rows(cuda_ops, by_scheme, scheme_launches, dense_launches, main_launches,
                        spectral_launches):
     """Per kernel, its instantiations: (scheme, nd, norb, ms, bound_ms,
@@ -3474,7 +3869,16 @@ def instantiation_rows(cuda_ops, by_scheme, scheme_launches, dense_launches, mai
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
+    # one rank of phase 31 (b), started by the script itself
+    ap.add_argument("--decomposed-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.decomposed_rank is not None:
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        decomposed_rank(args.decomposed_rank, args.port, args.out, args.seed)
+        return
 
     name, smi = phase_device()
     from tenstream_tpu_torch.core.config import Options
@@ -3531,7 +3935,7 @@ def main():
     phase_urban_parity(cuda_ops, ediff, opp, Grid, PprtsSolver, Buildings, sundir, args.seed)
     phase_dense_vs_orbit(cuda_ops, opp, Grid, PprtsSolver, Options, sundir, args.seed)
     lap("5-8 parity, urban")
-    launches, spec = phase_spectral(cuda_ops, opp, args.seed, smi)
+    launches, spec, steps = phase_spectral(cuda_ops, opp, args.seed, smi)
     phase_spectral_parity(cuda_ops, ediff, opp, args.seed)
     lap("12-13 spectral")
     profile_main(opp, Grid, PprtsSolver, sundir, args.seed)
@@ -3540,6 +3944,14 @@ def main():
     del spec
     torch.cuda.empty_cache()
     lap("9 profile")
+    _, decomp_halo = phase_decomposed_main(cuda_ops, opp, args.seed, smi, steps)
+    del steps
+    lap("31a decomposed main path")
+    k3_halo = phase_decomposed_ranks(cuda_ops, opp, Grid, PprtsSolver, Options, sundir, args.seed)
+    halo_report = phase_halo_kernels(cuda_ops, opp.scheme, idx, NX, NY)
+    report["orbit_contract"].update(halo_report["orbit_contract"])
+    torch.cuda.empty_cache()
+    lap("31b-c decomposed ranks, halo kernels")
     launches["diffuse_apply_dense"] = phase_urban_spectral(
         cuda_ops, opp, args.seed, smi, report["diffuse_apply_dense"])["diffuse_apply_dense"]
     torch.cuda.empty_cache()
@@ -3583,6 +3995,14 @@ def main():
             kernels[-1]["instantiations"] = insts[kname]
         if kname == "diffuse_apply_dense":
             kernels[-1]["launches_ann"] = ann_launches  # phase 30 (b): the ANN path
+    # the halo modes: K1's launches on phase 31 (a)'s decomposed main path, K3's on 31 (b)'s
+    # dense solves; times from 31 (c)
+    for kname, n in (("fused_A_dots", decomp_halo["fused_A_dots"]),
+                     ("diffuse_apply_dense", k3_halo)):
+        tag, source, line, replaces = KERNELS[kname]
+        kernels.append(dict(name=f"{tag} {kname} (halo mode)", route="cuda", source=source,
+                            kernel=f"{source}:{line}", replaces=replaces, launches=n,
+                            **halo_report[kname]))
     log(f"phase walls [s]: {json.dumps(walls)}, total {sum(walls.values()):.1f}")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,8 +1,12 @@
 """tenstream_tpu_torch — the PyTorch/CUDA port of `tenstream_tpu`.
 
 The package mirrors the JAX package's layout (`core/`, `ops/`,
-`optprop/`, `boxmc/`, `pprts/`, `streams.py`) so each module's
-counterpart is easy to find.  It imports torch and numpy only.  Every
+`optprop/`, `boxmc/`, `pprts/`, `plexrt/`, `spectral/`, `parallel/`,
+`utils/`, `streams.py`) so each module's counterpart is easy to find.
+`parallel/` decomposes the cube solver and the full-spectrum integration over a
+`torch.distributed` group (one process per GPU, each rank an (x, y)
+block); `utils/` holds the file formats (scene dumps, NetCDF, XDMF,
+HDF5) and `utils/chip.py`'s device probe and watchdogs.  It imports torch and numpy only.  Every
 entry point takes an explicit `device` (default ``"cuda"``); on a CUDA
 device the diffuse solve runs through the hand-written kernels in
 `pprts/cuda_ops.py`, on the CPU through their plain PyTorch versions.

@@ -57,33 +57,38 @@ torch::Tensor orbit_contract(torch::Tensor src, torch::Tensor orb, int64_t inst)
   return out;
 }
 
-// K1 of instantiation inst: nd dofs, norb channels
+// K1 of instantiation inst: nd dofs, norb channels.  In halo mode u and orb
+// are padded by a one-cell ring: (.., nx + 2, ny + 2) against w's (nx, ny).
 std::vector<torch::Tensor> fused_A_dots(torch::Tensor u, torch::Tensor w, torch::Tensor orb,
-                                        torch::Tensor albedo, int64_t inst) {
+                                        torch::Tensor albedo, int64_t inst, bool halo) {
   int nd = 0, norb = 0;
   orbit_dims(inst, &nd, &norb);
   check_f32(u, "u", 5);
   check_f32(w, "w", 5);
   check_f32(orb, "orb", 5);
   check_f32(albedo, "albedo", 3);
-  const int64_t B = u.size(0), nz = u.size(2) - 1, nx = u.size(3), ny = u.size(4);
-  TORCH_CHECK(u.size(1) == nd, "u must have the instantiation's nd dofs");
-  TORCH_CHECK(nz >= 1, "u needs at least two face levels");
-  TORCH_CHECK(nx >= 1 && ny >= 1, "u needs at least one column");
-  TORCH_CHECK(w.sizes() == u.sizes(), "w must have the shape of u");
+  const int64_t B = w.size(0), nz = w.size(2) - 1, nx = w.size(3), ny = w.size(4);
+  const int64_t pad = halo ? 2 : 0;
+  TORCH_CHECK(w.size(1) == nd, "w must have the instantiation's nd dofs");
+  TORCH_CHECK(nz >= 1, "w needs at least two face levels");
+  TORCH_CHECK(nx >= 1 && ny >= 1, "w needs at least one column");
+  TORCH_CHECK(u.size(0) == B && u.size(1) == nd && u.size(2) == nz + 1 && u.size(3) == nx + pad &&
+                  u.size(4) == ny + pad,
+              "u must have the shape of w, padded by a one-cell ring in halo mode");
   TORCH_CHECK(orb.size(0) == B && orb.size(1) == norb && orb.size(2) == nz &&
-                  orb.size(3) == nx && orb.size(4) == ny,
-              "orb must be (B, norb, nz, nx, ny)");
+                  orb.size(3) == nx + pad && orb.size(4) == ny + pad,
+              "orb must be (B, norb, nz, nx, ny), padded by a one-cell ring in halo mode");
   TORCH_CHECK(albedo.size(0) == B && albedo.size(1) == nx && albedo.size(2) == ny,
               "albedo must be (B, nx, ny)");
   TORCH_CHECK(w.device() == u.device() && orb.device() == u.device() &&
                   albedo.device() == u.device(),
               "tensors on different devices");
-  TORCH_CHECK(nz * nx * ny * norb < (int64_t)1 << 31 && (nz + 1) * nx * ny * nd < (int64_t)1 << 31,
+  TORCH_CHECK(nz * (nx + pad) * (ny + pad) * norb < (int64_t)1 << 31 &&
+                  (nz + 1) * (nx + pad) * (ny + pad) * nd < (int64_t)1 << 31,
               "field too large for int indexing");
   TORCH_CHECK(B < 65536, "batch too large for the grid");
   const c10::cuda::CUDAGuard guard(u.device());
-  auto Au = torch::empty_like(u);
+  auto Au = torch::empty_like(w);
   auto dots = torch::empty({B, 2}, u.options());
   if (B == 0) return {Au, dots};
   const int nblk = fused_A_dots_blocks((int)inst, (int)B, (int)nz, (int)nx, (int)ny);
@@ -94,7 +99,7 @@ std::vector<torch::Tensor> fused_A_dots(torch::Tensor u, torch::Tensor w, torch:
                                      orb.data_ptr<float>(), albedo.data_ptr<float>(),
                                      Au.data_ptr<float>(), partials.data_ptr<float>(),
                                      dots.data_ptr<float>(), (int)B, (int)nz, (int)nx, (int)ny,
-                                     stream));
+                                     halo ? 1 : 0, stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {Au, dots};
 }
@@ -160,6 +165,52 @@ torch::Tensor diffuse_apply_dense(torch::Tensor x, torch::Tensor c, std::vector<
   return out;
 }
 
+// K3's halo mode: hx (B, nd, nz+1, ny) and hy (B, nd, nz+1, nx) are the
+// planes just past the block's high x and y edges; returns out and the
+// faces past those edges, ox (B, nd, nz+1, ny) and oy (B, nd, nz+1, nx).
+std::vector<torch::Tensor> diffuse_apply_dense_halo(torch::Tensor x, torch::Tensor c,
+                                                    std::vector<int64_t> itab, torch::Tensor hx,
+                                                    torch::Tensor hy) {
+  const DenseTables t = make_dense_tables(itab);
+  for (int s = 0; s < t.nd; ++s)
+    TORCH_CHECK(!(t.gx[s] && t.gy[s]), "dense tables: K3's halo mode reads no corner");
+  check_f32(x, "x", 5);
+  check_f32(hx, "hx", 4);
+  check_f32(hy, "hy", 4);
+  TORCH_CHECK(c.is_cuda(), "c must be a CUDA tensor");
+  const bool bf16 = c.scalar_type() == torch::kBFloat16;
+  TORCH_CHECK(bf16 || c.scalar_type() == torch::kFloat32, "c must be float32 or bfloat16");
+  TORCH_CHECK(c.dim() == 6, "c must have 6 dims");
+  TORCH_CHECK(c.is_contiguous(), "c must be contiguous");
+  const int64_t B = x.size(0), nz = x.size(2) - 1, nx = x.size(3), ny = x.size(4);
+  TORCH_CHECK(x.size(1) == t.nd, "x dof dim != nd");
+  TORCH_CHECK(nz >= 1, "x needs at least two face levels");
+  TORCH_CHECK(c.size(0) == B && c.size(1) == t.nd && c.size(2) == t.nd && c.size(3) == nz &&
+                  c.size(4) == nx && c.size(5) == ny,
+              "c must be (B, nd, nd, nz, nx, ny)");
+  TORCH_CHECK(hx.size(0) == B && hx.size(1) == t.nd && hx.size(2) == nz + 1 && hx.size(3) == ny,
+              "hx must be (B, nd, nz+1, ny)");
+  TORCH_CHECK(hy.size(0) == B && hy.size(1) == t.nd && hy.size(2) == nz + 1 && hy.size(3) == nx,
+              "hy must be (B, nd, nz+1, nx)");
+  TORCH_CHECK(c.device() == x.device() && hx.device() == x.device() && hy.device() == x.device(),
+              "x, c and the halo planes on different devices");
+  TORCH_CHECK((nz + 1) * nx * ny < (int64_t)1 << 31, "field too large for int indexing");
+  TORCH_CHECK(B < 65536, "batch too large for the grid");
+  const c10::cuda::CUDAGuard guard(x.device());
+  auto out = torch::empty_like(x);
+  auto ox = torch::zeros_like(hx);
+  auto oy = torch::zeros_like(hy);
+  if (B == 0 || nx == 0 || ny == 0) return {out, ox, oy};
+  cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  const DenseHalo h = {hx.data_ptr<float>(), hy.data_ptr<float>(), ox.data_ptr<float>(),
+                       oy.data_ptr<float>()};
+  C10_CUDA_CHECK(launch_diffuse_apply_dense_halo(x.data_ptr<float>(), c.data_ptr(), bf16 ? 1 : 0,
+                                                 out.data_ptr<float>(), &t, &h, (int)B, (int)nz,
+                                                 (int)nx, (int)ny, stream));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {out, ox, oy};
+}
+
 // tables layout (see tenstream_tpu_torch/boxmc/cuda_tracer.py::_tables):
 // dir_code[6], diff_dn[6], diff_up[6]
 std::vector<torch::Tensor> boxmc_trace(torch::Tensor params, torch::Tensor order, int64_t ldir,
@@ -216,9 +267,14 @@ std::vector<torch::Tensor> boxmc_trace(torch::Tensor params, torch::Tensor order
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("orbit_contract", &orbit_contract, "K2: per-cell orbit contraction (CUDA)");
-  m.def("fused_A_dots", &fused_A_dots, "K1: A(u) = u - S(u) plus two dots (CUDA)");
+  m.def("fused_A_dots", &fused_A_dots, "K1: A(u) = u - S(u) plus two dots (CUDA)",
+        pybind11::arg("u"), pybind11::arg("w"), pybind11::arg("orb"), pybind11::arg("albedo"),
+        pybind11::arg("inst"), pybind11::arg("halo") = false);
   m.def("diffuse_apply_dense", &diffuse_apply_dense,
         "K3: S(x) on dense [src, dst] coefficients, float32 or bfloat16 (CUDA)");
+  m.def("diffuse_apply_dense_halo", &diffuse_apply_dense_halo,
+        "K3's halo mode on a rank's block: halo planes in, the faces past the block's high edges "
+        "out (CUDA)");
   m.def("diffuse_apply_dense_config", &dense_config,
         "K3's launch configuration on the current device for float32 or bfloat16 coefficients "
         "and nd dofs: threads, shared memory bytes and blocks per SM");

@@ -87,6 +87,16 @@
 // block per SM with the launch bounds' 255 registers, tiles of 8 rows up to
 // 24 dofs (228,096 bytes) and of 6 rows at 30 (221,760 bytes).  The sums
 // are the same chains over s from 0.
+//
+// Halo mode (a rank's block of a decomposed field): the staged high halo
+// row and column come from two planes the neighbouring ranks sent (hx, hy:
+// x just past the block's high x and y edges) instead of wrapping, and the
+// faces the block's cells make past its high edges go to two extra outputs
+// (ox, oy) instead of wrapping to the block's first faces, which are
+// written as 0 here and filled by the previous ranks' ox / oy afterwards.
+// Only addresses change, so the sums are the periodic launch's.  No source
+// may read both halos (the corner is not staged); the binding refuses such
+// tables.
 
 #include <cuda_bf16.h>
 
@@ -189,14 +199,15 @@ __device__ __forceinline__ void load_coeffs(const __nv_bfloat16* p, int nvalid, 
 template <typename CT, int ND, bool kVector>
 __global__ void __launch_bounds__(Geo<CT, ND>::kThreads, Geo<CT, ND>::kBlocks)
 diffuse_apply_dense_kernel(const float* __restrict__ x, const CT* __restrict__ c,
-                           float* __restrict__ out, const DenseTables t, int nz, int nx, int ny,
-                           int zsplit, int xvec) {
+                           float* __restrict__ out, const DenseTables t, const DenseHalo hal,
+                           int nz, int nx, int ny, int zsplit, int xvec) {
   using G = Geo<CT, ND>;
   constexpr int kVec = G::kVec, kNT = G::kThreads, kTileX = G::kTileX, kSlice = G::kSlice;
   constexpr int kLanesPerRow = kTY / kVec;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // [kSteps][ND][kRows][kRS]
-  __shared__ int s_row[G::kRows];                 // staged row a -> x offset (i0 + a, wrapped) * ny
+  __shared__ int s_row[G::kRows];                 // staged row a -> x offset (i0 + a, wrapped) * ny,
+                                                  // -1 for the halo row hx in halo mode
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
@@ -213,9 +224,16 @@ diffuse_apply_dense_kernel(const float* __restrict__ x, const CT* __restrict__ c
   const float* xb = x + (size_t)b * ND * nface;
   const CT* cb = c + (size_t)b * ND * ND * ncell;
   float* ob = out + (size_t)b * ND * nface;
+  const bool halo = hal.hx != nullptr;
+  const size_t nrow = (size_t)nplanes * ny, ncol = (size_t)nplanes * nx;  // per dof
+  const float* hxb = halo ? hal.hx + (size_t)b * ND * nrow : nullptr;
+  const float* hyb = halo ? hal.hy + (size_t)b * ND * ncol : nullptr;
+  float* oxb = halo ? hal.ox + (size_t)b * ND * nrow : nullptr;
+  float* oyb = halo ? hal.oy + (size_t)b * ND * ncol : nullptr;
 
-  if (tid <= hv) s_row[tid] = (i0 + tid < nx ? i0 + tid : i0 + tid - nx) * ny;
-  const int jhalo = j0 + wv < ny ? j0 + wv : j0 + wv - ny;
+  if (tid <= hv) s_row[tid] = i0 + tid < nx ? (i0 + tid) * ny : (halo ? -1 : (i0 + tid - nx) * ny);
+  // the halo column (-1: hy in halo mode)
+  const int jhalo = j0 + wv < ny ? j0 + wv : (halo ? -1 : j0 + wv - ny);
   __syncthreads();
 
   // step k's sources: dof s from face plane k + gz[s], its tile rows and
@@ -223,24 +241,29 @@ diffuse_apply_dense_kernel(const float* __restrict__ x, const CT* __restrict__ c
   auto stage = [&](int k) {
     float* dst = smem + (k % kSteps) * (ND * kSlice);
     for (int s = 0; s < ND; ++s) {
-      const float* src = xb + (size_t)s * nface + (size_t)(k + t.gz[s]) * nxy + j0;
+      const int kk = k + t.gz[s];
+      const float* src = xb + (size_t)s * nface + (size_t)kk * nxy + j0;
+      // the halo row of dof s and plane kk at column j0 (halo mode)
+      const float* hrow = halo ? hxb + (size_t)s * nrow + (size_t)kk * ny + j0 : nullptr;
       float* ds = dst + s * kSlice;
       const int rows = hv + t.gx[s];
       if (xvec) {
         const int nch = wv >> 2;
         for (int e = tid; e < rows * nch; e += kNT) {
           const int a = e / nch, ch = e - a * nch;
-          cp_async16(ds + a * kRS + 4 * ch, src + s_row[a] + 4 * ch);
+          cp_async16(ds + a * kRS + 4 * ch, (s_row[a] >= 0 ? src + s_row[a] : hrow) + 4 * ch);
         }
       } else {
         for (int e = tid; e < rows * wv; e += kNT) {
           const int a = e / wv, q = e - a * wv;
-          cp_async4(ds + a * kRS + q, src + s_row[a] + q);
+          cp_async4(ds + a * kRS + q, (s_row[a] >= 0 ? src + s_row[a] : hrow) + q);
         }
       }
       if (t.gy[s])
         for (int a = tid; a < rows; a += kNT)
-          cp_async4(ds + a * kRS + wv, src - j0 + s_row[a] + jhalo);
+          cp_async4(ds + a * kRS + wv,
+                    jhalo >= 0 ? src - j0 + s_row[a] + jhalo
+                               : hyb + (size_t)s * ncol + (size_t)kk * nx + (i0 + a));
     }
   };
 
@@ -268,26 +291,56 @@ diffuse_apply_dense_kernel(const float* __restrict__ x, const CT* __restrict__ c
         const int kf = k - cz;
         const bool edge = cz == -1 ? k == 0 : k == nz - 1;
         const int kz = cz == -1 ? 0 : nz;
-        const int fi = i - t.cx[d] < nx ? i - t.cx[d] : 0;
-        float* od = ob + (size_t)d * nface + (size_t)fi * ny;
+        const int fr = i - t.cx[d];  // the face row; nx is past the block
+        // the face row's dof-d plane 0 and the stride between planes: the
+        // block's (row nx wraps to 0), or ox's past the high x edge
+        float* od;
+        size_t ps = nxy;
+        if (fr < nx) {
+          od = ob + (size_t)d * nface + (size_t)fr * ny;
+        } else if (halo) {
+          od = oxb + (size_t)d * nrow;
+          ps = ny;
+        } else {
+          od = ob + (size_t)d * nface;
+        }
         if (kVector && t.cy[d] == 0) {
 #pragma unroll
-          for (int h = 0; h < kVec / 4; ++h) {
-            reinterpret_cast<float4*>(od + (size_t)kf * nxy + j)[h] =
-                make_float4(acc[4 * h], acc[4 * h + 1], acc[4 * h + 2], acc[4 * h + 3]);
+          for (int g = 0; g < kVec / 4; ++g) {
+            reinterpret_cast<float4*>(od + (size_t)kf * ps + j)[g] =
+                make_float4(acc[4 * g], acc[4 * g + 1], acc[4 * g + 2], acc[4 * g + 3]);
             if (edge)
-              reinterpret_cast<float4*>(od + (size_t)kz * nxy + j)[h] =
+              reinterpret_cast<float4*>(od + (size_t)kz * ps + j)[g] =
                   make_float4(0.f, 0.f, 0.f, 0.f);
           }
         } else {
 #pragma unroll
           for (int q = 0; q < kVec; ++q) {
             if (q < nvalid) {
-              const int fj = j + q - t.cy[d] < ny ? j + q - t.cy[d] : 0;
-              od[(size_t)kf * nxy + fj] = acc[q];
-              if (edge) od[(size_t)kz * nxy + fj] = 0.f;
+              const int fc = j + q - t.cy[d];  // the face column; ny is past the block
+              if (fc < ny || !halo) {
+                const int fj = fc < ny ? fc : 0;
+                od[(size_t)kf * ps + fj] = acc[q];
+                if (edge) od[(size_t)kz * ps + fj] = 0.f;
+              } else {
+                float* oy = oyb + (size_t)d * ncol + fr;
+                oy[(size_t)kf * nx] = acc[q];
+                if (edge) oy[(size_t)kz * nx] = 0.f;
+              }
             }
           }
+        }
+        if (halo && t.cx[d] == -1 && i == 0) {  // row 0: the previous rank's cells make it
+          float* oz = ob + (size_t)d * nface;
+          for (int q = 0; q < nvalid; ++q) {
+            oz[(size_t)kf * nxy + j + q] = 0.f;
+            if (edge) oz[(size_t)kz * nxy + j + q] = 0.f;
+          }
+        }
+        if (halo && t.cy[d] == -1 && j == 0) {  // column 0 likewise
+          float* oz = ob + (size_t)d * nface + (size_t)fr * ny;
+          oz[(size_t)kf * nxy] = 0.f;
+          if (edge) oz[(size_t)kz * nxy] = 0.f;
         }
       };
       // kVec staged sources of dof s for this thread's cells, shifted by gy[s]
@@ -383,8 +436,9 @@ Slots slots() {
 }
 
 template <typename CT, int ND, bool V>
-cudaError_t apply_nd(const float* x, const CT* c, float* out, const DenseTables* t, int batch,
-                     int nz, int nx, int ny, int xvec, cudaStream_t stream) {
+cudaError_t apply_nd(const float* x, const CT* c, float* out, const DenseTables* t,
+                     const DenseHalo& h, int batch, int nz, int nx, int ny, int xvec,
+                     cudaStream_t stream) {
   using G = Geo<CT, ND>;
   const Slots sl = slots<CT, ND, V>();
   if (sl.per_sm == 0) {
@@ -400,7 +454,7 @@ cudaError_t apply_nd(const float* x, const CT* c, float* out, const DenseTables*
   const int zsplit = (int)std::min<long>(fill, std::max(1, nz / kMinPlanes));
   dim3 grid((unsigned)(tiles * zsplit), batch);
   diffuse_apply_dense_kernel<CT, ND, V><<<grid, G::kThreads, G::kSmem, stream>>>(
-      x, c, out, *t, nz, nx, ny, zsplit, xvec);
+      x, c, out, *t, h, nz, nx, ny, zsplit, xvec);
   return cudaGetLastError();
 }
 
@@ -408,19 +462,20 @@ bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
 
 template <int ND>
 cudaError_t launch_nd(const float* x, const void* c, int c_is_bf16, float* out,
-                      const DenseTables* t, int batch, int nz, int nx, int ny,
+                      const DenseTables* t, const DenseHalo& h, int batch, int nz, int nx, int ny,
                       cudaStream_t stream) {
-  const int xvec = ny % 4 == 0 && aligned16(x) && aligned16(out);
+  const int xvec = ny % 4 == 0 && aligned16(x) && aligned16(out) &&
+                   (h.hx == nullptr || (aligned16(h.hx) && aligned16(h.ox)));
   if (c_is_bf16) {
     const __nv_bfloat16* cb = (const __nv_bfloat16*)c;
     if (ny % 8 == 0 && xvec && aligned16(c))
-      return apply_nd<__nv_bfloat16, ND, true>(x, cb, out, t, batch, nz, nx, ny, xvec, stream);
-    return apply_nd<__nv_bfloat16, ND, false>(x, cb, out, t, batch, nz, nx, ny, xvec, stream);
+      return apply_nd<__nv_bfloat16, ND, true>(x, cb, out, t, h, batch, nz, nx, ny, xvec, stream);
+    return apply_nd<__nv_bfloat16, ND, false>(x, cb, out, t, h, batch, nz, nx, ny, xvec, stream);
   }
   const float* cf = (const float*)c;
   if (ny % 4 == 0 && xvec && aligned16(c))
-    return apply_nd<float, ND, true>(x, cf, out, t, batch, nz, nx, ny, xvec, stream);
-  return apply_nd<float, ND, false>(x, cf, out, t, batch, nz, nx, ny, xvec, stream);
+    return apply_nd<float, ND, true>(x, cf, out, t, h, batch, nz, nx, ny, xvec, stream);
+  return apply_nd<float, ND, false>(x, cf, out, t, h, batch, nz, nx, ny, xvec, stream);
 }
 
 template <int ND>
@@ -446,11 +501,29 @@ cudaError_t config_nd(int c_is_bf16, int* threads, int* smem, int* blocks_per_sm
 extern "C" cudaError_t launch_diffuse_apply_dense(const float* x, const void* c, int c_is_bf16,
                                                   float* out, const DenseTables* t, int batch,
                                                   int nz, int nx, int ny, cudaStream_t stream) {
+  const DenseHalo periodic = {nullptr, nullptr, nullptr, nullptr};
 #define LAUNCH(N) \
-  if (t->nd == N) return launch_nd<N>(x, c, c_is_bf16, out, t, batch, nz, nx, ny, stream);
+  if (t->nd == N) return launch_nd<N>(x, c, c_is_bf16, out, t, periodic, batch, nz, nx, ny, stream);
   TS_DENSE_NDS(LAUNCH)
 #undef LAUNCH
   return cudaErrorInvalidValue;  // no instantiation for this dof count
+}
+
+extern "C" cudaError_t launch_diffuse_apply_dense_halo(const float* x, const void* c,
+                                                       int c_is_bf16, float* out,
+                                                       const DenseTables* t, const DenseHalo* h,
+                                                       int batch, int nz, int nx, int ny,
+                                                       cudaStream_t stream) {
+  if (h == nullptr || h->hx == nullptr || h->hy == nullptr || h->ox == nullptr ||
+      h->oy == nullptr)
+    return cudaErrorInvalidValue;
+  for (int s = 0; s < t->nd; ++s)
+    if (t->gx[s] && t->gy[s]) return cudaErrorInvalidValue;  // the corner is not staged
+#define LAUNCH(N) \
+  if (t->nd == N) return launch_nd<N>(x, c, c_is_bf16, out, t, *h, batch, nz, nx, ny, stream);
+  TS_DENSE_NDS(LAUNCH)
+#undef LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 extern "C" cudaError_t diffuse_apply_dense_config(int c_is_bf16, int nd, int* threads, int* smem,

@@ -15,6 +15,17 @@ typedef struct {
   int cz[TS_DENSE_MAXD], cx[TS_DENSE_MAXD], cy[TS_DENSE_MAXD];  // dst d made by cell face + c*[d]
 } DenseTables;
 
+// K3's halo mode on a rank's block: hx (B, nd, nz+1, ny) and hy (B, nd,
+// nz+1, nx) are x at the planes just past the block's high x and y edges
+// (the next ranks' first planes); the faces the block's cells make past
+// those edges go to ox and oy of the same shapes (zero where no cell makes
+// them), and the block's first faces that the previous ranks' cells make
+// are written as 0.
+typedef struct {
+  const float *hx, *hy;
+  float *ox, *oy;
+} DenseHalo;
+
 #ifdef __cplusplus
 extern "C" {
 #endif
@@ -29,6 +40,11 @@ extern "C" {
 cudaError_t launch_diffuse_apply_dense(const float* x, const void* c, int c_is_bf16,
                                        float* out, const DenseTables* t, int batch, int nz,
                                        int nx, int ny, cudaStream_t stream);
+
+cudaError_t launch_diffuse_apply_dense_halo(const float* x, const void* c, int c_is_bf16,
+                                            float* out, const DenseTables* t, const DenseHalo* h,
+                                            int batch, int nz, int nx, int ny,
+                                            cudaStream_t stream);
 
 // The launch configuration of the vector-load kernel for float32 or
 // bfloat16 coefficients and nd dofs on the current device: threads per

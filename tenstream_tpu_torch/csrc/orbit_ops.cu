@@ -55,7 +55,15 @@
 // (297 cells per 256 faces).
 //
 // In both, a block whose z range starts below the top first computes the
-// plane above it, for the carried contribution.  The dots reduce per block
+// plane above it, for the carried contribution.
+//
+// Halo mode (halo = 1, a rank's block of a decomposed field): u and the
+// orbit field come padded by a one-cell ring that the neighbouring ranks
+// filled, (nx + 2) x (ny + 2) per plane, and their halo indices read the
+// ring instead of wrapping; w, albedo and A(u) are the block's.  Rows and
+// columns past the ring are clamped to it: they feed only cells whose
+// faces lie outside the block.  Nothing else changes, so on a rank that is
+// its own neighbour the outputs equal the periodic launch's bit for bit.  The dots reduce per block
 // into a partials buffer that a second one-block-per-batch kernel sums in a
 // fixed order, so the result is deterministic.  Accumulation is float32
 // like the JAX code.
@@ -199,14 +207,14 @@ __global__ void __launch_bounds__(kK1Threads)
 fused_A_kernel(const float* __restrict__ u, const float* __restrict__ w,
                const float* __restrict__ orb, const float* __restrict__ albedo,
                float* __restrict__ Au, float* __restrict__ partials, int nz, int nx, int ny,
-               int zsplit) {
+               int zsplit, int halo) {
   constexpr int K1_ND = T::K1_ND, K1_NORB = T::K1_NORB;
   constexpr int kUPlane = Staged<T>::kUPlane, kOPlane = Staged<T>::kOPlane;
   extern __shared__ float smem[];
   float* su = smem;                         // [kUSlots][K1_ND][kRX][kRY]
   float* so = su + kUSlots * kUPlane;       // [kOSlots][K1_NORB][kCX][kCY]
   float* sc = so + kOSlots * kOPlane;       // [K1_ND][kCX][kCY]
-  __shared__ int s_row[kRX];                // region row a -> x offset (i0 - 1 + a, wrapped) * ny
+  __shared__ int s_row[kRX];                // region row a -> row offset of x = i0 - 1 + a in u
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -220,30 +228,37 @@ fused_A_kernel(const float* __restrict__ u, const float* __restrict__ w,
   const int kstart = k0 > 0 ? k0 - 1 : 0;
 
   const int nxy = nx * ny;
-  const size_t nface = (size_t)nplanes * nxy, ncell = (size_t)nz * nxy;
-  const float* ub = u + (size_t)b * K1_ND * nface;
+  const size_t nface = (size_t)nplanes * nxy;
+  // u's and the orbit field's planes: padded by the halo ring in halo mode
+  const int pny = halo ? ny + 2 : ny;
+  const int nxy_u = halo ? (nx + 2) * pny : nxy;
+  const size_t nface_u = (size_t)nplanes * nxy_u, ncell_u = (size_t)nz * nxy_u;
+  const float* ub = u + (size_t)b * K1_ND * nface_u;
   const float* wb = w + (size_t)b * K1_ND * nface;
-  const float* ob = orb + (size_t)b * K1_NORB * ncell;
+  const float* ob = orb + (size_t)b * K1_NORB * ncell_u;
   float* Ab = Au + (size_t)b * K1_ND * nface;
 
-  if (tid < kRX) s_row[tid] = pmod(i0 - 1 + tid, nx) * ny;
+  // (padded row i0 + a is x = i0 - 1 + a)
+  if (tid < kRX) s_row[tid] = halo ? min(i0 + tid, nx + 1) * pny : pmod(i0 - 1 + tid, nx) * ny;
   // a region row's columns: lane l stages the columns j0 + l + 32 m (region
   // columns l + 32 m + 1); the halo columns j0 - 1 (region column 0) and
   // j0 + kTY (kRY - 1)
   int col_in[kTY / 32];
 #pragma unroll
-  for (int m = 0; m < kTY / 32; ++m) col_in[m] = pmod(j0 + lane + 32 * m, ny);
-  const int col_halo = lane == 0 ? pmod(j0 - 1, ny) : pmod(j0 + kTY, ny);
+  for (int m = 0; m < kTY / 32; ++m)
+    col_in[m] = halo ? min(j0 + lane + 32 * m + 1, ny + 1) : pmod(j0 + lane + 32 * m, ny);
+  const int col_halo = halo ? (lane == 0 ? j0 : min(j0 + kTY + 1, ny + 1))
+                            : (lane == 0 ? pmod(j0 - 1, ny) : pmod(j0 + kTY, ny));
   __syncthreads();
 
   // Staging goes by region rows: a warp copies one row of a dof (or orbit
   // channel) at a time, a lane per column.
   auto stage_u = [&](int kp) {  // face plane kp of u into its ring slot
     float* dst = su + (kp % kUSlots) * kUPlane;
-    const float* src = ub + (size_t)kp * nxy;
+    const float* src = ub + (size_t)kp * nxy_u;
     for (int r = warp; r < K1_ND * kRX; r += kK1Threads / 32) {
       const int q = r / kRX, a = r - q * kRX;
-      const float* row = src + (size_t)q * nface + s_row[a];
+      const float* row = src + (size_t)q * nface_u + s_row[a];
       float* drow = dst + r * kRY;
 #pragma unroll
       for (int m = 0; m < kTY / 32; ++m) cp_async4(drow + 1 + lane + 32 * m, row + col_in[m]);
@@ -252,10 +267,10 @@ fused_A_kernel(const float* __restrict__ u, const float* __restrict__ w,
   };
   auto stage_orb = [&](int kp) {  // cell plane kp of the orbit field
     float* dst = so + (kp % kOSlots) * kOPlane;
-    const float* src = ob + (size_t)kp * nxy;
+    const float* src = ob + (size_t)kp * nxy_u;
     for (int r = warp; r < K1_NORB * kCX; r += kK1Threads / 32) {
       const int ch = r / kCX, a = r - ch * kCX;
-      const float* row = src + (size_t)ch * ncell + s_row[a];
+      const float* row = src + (size_t)ch * ncell_u + s_row[a];
       float* drow = dst + r * kCY;
 #pragma unroll
       for (int m = 0; m < kTY / 32; ++m) cp_async4(drow + 1 + lane + 32 * m, row + col_in[m]);
@@ -365,7 +380,7 @@ __global__ void __launch_bounds__(kDThreads)
 fused_A_direct_kernel(const float* __restrict__ u, const float* __restrict__ w,
                       const float* __restrict__ orb, const float* __restrict__ albedo,
                       float* __restrict__ Au, float* __restrict__ partials, int nz, int nx,
-                      int ny, int zsplit) {
+                      int ny, int zsplit, int halo) {
   constexpr int ND = T::K1_ND, NORB = T::K1_NORB;
   extern __shared__ float smem[];  // [2][ND][kDCX][kDCY], plane kp in buffer kp & 1
 
@@ -380,10 +395,14 @@ fused_A_direct_kernel(const float* __restrict__ u, const float* __restrict__ w,
   const int kstart = k0 > 0 ? k0 - 1 : 0;
 
   const int nxy = nx * ny;
-  const size_t nface = (size_t)nplanes * nxy, ncell = (size_t)nz * nxy;
-  const float* ub = u + (size_t)b * ND * nface;
+  const size_t nface = (size_t)nplanes * nxy;
+  // u's and the orbit field's planes: padded by the halo ring in halo mode
+  const int pny = halo ? ny + 2 : ny;
+  const int nxy_u = halo ? (nx + 2) * pny : nxy;
+  const size_t nface_u = (size_t)nplanes * nxy_u, ncell_u = (size_t)nz * nxy_u;
+  const float* ub = u + (size_t)b * ND * nface_u;
   const float* wb = w + (size_t)b * ND * nface;
-  const float* ob = orb + (size_t)b * NORB * ncell;
+  const float* ob = orb + (size_t)b * NORB * ncell_u;
   float* Ab = Au + (size_t)b * ND * nface;
 
   // phase A's cell, at region (ra, rc) of the tile and its low halo: threads
@@ -403,13 +422,26 @@ fused_A_direct_kernel(const float* __restrict__ u, const float* __restrict__ w,
   }
   const bool cell_thread = tid < kDCells;
   const int slot = ra * kDCY + rc;
-  const int ci = pmod(i0 - 1 + ra, nx), cj = pmod(j0 - 1 + rc, ny);  // wrapped
-  const int ci1 = ci + 1 < nx ? ci + 1 : 0, cj1 = cj + 1 < ny ? cj + 1 : 0;
+  // the cell's row and column in u (wrapped, or padded in halo mode) and
+  // the next ones
+  int ci, cj, ci1, cj1;
+  if (halo) {
+    ci = min(i0 + ra, nx + 1);
+    cj = min(j0 + rc, ny + 1);
+    ci1 = min(ci + 1, nx + 1);
+    cj1 = min(cj + 1, ny + 1);
+  } else {
+    ci = pmod(i0 - 1 + ra, nx);
+    cj = pmod(j0 - 1 + rc, ny);
+    ci1 = ci + 1 < nx ? ci + 1 : 0;
+    cj1 = cj + 1 < ny ? cj + 1 : 0;
+  }
 
   // phase B's face column
   const int ti = tid / kDY, tj = tid - ti * kDY;
   const bool face_thread = tid < kTile && i0 + ti < nx && j0 + tj < ny;
   const size_t fcol = (size_t)(i0 + ti) * ny + (j0 + tj);
+  const size_t ucol = halo ? (size_t)(i0 + ti + 1) * pny + (j0 + tj + 1) : fcol;
   const int own = (ti + 1) * kDCY + tj + 1;
 
   float carry[ND];  // contributions of the cell above (dsts with k1_cz = -1)
@@ -421,12 +453,12 @@ fused_A_direct_kernel(const float* __restrict__ u, const float* __restrict__ w,
     float* sc = smem + (kp & 1) * (ND * kDCells);
     // phase A: the contributions of the cells of plane kp
     if (kp < nz && cell_thread) {
-      const float* o_pl = ob + (size_t)kp * nxy + (size_t)ci * ny + cj;
-      auto o = [&](int ch) { return __ldcs(o_pl + (size_t)ch * ncell); };
+      const float* o_pl = ob + (size_t)kp * nxy_u + (size_t)ci * pny + cj;
+      auto o = [&](int ch) { return __ldcs(o_pl + (size_t)ch * ncell_u); };
       auto s = [&](int q) {
         const int i = T::k1_gx(q) ? ci1 : ci, j = T::k1_gy(q) ? cj1 : cj;
-        return __ldg(ub + (size_t)q * nface + (size_t)(kp + T::k1_gz(q)) * nxy +
-                     (size_t)i * ny + j);
+        return __ldg(ub + (size_t)q * nface_u + (size_t)(kp + T::k1_gz(q)) * nxy_u +
+                     (size_t)i * pny + j);
       };
       float c[ND];
       T::k1_contract(o, s, c);
@@ -451,7 +483,8 @@ fused_A_direct_kernel(const float* __restrict__ u, const float* __restrict__ w,
       }
       if (kp >= k0) {
         const size_t f = (size_t)kp * nxy + fcol;
-        auto uf = [&](int q) { return __ldg(ub + (size_t)q * nface + f); };
+        const size_t fu = (size_t)kp * nxy_u + ucol;
+        auto uf = [&](int q) { return __ldg(ub + (size_t)q * nface_u + fu); };
         if (kp == nz) T::k1_closure(uf, albedo[(size_t)b * nxy + fcol], S);
 #pragma unroll
         for (int d = 0; d < ND; ++d) {
@@ -554,7 +587,7 @@ int k1_blocks(int batch, int nz, int nx, int ny) {
 template <class T>
 cudaError_t launch_k1(const float* u, const float* w, const float* orb, const float* albedo,
                       float* Au, float* partials, float* dots, int batch, int nz, int nx, int ny,
-                      cudaStream_t stream) {
+                      int halo, cudaStream_t stream) {
   if (k1_slots<T>() == 0) {
     const cudaError_t err = cudaGetLastError();
     return err != cudaSuccess ? err : cudaErrorUnknown;
@@ -563,7 +596,7 @@ cudaError_t launch_k1(const float* u, const float* w, const float* orb, const fl
   const int nblk = K1<T>::tiles(nx, ny) * zsplit;
   dim3 grid(nblk, batch);
   K1<T>::kernel()<<<grid, K1<T>::kThreadsPerBlock, K1<T>::kSmem, stream>>>(
-      u, w, orb, albedo, Au, partials, nz, nx, ny, zsplit);
+      u, w, orb, albedo, Au, partials, nz, nx, ny, zsplit, halo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   reduce_partials_kernel<<<batch, kThreads, 0, stream>>>(partials, dots, nblk);
@@ -605,10 +638,10 @@ extern "C" cudaError_t launch_orbit_contract(int inst, const float* src, const f
 extern "C" cudaError_t launch_fused_A_dots(int inst, const float* u, const float* w,
                                            const float* orb, const float* albedo, float* Au,
                                            float* partials, float* dots, int batch, int nz,
-                                           int nx, int ny, cudaStream_t stream) {
-#define LAUNCH(q, T)                                                                     \
-  if (inst == q)                                                                         \
-    return launch_k1<T>(u, w, orb, albedo, Au, partials, dots, batch, nz, nx, ny, stream);
+                                           int nx, int ny, int halo, cudaStream_t stream) {
+#define LAUNCH(q, T)                                                                           \
+  if (inst == q)                                                                               \
+    return launch_k1<T>(u, w, orb, albedo, Au, partials, dots, batch, nz, nx, ny, halo, stream);
   TS_ORBIT_SCHEMES(LAUNCH)
 #undef LAUNCH
   return cudaErrorInvalidValue;

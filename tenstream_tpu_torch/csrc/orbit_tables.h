@@ -26,11 +26,14 @@ cudaError_t launch_orbit_contract(int inst, const float* src, const float* orb, 
 // the surface albedo closure; dots[b] = (sum w*Au, sum Au*Au).  u, w, Au:
 // (B, nd, nz+1, nx, ny); orb: (B, norb, nz, nx, ny); albedo: (B, nx, ny);
 // partials: (B, nblk, 2) scratch, nblk from fused_A_dots_blocks (0 for an
-// unknown instantiation); dots: (B, 2).
+// unknown instantiation); dots: (B, 2).  With halo != 0, u and orb are
+// padded by a one-cell ring, (.., nx + 2, ny + 2), that replaces the
+// wrap in x and y.
 int fused_A_dots_blocks(int inst, int batch, int nz, int nx, int ny);
 cudaError_t launch_fused_A_dots(int inst, const float* u, const float* w, const float* orb,
                                 const float* albedo, float* Au, float* partials, float* dots,
-                                int batch, int nz, int nx, int ny, cudaStream_t stream);
+                                int batch, int nz, int nx, int ny, int halo,
+                                cudaStream_t stream);
 
 #ifdef __cplusplus
 }

@@ -38,7 +38,10 @@ from tenstream_tpu_torch.ops.planck import b_eff
 from tenstream_tpu_torch.plexrt.mesh import SIDE_OFFSETS, PlexGrid, roll2
 from tenstream_tpu_torch.plexrt.optprop import NDIFF, WedgeOptProp
 
-SHARDING_ITEM = "ROADMAP §1, M19: multi-GPU (sharded wedge solves)"
+# the cube solver decomposes (`PprtsSolver.set_mesh`); the wedge solvers' flat
+# cell axes need general ghost-cell gathers, the next slice of the port
+SHARDING_ITEM = ("ROADMAP §1 item 4, M19 remainder: the wedge solvers' sharding and "
+                 "specint_plexrt on a mesh, the next slice")
 
 
 class PlexSolution(NamedTuple):

@@ -18,27 +18,31 @@ from tenstream_tpu_torch.pprts.operators import (
     diff_dst_sums,
     gather_diff_src,
     gather_dir_src,
+    roll_rows,
 )
 from tenstream_tpu_torch.pprts.sun import SunInfo
 from tenstream_tpu_torch.streams import StreamScheme
 
 
-def gather_diff_dst(scheme: StreamScheme, b: torch.Tensor) -> torch.Tensor:
+def gather_diff_dst(scheme: StreamScheme, b: torch.Tensor, mesh=None) -> torch.Tensor:
     """Per-cell view of what each cell deposited at its dst faces (the
     inverse of `scatter_diff_dst`): (..., ndiff, Nz+1, Nx, Ny) ->
     (..., ndiff, Nz, Nx, Ny)."""
     axis = scheme.diff_axis()
     inward = scheme.diff_inward()
-    rows = []
+    rows = {}
+    shifted = ({}, {})  # inward side dofs: the next face along x / y
     for d in range(scheme.ndiff):
         v = b[..., d, :, :, :]
         if axis[d] == 0:
-            rows.append(v[..., 1:, :, :] if inward[d] else v[..., :-1, :, :])
+            rows[d] = v[..., 1:, :, :] if inward[d] else v[..., :-1, :, :]
         elif inward[d]:
-            rows.append(torch.roll(v[..., :-1, :, :], -1, dims=axis[d] - 3))
+            shifted[axis[d] - 1][d] = v[..., :-1, :, :]
         else:
-            rows.append(v[..., :-1, :, :])
-    return torch.stack(rows, dim=-4)
+            rows[d] = v[..., :-1, :, :]
+    rows.update(roll_rows(shifted[0], -1, -2, mesh))
+    rows.update(roll_rows(shifted[1], -1, -1, mesh))
+    return torch.stack([rows[d] for d in range(scheme.ndiff)], dim=-4)
 
 
 def _top_only(scheme_ntop: int, n: int, top: torch.Tensor) -> torch.Tensor:
@@ -64,18 +68,20 @@ def calc_flx_div(
     edir: Optional[torch.Tensor] = None,  # [W]
     b_thermal: Optional[torch.Tensor] = None,  # [W]
     cdiv_dir: Optional[torch.Tensor] = None,  # (ndir, Nz, Nx, Ny)
+    mesh=None,
 ) -> torch.Tensor:
     """Absorbed power per cell / volume -> [W/m3].
 
     `cdiv_dir` is the per-source direct coefficient divergence
     1 - sum_dst(dir2dir) - sum_dst(dir2diff), reduced before the diffuse
-    solve so the direct coefficient fields can be freed first."""
+    solve so the direct coefficient fields can be freed first.  With a
+    `mesh` the fields are this rank's block."""
     l1d_mask = torch.as_tensor(np.asarray(l1d, bool), device=ediff.device)[None, :, None, None]
     abso = torch.zeros(tuple(ediff.shape[:-4]) + tuple(volumes.shape), dtype=ediff.dtype,
                        device=ediff.device)
 
     if edir is not None and cdiv_dir is not None:
-        src = gather_dir_src(scheme, edir, sun.xinc, sun.yinc)
+        src = gather_dir_src(scheme, edir, sun.xinc, sun.yinc, mesh)
         # 1-D layers: Beer-Lambert absorption of the direct beam for the
         # top streams, side streams carry nothing
         mu = max(float(sun.mu), 1e-6)
@@ -83,13 +89,13 @@ def calc_flx_div(
         cdiv = torch.where(l1d_mask, _top_only(scheme.dirtop.dof, scheme.ndir, bl), cdiv_dir)
         abso = abso + (src * cdiv).sum(dim=-4)
 
-    src = gather_diff_src(scheme, ediff)
+    src = gather_diff_src(scheme, ediff, mesh)
     cdiv = torch.clamp(1.0 - diff_dst_sums(diff2diff), 0.0, 1.0)
     cdiv_1d_top = torch.clamp(1.0 - a11 - a12, 0.0, 1.0)
     cdiv = torch.where(l1d_mask, _top_only(scheme.difftop.dof, scheme.ndiff, cdiv_1d_top), cdiv)
     abso = abso + (src * cdiv).sum(dim=-4)
 
     if b_thermal is not None:
-        abso = abso - gather_diff_dst(scheme, b_thermal).sum(dim=-4)
+        abso = abso - gather_diff_dst(scheme, b_thermal, mesh).sum(dim=-4)
 
     return abso / volumes

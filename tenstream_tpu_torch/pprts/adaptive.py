@@ -48,7 +48,13 @@ class SolutionErrorTracker:
         return abs(est) >= max_solution_err
 
 
-def abso_change_maxnorm(abso_new, abso_old) -> float:
+def abso_change_maxnorm(abso_new, abso_old, mesh=None) -> float:
     """Inf-norm of the absorption change (reference `restore_solution`,
-    `src/pprts.F90:4037-4050`); host arrays."""
-    return float(np.max(np.abs(np.asarray(abso_new) - np.asarray(abso_old))))
+    `src/pprts.F90:4037-4050`); host arrays.  With a `mesh` (the arrays
+    are the rank's block) the global max, so every rank decides alike."""
+    m = float(np.max(np.abs(np.asarray(abso_new) - np.asarray(abso_old))))
+    if mesh is None:
+        return m
+    import torch
+
+    return float(mesh.all_reduce(torch.tensor([m], dtype=torch.float64), "max")[0])

@@ -19,6 +19,7 @@ import torch
 
 from tenstream_tpu_torch.core.types import PI, ireals
 from tenstream_tpu_torch.pprts.coeffs import CoeffFields
+from tenstream_tpu_torch.pprts.operators import roll_xy
 from tenstream_tpu_torch.streams import StreamScheme
 
 
@@ -67,13 +68,14 @@ class Buildings:
         below = torch.cat([s[1:], torch.zeros_like(s[:1])], dim=0)
         return s & ~below
 
-    def exposed_side(self, axis: int, low: bool) -> torch.Tensor:
+    def exposed_side(self, axis: int, low: bool, mesh=None) -> torch.Tensor:
         """Exposed vertical walls: cell solid, horizontal neighbour not.
         axis: 1 = x, 2 = y; low=True is the XMIN/YMIN wall (at face index
         i / j), low=False the XMAX/YMAX wall (face i+1 / j+1).  Periodic
-        horizontally, like the solver."""
+        horizontally, like the solver; with a `mesh`, `solid` is this
+        rank's block and the neighbour across its edge comes by halo."""
         s = self.solid
-        return s & ~torch.roll(s, 1 if low else -1, dims=axis)
+        return s & ~roll_xy(s, 1 if low else -1, axis - 3, mesh)
 
 
 def mask_coeffs(coeffs: CoeffFields, b: Buildings) -> CoeffFields:
@@ -84,15 +86,15 @@ def mask_coeffs(coeffs: CoeffFields, b: Buildings) -> CoeffFields:
     return CoeffFields(zero(coeffs.dir2dir), zero(coeffs.dir2diff), zero(coeffs.diff2diff))
 
 
-def face_masks(b: Buildings) -> Dict[str, torch.Tensor]:
+def face_masks(b: Buildings, mesh=None) -> Dict[str, torch.Tensor]:
     """Exposed-face boolean masks keyed by face kind."""
     return {
         "roof": b.exposed_top(),
         "floor": b.exposed_bottom(),
-        "wall_x_low": b.exposed_side(1, True),
-        "wall_x_high": b.exposed_side(1, False),
-        "wall_y_low": b.exposed_side(2, True),
-        "wall_y_high": b.exposed_side(2, False),
+        "wall_x_low": b.exposed_side(1, True, mesh),
+        "wall_x_high": b.exposed_side(1, False, mesh),
+        "wall_y_low": b.exposed_side(2, True, mesh),
+        "wall_y_high": b.exposed_side(2, False, mesh),
     }
 
 
@@ -107,6 +109,7 @@ def building_incoming_from_fields(
     dz3d: torch.Tensor,
     xinc: int = 1,
     yinc: int = 1,
+    mesh=None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Per-face direct and total incoming radiation [W/m2] on exposed
     building faces from raw stream-resolved [W] flux fields.  Returns
@@ -122,7 +125,7 @@ def building_incoming_from_fields(
         "wall_y_low": dx * dz3d, "wall_y_high": dx * dz3d,
     }
     zeros = lambda: torch.zeros(tuple(dz3d.shape), dtype=ireals, device=ediff.device)
-    kinds = list(face_masks(b))
+    kinds = ("roof", "floor", "wall_x_low", "wall_x_high", "wall_y_low", "wall_y_high")
     edir_f = {k: zeros() for k in kinds}
     incoming = {k: zeros() for k in kinds}
 
@@ -144,7 +147,7 @@ def building_incoming_from_fields(
         into_pos = sum(ediff[d, :-1] for d in side if inward[d])  # moving +axis: low wall
         into_neg = sum(ediff[d, :-1] for d in side if not inward[d])  # high wall (face i+1)
         incoming[klo] = incoming[klo] + into_pos / wall_area[klo]
-        incoming[khi] = incoming[khi] + torch.roll(into_neg, -1, dims=ax) / wall_area[khi]
+        incoming[khi] = incoming[khi] + roll_xy(into_neg, -1, ax - 3, mesh) / wall_area[khi]
         if edir is not None and scheme.dirside.dof > 0:
             beam_pos = (xinc == 1) if ax == 1 else (yinc == 1)
             side_dir = sum(edir[d, :-1] for d in range(scheme.ndir) if dir_axis[d] == ax)
@@ -153,7 +156,7 @@ def building_incoming_from_fields(
                 edir_f[klo] = edir_f[klo] + v
                 incoming[klo] = incoming[klo] + v
             else:
-                v = torch.roll(side_dir, -1, dims=ax) / wall_area[khi]
+                v = roll_xy(side_dir, -1, ax - 3, mesh) / wall_area[khi]
                 edir_f[khi] = edir_f[khi] + v
                 incoming[khi] = incoming[khi] + v
     return edir_f, incoming
@@ -170,6 +173,7 @@ def building_sources(
     xinc: int = 1,
     yinc: int = 1,
     planck: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Diffuse source ([B,] ndiff, Nz+1, Nx, Ny) from building faces:
     reflection of the direct beam and thermal emission -- roofs plus, when
@@ -221,8 +225,8 @@ def building_sources(
 
     for ax in (1, 2):
         dim = ax - 3
-        low_wall = b.exposed_side(ax, True)  # a beam moving +axis hits this wall
-        high_wall = b.exposed_side(ax, False)
+        low_wall = b.exposed_side(ax, True, mesh)  # a beam moving +axis hits this wall
+        high_wall = b.exposed_side(ax, False, mesh)
         beam_pos = (xinc == 1) if ax == 1 else (yinc == 1)
         if edir is not None:
             # direct power crossing the wall face: the face value at column
@@ -231,7 +235,7 @@ def building_sources(
             side_dir = sum(edir[..., d, :-1, :, :] for d in range(scheme.ndir)
                            if dir_axis[d] == ax)
             hit_low = torch.where(low_wall, side_dir, zero)
-            hit_high = torch.where(high_wall, torch.roll(side_dir, -1, dims=dim), zero)
+            hit_high = torch.where(high_wall, roll_xy(side_dir, -1, dim, mesh), zero)
         emit = None
         if b_planck is not None:
             emit = b_planck * (1.0 - b.albedo) * PI * (wall_len[ax] * dz3d)
@@ -253,5 +257,5 @@ def building_sources(
                     contrib = contrib + hit_high * b.albedo * w
                 if emit is not None:
                     contrib = contrib + torch.where(high_wall, emit * w, zero)
-                out[..., d, :-1, :, :] += torch.roll(contrib, 1, dims=dim)
+                out[..., d, :-1, :, :] += roll_xy(contrib, 1, dim, mesh)
     return out

@@ -38,6 +38,20 @@ runs the plain version only because its tensors lie on the CPU; on a CUDA
 tensor it launches the kernel (or raises) -- there is no fallback.  Each
 launch adds one to `LAUNCHES[name]`.
 
+Halo mode (a solve decomposed over ranks, `parallel/mesh.py`): K1 and K3
+wrap x and y inside the kernel over the whole field they are given; on a
+rank's block they read their one-cell ring from halo buffers instead.  K1
+takes u and the orbit field padded by a one-cell ring (`Mesh.pad`; w,
+albedo and A(u) stay the block's) and its dots cover the block's own
+faces.  K3 takes the planes just past the block's high x and y edges as
+two extra inputs (`hx`, `hy`, the next ranks' first planes) and writes the
+faces its cells make beyond those edges into two extra outputs (`ox`,
+`oy`), which `diffuse_apply_dense_mesh` sends to the next ranks, whose
+first faces they are.  Only addressing changes, so on a rank that is its
+own neighbour a halo launch gives the periodic launch's outputs bit for
+bit.  A halo launch counts in `LAUNCHES` like any other and also in
+`HALO_LAUNCHES`.  K2 is per cell and runs unchanged on a block.
+
 The CUDA sources are `tenstream_tpu_torch/csrc/{orbit_ops.cu,
 dense_ops.cu, boxmc_ops.cu, bind.cpp}` and their headers, built at first
 use with `torch.utils.cpp_extension.load` into
@@ -74,6 +88,8 @@ CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17"]
 # kernel name -> launches since the last reset (see reset_launch_counts)
 LAUNCHES: Dict[str, int] = {"fused_A_dots": 0, "orbit_contract": 0, "diffuse_apply_dense": 0,
                             "boxmc_trace": 0}
+# of those, the launches in halo mode
+HALO_LAUNCHES: Dict[str, int] = {"fused_A_dots": 0, "diffuse_apply_dense": 0}
 
 # The table sets K1 and K2 are compiled for, each named by the first scheme
 # that has it: 8_10 has 3_10's diffuse tables and 8_16 has 3_16's
@@ -87,8 +103,9 @@ DENSE_NDS = tuple(sorted({get_scheme(n).ndiff for n in ORBIT_SCHEMES}))
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, HALO_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -299,16 +316,18 @@ def orbit_contract(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
 
 
 def diffuse_apply_orbit(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
-                        x: torch.Tensor, albedo2d: torch.Tensor) -> torch.Tensor:
+                        x: torch.Tensor, albedo2d: torch.Tensor, mesh=None) -> torch.Tensor:
     """S(x) for x ([B,] nd, Nz+1, Nx, Ny) on the orbit field orb ([B,] norb,
     Nz, Nx, Ny): gather -> K2 (one launch for the whole chunk) -> scatter,
-    plus the surface closure (`ediff._make_apply`'s orbit path)."""
+    plus the surface closure (`ediff._make_apply`'s orbit path).  With a
+    `mesh` the gather and the scatter take their halos from the
+    neighbouring ranks and K2 runs on the block's cells."""
     from tenstream_tpu_torch.pprts.operators import add_surface_reflection
 
     lanes = x.dim() == 5
-    src = gather_diff_src(scheme, x if lanes else x[None])
+    src = gather_diff_src(scheme, x if lanes else x[None], mesh)
     contrib = orbit_contract(scheme, idx, orb if lanes else orb[None], src)
-    out = scatter_diff_dst(scheme, contrib if lanes else contrib[0])
+    out = scatter_diff_dst(scheme, contrib if lanes else contrib[0], mesh)
     return add_surface_reflection(scheme, out, x, albedo2d)
 
 
@@ -317,13 +336,46 @@ def diffuse_apply_orbit(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+def _gather_padded(scheme: StreamScheme, up: torch.Tensor) -> torch.Tensor:
+    """Sources (B, nd, Nz, Nx+1, Ny+1) of the block's cells and of its low
+    halo cells from u padded by a one-cell ring, up (B, nd, Nz+1, Nx+2,
+    Ny+2): padded cell c is the block's cell c - 1, and dof s reads the
+    face c + gshift[s]."""
+    _, gshift = _shift_tables(scheme)
+    nz, nx, ny = up.shape[-3] - 1, up.shape[-2] - 2, up.shape[-1] - 2
+    return torch.stack([up[:, s, gz:gz + nz, gx:gx + nx + 1, gy:gy + ny + 1]
+                        for s, (gz, gx, gy) in enumerate(gshift)], dim=1)
+
+
+def _scatter_padded(scheme: StreamScheme, contrib: torch.Tensor) -> torch.Tensor:
+    """S on the block's faces (B, nd, Nz+1, Nx, Ny) from the contributions
+    (B, nd, Nz, Nx+1, Ny+1) of the block's cells and its low halo cells:
+    dst d at face f comes from the cell f + cshift[d]."""
+    cshift, _ = _shift_tables(scheme)
+    nx, ny = contrib.shape[-2] - 1, contrib.shape[-1] - 1
+    zero = torch.zeros_like(contrib[:, 0, :1, 1:, 1:])
+    rows = []
+    for d, (cz, cx, cy) in enumerate(cshift):
+        c = contrib[:, d, :, 1 + cx:1 + cx + nx, 1 + cy:1 + cy + ny]
+        rows.append(torch.cat([zero, c] if cz == -1 else [c, zero], dim=1))
+    return torch.stack(rows, dim=1)
+
+
 def fused_A_dots_plain(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
-                       u: torch.Tensor, w: torch.Tensor,
-                       albedo: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                       u: torch.Tensor, w: torch.Tensor, albedo: torch.Tensor,
+                       halo: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch K1: u, w (B, nd, Nz+1, Nx, Ny); orb (B, norb, Nz, Nx,
-    Ny); albedo (B, Nx, Ny) -> (Au, dots (B, 2))."""
-    src = gather_diff_src(scheme, u)
-    S = scatter_diff_dst(scheme, orbit_contract_plain(idx, orb, src))
+    Ny); albedo (B, Nx, Ny) -> (Au, dots (B, 2)).  In halo mode u and orb
+    are padded by a one-cell ring (..., Nx+2, Ny+2) and the rest is the
+    block's."""
+    if halo:
+        nx, ny = w.shape[-2:]
+        src = _gather_padded(scheme, u)
+        S = _scatter_padded(scheme, orbit_contract_plain(idx, orb[..., :nx + 1, :ny + 1], src))
+        u = u[..., 1:-1, 1:-1]
+    else:
+        src = gather_diff_src(scheme, u)
+        S = scatter_diff_dst(scheme, orbit_contract_plain(idx, orb, src))
     dn, up = surface_closure_rows(scheme)
     edn = sum(u[:, d, -1] for d in dn)
     for d, wt in up:
@@ -335,15 +387,19 @@ def fused_A_dots_plain(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
 
 
 def fused_A_dots(scheme: StreamScheme, idx: np.ndarray, orb: torch.Tensor,
-                 u: torch.Tensor, w: torch.Tensor,
-                 albedo: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1: (A(u), dots) with dots[b] = (dot(w[b], Au[b]), dot(Au[b], Au[b]))."""
+                 u: torch.Tensor, w: torch.Tensor, albedo: torch.Tensor,
+                 halo: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1: (A(u), dots) with dots[b] = (dot(w[b], Au[b]), dot(Au[b], Au[b])).
+    In halo mode u and orb are the block's fields padded by a one-cell ring
+    (`Mesh.pad`), the dots the block's partial sums."""
     if all(t.device.type == "cpu" for t in (u, w, orb, albedo)):
-        return fused_A_dots_plain(scheme, idx, orb, u, w, albedo)
+        return fused_A_dots_plain(scheme, idx, orb, u, w, albedo, halo)
     _require_cuda(u, w, orb, albedo)
     inst = _orbit_instantiation(scheme, idx, orb.shape[1])
-    Au, dots = load_extension().fused_A_dots(u, w, orb, albedo, inst)
+    Au, dots = load_extension().fused_A_dots(u, w, orb, albedo, inst, bool(halo))
     LAUNCHES["fused_A_dots"] += 1
+    if halo:
+        HALO_LAUNCHES["fused_A_dots"] += 1
     return Au, dots
 
 
@@ -387,23 +443,84 @@ def dense_launch_config(dtype: torch.dtype, nd: int = 10) -> Dict[str, int]:
     return {"threads": threads, "smem_bytes": smem, "blocks_per_sm": per_sm}
 
 
-def diffuse_apply_dense_plain(scheme: StreamScheme, coeff: torch.Tensor,
-                              x: torch.Tensor) -> torch.Tensor:
+def _k3_halo_refusal(scheme: StreamScheme) -> None:
+    """K3's halo mode stages the high x halo row and the high y halo column
+    but not their corner: no source may read both."""
+    _, gshift = _shift_tables(scheme)
+    both = [s for s, g in enumerate(gshift) if g[1] and g[2]]
+    if both:
+        raise ValueError(f"K3's halo mode takes no source read across both x and y; scheme "
+                         f"{scheme.name} has such sources at dofs {both}")
+
+
+def diffuse_apply_dense_plain(scheme: StreamScheme, coeff: torch.Tensor, x: torch.Tensor,
+                              halo=None):
     """Plain PyTorch K3: coeff (B, nd, nd, Nz, Nx, Ny) [src, dst] in
     float32 or bfloat16, x (B, nd, Nz+1, Nx, Ny) -> S(x) without the
-    surface closure, float32."""
-    contrib = torch.einsum("bsdkij,bskij->bdkij", coeff.float(), gather_diff_src(scheme, x))
-    return scatter_diff_dst(scheme, contrib)
+    surface closure, float32.  In halo mode, halo = (hx (B, nd, Nz+1, Ny),
+    hy (B, nd, Nz+1, Nx)), the planes just past the block's high x and y
+    edges, and the result is (out, ox, oy): the faces made by the block's
+    cells on the block (zero where the cells before the block make them)
+    and on the planes past its high edges."""
+    if halo is None:
+        contrib = torch.einsum("bsdkij,bskij->bdkij", coeff.float(), gather_diff_src(scheme, x))
+        return scatter_diff_dst(scheme, contrib)
+    _k3_halo_refusal(scheme)
+    hx, hy = halo
+    cshift, gshift = _shift_tables(scheme)
+    nb, nd, nf, nx, ny = x.shape
+    nz = nf - 1
+    xe = x.new_zeros((nb, nd, nf, nx + 1, ny + 1))
+    xe[..., :nx, :ny] = x
+    xe[..., nx, :ny] = hx
+    xe[..., :nx, ny] = hy
+    src = torch.stack([xe[:, s, gz:gz + nz, gx:gx + nx, gy:gy + ny]
+                       for s, (gz, gx, gy) in enumerate(gshift)], dim=1)
+    contrib = torch.einsum("bsdkij,bskij->bdkij", coeff.float(), src)
+    oe = x.new_zeros((nb, nd, nf, nx + 1, ny + 1))
+    for d, (cz, cx, cy) in enumerate(cshift):
+        oe[:, d, -cz:-cz + nz, -cx:-cx + nx, -cy:-cy + ny] = contrib[:, d]
+    return oe[..., :nx, :ny], oe[..., nx, :ny], oe[..., :nx, ny]
 
 
-def diffuse_apply_dense(scheme: StreamScheme, coeff: torch.Tensor,
-                        x: torch.Tensor) -> torch.Tensor:
+def diffuse_apply_dense(scheme: StreamScheme, coeff: torch.Tensor, x: torch.Tensor,
+                        halo=None):
     """K3: S(x) without the surface closure, for dst d at a face
     sum_s coeff[s, d, cell] * x[s, cell + gshift[s]], cell = face +
-    cshift[d]; periodic in x and y, zero beyond z."""
-    if coeff.device.type == "cpu" and x.device.type == "cpu":
-        return diffuse_apply_dense_plain(scheme, coeff, x)
+    cshift[d]; periodic in x and y, zero beyond z.  With halo = (hx, hy)
+    the halo mode of `diffuse_apply_dense_plain`: (out, ox, oy)."""
+    if coeff.device.type == "cpu" and x.device.type == "cpu" and (
+            halo is None or all(h.device.type == "cpu" for h in halo)):
+        return diffuse_apply_dense_plain(scheme, coeff, x, halo)
     _require_cuda(coeff, x)
-    out = load_extension().diffuse_apply_dense(x, coeff, _dense_tables(scheme))
+    if halo is None:
+        out = load_extension().diffuse_apply_dense(x, coeff, _dense_tables(scheme))
+        LAUNCHES["diffuse_apply_dense"] += 1
+        return out
+    _k3_halo_refusal(scheme)
+    hx, hy = (h.contiguous() for h in halo)
+    _require_cuda(hx, hy)
+    out = load_extension().diffuse_apply_dense_halo(x, coeff, _dense_tables(scheme), hx, hy)
     LAUNCHES["diffuse_apply_dense"] += 1
+    HALO_LAUNCHES["diffuse_apply_dense"] += 1
+    return tuple(out)
+
+
+def diffuse_apply_dense_mesh(scheme: StreamScheme, coeff: torch.Tensor, x: torch.Tensor,
+                             mesh) -> torch.Tensor:
+    """K3 on a rank's block: the halo planes from the next ranks along x
+    and y, K3 in halo mode, then the faces made past the block's high
+    edges go to the next ranks, whose first faces they are (`Mesh`; a rank
+    that is its own neighbour sends to itself)."""
+    cshift, _ = _shift_tables(scheme)
+    hx, hy = mesh.sendrecv([(x[..., 0, :], mesh.neighbour(0, -1), mesh.neighbour(0, 1)),
+                            (x[..., :, 0], mesh.neighbour(1, -1), mesh.neighbour(1, 1))])
+    out, ox, oy = diffuse_apply_dense(scheme, coeff, x, halo=(hx, hy))
+    rx, ry = mesh.sendrecv([(ox, mesh.neighbour(0, 1), mesh.neighbour(0, -1)),
+                            (oy, mesh.neighbour(1, 1), mesh.neighbour(1, -1))])
+    for d, (_, cx, cy) in enumerate(cshift):
+        if cx == -1:
+            out[:, d, :, 0, :] = rx[:, d]
+        elif cy == -1:
+            out[:, d, :, :, 0] = ry[:, d]
     return out

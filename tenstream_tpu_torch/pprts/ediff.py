@@ -33,6 +33,17 @@ iteration's restart and breakdown tests need, a finiteness probe) comes
 back in a single transfer.  The scalars that feed vector updates (alpha,
 omega, rho) stay (B,) device tensors.  Both solvers return the number of
 host syncs they made.
+
+Over a mesh of ranks (`mesh=`, each rank holding its (x, y) block) every
+operator apply takes its halos from the neighbouring ranks (K1 and K3 in
+halo mode, K2 between halo-aware gather and scatter), and every dot,
+norm and sum is the rank's partial sum made global by one `all_reduce`
+at each point where the iteration needs it: after each A apply (alpha
+and omega), and the per-iteration scalars before the host sync.  Every
+decision on the host (freezing a lane, the stall and restart tests, the
+polish's divergence guard, omega's controller) reads only those global
+values, so all ranks take the same branches and call the collectives in
+the same order.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ import torch
 from tenstream_tpu_torch.core.types import TINY
 from tenstream_tpu_torch.pprts.cuda_ops import (
     diffuse_apply_dense,
+    diffuse_apply_dense_mesh,
     diffuse_apply_orbit,
     fused_A_dots,
 )
@@ -53,42 +65,52 @@ from tenstream_tpu_torch.pprts.operators import OrbitCoeff, add_surface_reflecti
 from tenstream_tpu_torch.streams import StreamScheme
 
 
-def _make_pc(scheme: StreamScheme, coeff, albedo2d, precond) -> Callable:
+def _make_pc(scheme: StreamScheme, coeff, albedo2d, precond, mesh=None) -> Callable:
     """Preconditioner closure from the `diff_precond` option value:
     "two_level" (line + spectral coarse; auto coarse target 64 points at
-    grids of 256 and more, 32 below), "two_level_<N>", "line", "none"."""
+    global grids of 256 and more, 32 below), "two_level_<N>", "line",
+    "none"."""
     if precond in (True, "line"):
         return make_line_pc(scheme, coeff, albedo2d)
     if isinstance(precond, str) and precond.startswith("two_level"):
         from tenstream_tpu_torch.pprts.precond import make_two_level_pc
 
         tail = precond[len("two_level"):]
+        nxy = (coeff.shape[-2], coeff.shape[-1])
+        if mesh is not None:
+            nxy = mesh.global_shape(*nxy)
         if tail == "":
-            target = 64 if max(coeff.shape[-2], coeff.shape[-1]) >= 256 else 32
+            target = 64 if max(nxy) >= 256 else 32
         elif tail.startswith("_") and tail[1:].isdigit() and int(tail[1:]) > 0:
             target = int(tail[1:])
         else:
             raise ValueError(
                 f"unknown diff_precond value {precond!r}: expected 'two_level'"
                 " or 'two_level_<positive int>' (or 'line'/'none')")
-        return make_two_level_pc(scheme, coeff, albedo2d, coarse_target=target)
+        return make_two_level_pc(scheme, coeff, albedo2d, coarse_target=target, mesh=mesh)
     if precond in (False, "none"):
         return lambda r: r
     raise ValueError(f"unknown diff_precond value {precond!r}: expected 'line', "
                      "'two_level', 'two_level_<N>', or 'none'")
 
 
-def _make_apply(scheme: StreamScheme, coeff, albedo2d) -> Callable:
+def _make_apply(scheme: StreamScheme, coeff, albedo2d, mesh=None) -> Callable:
     """S(x) with the surface closure on ([B,] ndiff, Nz+1, Nx, Ny): gather ->
-    K2 -> scatter on orbit coefficients, K3 on dense ones."""
+    K2 -> scatter on orbit coefficients, K3 on dense ones (in halo mode on
+    a mesh)."""
     if isinstance(coeff, OrbitCoeff):
-        return lambda x: diffuse_apply_orbit(scheme, coeff.idx, coeff.orb, x, albedo2d)
+        return lambda x: diffuse_apply_orbit(scheme, coeff.idx, coeff.orb, x, albedo2d, mesh)
+
+    def dense(c, x):
+        if mesh is None:
+            return diffuse_apply_dense(scheme, c, x)
+        return diffuse_apply_dense_mesh(scheme, c, x, mesh)
 
     def apply(x):
         if x.dim() == 5:
-            out = diffuse_apply_dense(scheme, coeff, x)
+            out = dense(coeff, x)
         else:
-            out = diffuse_apply_dense(scheme, coeff[None], x[None])[0]
+            out = dense(coeff[None], x[None])[0]
         return add_surface_reflection(scheme, out, x, albedo2d)
 
     return apply
@@ -204,8 +226,23 @@ def _lanes(coeff, b: torch.Tensor, x0: Optional[torch.Tensor]):
 
 
 def _lane_dots(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(B,) per-lane dot products of (B, ...) fields."""
+    """(B,) per-lane dot products of (B, ...) fields (on a mesh: this
+    rank's partial sums)."""
     return (u * v).reshape(u.shape[0], -1).sum(dim=1)
+
+
+def _global(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Partial sums made global: one all_reduce over the mesh's ranks."""
+    return t if mesh is None else mesh.all_reduce(t)
+
+
+def lane_norms(r: torch.Tensor, mesh=None) -> torch.Tensor:
+    """(B,) per-lane 2-norms of (B, ...) fields.  On a mesh the squares of
+    the ranks' norms are summed: with one rank, sqrt(n * n) gives back n
+    exactly (correctly rounded float arithmetic), so the norm is the
+    undecomposed one bit for bit."""
+    n = torch.linalg.vector_norm(r.reshape(r.shape[0], -1), dim=1)
+    return n if mesh is None else torch.sqrt(mesh.all_reduce(n * n))
 
 
 def _per_lane(v: torch.Tensor) -> torch.Tensor:
@@ -248,6 +285,7 @@ def solve_richardson(
     max_iter: int = 3000,
     precond="line",
     tol: Union[None, float, Sequence[float]] = None,
+    mesh=None,
 ):
     """Adaptive-omega preconditioned Richardson iteration.  Returns
     (x, niter, omega_final, res, host_syncs); for a band chunk niter,
@@ -264,12 +302,13 @@ def solve_richardson(
     H100; the JAX loop has no guard either).  So in polish mode a lane
     whose residual exceeds `POLISH_DIVERGED` times its first one stops and
     returns its starting iterate, residual and omega; a polish that
-    converges is untouched."""
+    converges is untouched.  With a `mesh` the fields are this rank's
+    block and the residuals global."""
     coeff, b, x0, lanes = _lanes(coeff, b, x0)
     nb = b.shape[0]
     x = torch.zeros_like(b) if x0 is None else x0
-    M = _make_pc(scheme, coeff, albedo2d, precond)
-    S_apply = _make_apply(scheme, coeff, albedo2d)
+    M = _make_pc(scheme, coeff, albedo2d, precond, mesh)
+    S_apply = _make_apply(scheme, coeff, albedo2d, mesh)
     lane_list = lambda v: [float(a) for a in v] if isinstance(v, (list, tuple)) else [float(v)] * nb
     tols = None if tol is None else lane_list(tol)
 
@@ -294,7 +333,7 @@ def solve_richardson(
     active = [running(i) for i in range(nb)]
     while any(active):
         r = b + S_apply(x) - x
-        res_dev = torch.linalg.vector_norm(r.reshape(nb, -1), dim=1)
+        res_dev = lane_norms(r, mesh)
         om = _lane_tensor(omega, b.dtype, b.device)
         x = _keep_lanes(x + _per_lane(om) * M(r), x, [i for i in range(nb) if not active[i]])
         res_new = res_dev.tolist()  # the iteration's one host sync
@@ -344,6 +383,7 @@ def solve_bicgstab(
     atol: float = 1e-8,
     maxiter: int = 1000,
     precond="line",
+    mesh=None,
 ):
     """Matrix-free right-preconditioned BiCGStab on A(x) = x - S(x).
     Returns (x, niter, res, host_syncs); for a band chunk niter and res
@@ -355,24 +395,33 @@ def solve_bicgstab(
     and on a rho breakdown; a non-finite update freezes the iterate and
     counts as a stall; 30 non-improving iterations end the solve (the
     Richardson polish that follows guarantees the final accuracy).  Each
-    lane runs this logic on its own scalars."""
+    lane runs this logic on its own scalars.  With a `mesh` the fields are
+    this rank's block and every scalar is global."""
     coeff, b, x0, lanes = _lanes(coeff, b, x0)
     nb = b.shape[0]
     if isinstance(coeff, OrbitCoeff):
-        orb = coeff.orb
         alb = albedo2d.expand((nb,) + tuple(b.shape[-2:])).contiguous()
+        if mesh is None:
+            def fused_AD(u, w):
+                Au, dots = fused_A_dots(scheme, coeff.idx, coeff.orb, u, w, alb)
+                return Au, dots[:, 0], dots[:, 1]
+        else:
+            # K1's halo mode: the orbit field's ring once per solve, u's per apply
+            orb_pad = mesh.pad(coeff.orb.contiguous())
 
-        def fused_AD(u, w):
-            Au, dots = fused_A_dots(scheme, coeff.idx, orb, u, w, alb)
-            return Au, dots[:, 0], dots[:, 1]
+            def fused_AD(u, w):
+                Au, dots = fused_A_dots(scheme, coeff.idx, orb_pad, mesh.pad(u), w, alb, halo=True)
+                dots = mesh.all_reduce(dots)
+                return Au, dots[:, 0], dots[:, 1]
     else:
-        S_apply = _make_apply(scheme, coeff, albedo2d)
+        S_apply = _make_apply(scheme, coeff, albedo2d, mesh)
 
         def fused_AD(u, w):
             Au = u - S_apply(u)
-            return Au, _lane_dots(w, Au), _lane_dots(Au, Au)
+            dots = _global(torch.stack([_lane_dots(w, Au), _lane_dots(Au, Au)]), mesh)
+            return Au, dots[0], dots[1]
 
-    M = _make_pc(scheme, coeff, albedo2d, precond)
+    M = _make_pc(scheme, coeff, albedo2d, precond, mesh)
     eps = TINY * 1e4
     stall_limit = 30
     restart_every = 10
@@ -394,13 +443,18 @@ def solve_bicgstab(
     v = torch.zeros_like(b)
     rho = alpha = omega = one
 
-    def fetch(*vals):
+    def reduce(*vals):
+        """The per-lane sums made global, stacked: (len(vals), B)."""
+        return _global(torch.stack(vals), mesh)
+
+    def fetch(st):
         nonlocal syncs
         syncs += 1
-        return torch.stack(vals).tolist()
+        return st.tolist()
 
-    rr_dev = _lane_dots(r, r)
-    bb, rr = fetch(_lane_dots(b, b), rr_dev)
+    g = reduce(_lane_dots(b, b), _lane_dots(r, r))
+    rr_dev = g[1]
+    bb, rr = fetch(g)
     tol = [max(rtol * math.sqrt(q), atol) for q in bb]
     res = [math.sqrt(q) for q in rr]
     rhr_dev, rhr, hh = rr_dev, list(rr), list(rr)
@@ -448,9 +502,10 @@ def solve_bicgstab(
         x_new = x + _per_lane(alpha) * phat + _per_lane(omega_new) * shat
         r_new = s - _per_lane(omega_new) * t
 
-        rr_new_dev, rhr_new_dev = _lane_dots(r_new, r_new), _lane_dots(rhat, r_new)
-        rr_new, rhr_new, hh_new, xsum = fetch(rr_new_dev, rhr_new_dev, _lane_dots(rhat, rhat),
-                                              x_new.reshape(nb, -1).sum(dim=1))
+        g = reduce(_lane_dots(r_new, r_new), _lane_dots(rhat, r_new), _lane_dots(rhat, rhat),
+                   x_new.reshape(nb, -1).sum(dim=1))
+        rr_new_dev, rhr_new_dev = g[0], g[1]
+        rr_new, rhr_new, hh_new, xsum = fetch(g)
         ok = [math.isfinite(rr_new[i]) and math.isfinite(xsum[i]) for i in range(nb)]
         # frozen lanes and non-finite updates keep the previous iterate
         keep = [i for i in range(nb) if not (active[i] and ok[i])]
@@ -462,9 +517,9 @@ def solve_bicgstab(
         bad = [i for i in range(nb) if active[i] and not ok[i]]
         if bad:
             # non-finite guard: the kept residual against the new rhat
-            rhr_keep = _lane_dots(rhat, r)
-            rhr_dev = torch.where(mask([i in bad for i in range(nb)]), rhr_keep, rhr_dev)
-            rhr_b, hh_b = fetch(rhr_keep, _lane_dots(rhat, rhat))
+            g = reduce(_lane_dots(rhat, r), _lane_dots(rhat, rhat))
+            rhr_dev = torch.where(mask([i in bad for i in range(nb)]), g[0], rhr_dev)
+            rhr_b, hh_b = fetch(g)
         rho, omega = rho_new, omega_new
         for i in range(nb):
             if not active[i]:

@@ -23,20 +23,22 @@ from typing import Optional
 import torch
 
 from tenstream_tpu_torch.core.types import ireals
+from tenstream_tpu_torch.pprts.operators import roll_xy
 
 _BIG = 1e30
 
 
-def corner_heights(zlev3d: torch.Tensor) -> tuple:
+def corner_heights(zlev3d: torch.Tensor, mesh=None) -> tuple:
     """(z00, z10, z01, z11) corner heights per column interface.
 
     zlev3d (nz+1, nx, ny) column-centre interface heights; corner (a, b)
-    of column (i, j) sits between columns {i-1+a, i+a} x {j-1+b, j+b}."""
+    of column (i, j) sits between columns {i-1+a, i+a} x {j-1+b, j+b}.
+    With a `mesh`, zlev3d is this rank's block."""
     z = zlev3d
 
     def avg(si, sj):
-        return 0.25 * (z + torch.roll(z, si, dims=-2) + torch.roll(z, sj, dims=-1)
-                       + torch.roll(torch.roll(z, si, dims=-2), sj, dims=-1))
+        zx = roll_xy(z, si, -2, mesh)
+        return 0.25 * (z + zx + roll_xy(z, sj, -1, mesh) + roll_xy(zx, sj, -1, mesh))
 
     return avg(1, 1), avg(-1, 1), avg(1, -1), avg(-1, -1)
 
@@ -50,14 +52,15 @@ def _plane(z00, z10, z01, z11, dx, dy):
 
 
 def dir2dir_geometric(zlev3d: torch.Tensor, dx: float, dy: float, sundir,
-                      kext: torch.Tensor, nsamp: int = 6) -> torch.Tensor:
+                      kext: torch.Tensor, nsamp: int = 6, mesh=None) -> torch.Tensor:
     """([B,] 3, 3, nz, nx, ny) dense dir2dir blocks [src, dst] in the
     solver's dof order (0: z-faces, 1: x-faces, 2: y-faces).
 
     zlev3d (nz+1, nx, ny) interface heights [m], TOA -> surface; sundir
     (3,) the photon travel direction (downward: z < 0); kext ([B,] nz,
     nx, ny) extinction [1/m].  The geometry does not depend on the lane:
-    only the attenuation carries the lane dim B."""
+    only the attenuation carries the lane dim B.  With a `mesh` the fields
+    are this rank's block."""
     dev = kext.device
     zlev3d = torch.as_tensor(zlev3d, dtype=ireals, device=dev)
     s = torch.as_tensor(sundir, dtype=ireals, device=dev)
@@ -69,7 +72,7 @@ def dir2dir_geometric(zlev3d: torch.Tensor, dx: float, dy: float, sundir,
     y_in = 0.0 if float(sy) >= 0 else dy
     y_out = dy - y_in
 
-    z00, z10, z01, z11 = corner_heights(zlev3d)
+    z00, z10, z01, z11 = corner_heights(zlev3d, mesh)
     ct, gxt, gyt = _plane(z00[:-1], z10[:-1], z01[:-1], z11[:-1], dx, dy)
     cb, gxb, gyb = _plane(z00[1:], z10[1:], z01[1:], z11[1:], dx, dy)
 

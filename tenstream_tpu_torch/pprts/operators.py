@@ -7,6 +7,11 @@ y are periodic (`torch.roll`), z has a zero halo.  Every function here
 accepts optional leading lane dims (a chunk of bands solved together) on
 the stream and coefficient fields.
 
+With a `mesh` (`parallel.mesh.Mesh`) the fields are this rank's (x, y)
+block of the global field and every periodic shift is a halo exchange
+with the neighbouring ranks (`roll_xy`): the rows that shift the same way
+go in one exchange.
+
 This plain path is the twin the CUDA kernels of `cuda_ops.py` are held
 against: `fused_A_dots_plain`, `orbit_contract_plain` and
 `diffuse_apply_dense_plain` are written from `diffuse_scatter` /
@@ -116,39 +121,66 @@ def orbit_groups(idx: np.ndarray):
     return tuple(groups)
 
 
-def gather_diff_src(scheme: StreamScheme, x: torch.Tensor) -> torch.Tensor:
+def roll_xy(v: torch.Tensor, shift: int, dim: int, mesh=None) -> torch.Tensor:
+    """`torch.roll(v, shift, dim)` along x or y (dim -2 / -1) of the
+    global field; with a mesh, v is this rank's block and the shift a halo
+    exchange."""
+    return torch.roll(v, shift, dims=dim) if mesh is None else mesh.roll(v, shift, dim)
+
+
+def roll_rows(rows: dict, shift: int, dim: int, mesh=None) -> dict:
+    """`roll_xy` of every value of `rows` (same shapes): one exchange for
+    all of them on a mesh."""
+    if mesh is None or not rows:
+        return {k: roll_xy(v, shift, dim) for k, v in rows.items()}
+    keys = list(rows)
+    rolled = mesh.roll(torch.stack([rows[k] for k in keys], 0), shift, dim)
+    return dict(zip(keys, rolled.unbind(0)))
+
+
+def gather_diff_src(scheme: StreamScheme, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Per-cell source values for every diffuse dof:
     (..., ndiff, Nz+1, Nx, Ny) face-indexed -> (..., ndiff, Nz, Nx, Ny)."""
     axis = scheme.diff_axis()
     inward = scheme.diff_inward()
-    rows = []
+    rows = {}
+    shifted = ({}, {})  # outward side dofs read the next face along x / y
     for d in range(scheme.ndiff):
         v = x[..., d, :, :, :]
         if axis[d] == 0:
-            rows.append(v[..., :-1, :, :] if inward[d] else v[..., 1:, :, :])
-        elif axis[d] == 1:
-            v0 = v[..., :-1, :, :]
-            rows.append(v0 if inward[d] else torch.roll(v0, -1, dims=-2))
+            rows[d] = v[..., :-1, :, :] if inward[d] else v[..., 1:, :, :]
+        elif inward[d]:
+            rows[d] = v[..., :-1, :, :]
         else:
-            v0 = v[..., :-1, :, :]
-            rows.append(v0 if inward[d] else torch.roll(v0, -1, dims=-1))
-    return torch.stack(rows, dim=-4)
+            shifted[axis[d] - 1][d] = v[..., :-1, :, :]
+    rows.update(roll_rows(shifted[0], -1, -2, mesh))
+    rows.update(roll_rows(shifted[1], -1, -1, mesh))
+    return torch.stack([rows[d] for d in range(scheme.ndiff)], dim=-4)
 
 
-def scatter_diff_dst(scheme: StreamScheme, contrib: torch.Tensor) -> torch.Tensor:
+def scatter_diff_dst(scheme: StreamScheme, contrib: torch.Tensor, mesh=None) -> torch.Tensor:
     """Per-cell destination contributions onto face-indexed arrays:
     (..., ndiff, Nz, Nx, Ny) -> (..., ndiff, Nz+1, Nx, Ny)."""
     axis = scheme.diff_axis()
     inward = scheme.diff_inward()
     zeros_level = torch.zeros_like(contrib[..., 0, :1, :, :])
-    rows = []
+    cells = {}
+    shifted = ({}, {})  # inward side dofs land on the next face along x / y
     for d in range(scheme.ndiff):
         c = contrib[..., d, :, :, :]
+        if axis[d] != 0 and inward[d]:
+            shifted[axis[d] - 1][d] = c
+        else:
+            cells[d] = c
+    cells.update(roll_rows(shifted[0], 1, -2, mesh))
+    cells.update(roll_rows(shifted[1], 1, -1, mesh))
+    rows = []
+    for d in range(scheme.ndiff):
+        c = cells[d]
         if axis[d] == 0:
             parts = [zeros_level, c] if inward[d] else [c, zeros_level]
         else:
-            c2 = torch.roll(c, 1, dims=-3 + axis[d]) if inward[d] else c
-            parts = [c2, zeros_level]
+            parts = [c, zeros_level]
         rows.append(torch.cat(parts, dim=-3))
     return torch.stack(rows, dim=-4)
 
@@ -181,17 +213,18 @@ def diffuse_scatter(
     coeff: DiffCoeff,
     x: torch.Tensor,
     albedo2d: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """S(x): one application of the diffuse transport scatter (with the
     surface reflection closure when `albedo2d` is given).  coeff:
     `OrbitCoeff` or dense (..., ndiff, ndiff, Nz, Nx, Ny) [src, dst], which
     may be stored in bfloat16 (products and sums run in x's dtype)."""
-    src = gather_diff_src(scheme, x)
+    src = gather_diff_src(scheme, x, mesh)
     if isinstance(coeff, OrbitCoeff):
         contrib = _orbit_contrib(coeff, src)
     else:
         contrib = torch.einsum("...sdkij,...skij->...dkij", coeff.to(x.dtype), src)
-    out = scatter_diff_dst(scheme, contrib)
+    out = scatter_diff_dst(scheme, contrib, mesh)
     if albedo2d is not None:
         out = add_surface_reflection(scheme, out, x, albedo2d)
     return out
@@ -220,20 +253,22 @@ def add_surface_reflection(scheme: StreamScheme, out, x, albedo2d):
     return out
 
 
-def gather_dir_src(scheme: StreamScheme, e: torch.Tensor, xinc: int, yinc: int) -> torch.Tensor:
+def gather_dir_src(scheme: StreamScheme, e: torch.Tensor, xinc: int, yinc: int,
+                   mesh=None) -> torch.Tensor:
     """Per-cell source values for every direct dof (upwind faces):
     (..., ndir, Nz+1, Nx, Ny) -> (..., ndir, Nz, Nx, Ny)."""
     axis = scheme.dir_axis()
-    rows = []
+    rows = {}
+    shifted = ({}, {})  # against the beam's x / y direction: the next face
     for s in range(scheme.ndir):
         v = e[..., s, :-1, :, :]
-        if axis[s] == 0:
-            rows.append(v)
-        elif axis[s] == 1:
-            rows.append(v if xinc == 1 else torch.roll(v, -1, dims=-2))
+        if axis[s] == 0 or (axis[s] == 1 and xinc == 1) or (axis[s] == 2 and yinc == 1):
+            rows[s] = v
         else:
-            rows.append(v if yinc == 1 else torch.roll(v, -1, dims=-1))
-    return torch.stack(rows, dim=-4)
+            shifted[axis[s] - 1][s] = v
+    rows.update(roll_rows(shifted[0], -1, -2, mesh))
+    rows.update(roll_rows(shifted[1], -1, -1, mesh))
+    return torch.stack([rows[s] for s in range(scheme.ndir)], dim=-4)
 
 
 def dir2diff_source(
@@ -242,15 +277,16 @@ def dir2diff_source(
     edir: torch.Tensor,
     xinc: int,
     yinc: int,
+    mesh=None,
 ) -> torch.Tensor:
     """Diffuse source [W] from scattered direct radiation:
     dir2diff (..., ndir, ndiff, Nz, Nx, Ny), edir (..., ndir, Nz+1, Nx, Ny)."""
-    src = gather_dir_src(scheme, edir, xinc, yinc)
+    src = gather_dir_src(scheme, edir, xinc, yinc, mesh)
     contrib = None
     for s in range(scheme.ndir):
         t = dir2diff[..., s, :, :, :, :] * src[..., s, None, :, :, :]
         contrib = t if contrib is None else contrib + t
-    return scatter_diff_dst(scheme, contrib)
+    return scatter_diff_dst(scheme, contrib, mesh)
 
 
 def direct_surface_reflection(

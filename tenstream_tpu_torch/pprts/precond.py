@@ -19,6 +19,14 @@ only one mode of every conjugate pair {k, -k} is factorised and swept
 (blocks, d, s, modes) layout; the lanes of a band chunk sit between the
 block and the (d, s) axes, (blocks, B, d, s, modes), and are factorised
 and swept together.
+
+Over a mesh of ranks the fine residual is pooled on each rank's block and
+all-gathered; the coarse system (at most ~64 x 64 modes) is factorised
+and solved on every rank on the global coarse grid from the domain-mean
+coefficients and albedo (all-reduced), and each rank takes its block of
+the coarse correction back.  The line solve is per column, so local.  The
+pooling factor comes from the global grid, and a block that it does not
+divide is refused.
 """
 
 from __future__ import annotations
@@ -161,13 +169,21 @@ def _pad_blocks(L1: int) -> int:
     return Lp
 
 
+def _domain_mean(block_mean: torch.Tensor, mesh) -> torch.Tensor:
+    """The domain mean from the ranks' (equal-sized) block means."""
+    if mesh is None:
+        return block_mean
+    return mesh.all_reduce(block_mean) / mesh.world
+
+
 def build_coarse_factors(scheme: StreamScheme, coeff, albedo2d: torch.Tensor,
-                         cf: int, ncx: int, ncy: int) -> CoarseFactors:
+                         cf: int, ncx: int, ncy: int, mesh=None) -> CoarseFactors:
     """Assemble and factorise the per-mode coarse block-tridiagonal
-    systems (I - S_hom) from the layer-mean coefficients."""
+    systems (I - S_hom) from the layer-mean coefficients (of the whole
+    domain on a mesh; ncx, ncy are the global coarse grid's)."""
     nf = scheme.ndiff
     dev = albedo2d.device
-    cbar = _mean_coeff(coeff)  # (..., s, d, Nz)
+    cbar = _domain_mean(_mean_coeff(coeff), mesh)  # (..., s, d, Nz)
     nz = cbar.shape[-1]
     L1 = nz + 1
 
@@ -198,7 +214,7 @@ def build_coarse_factors(scheme: StreamScheme, coeff, albedo2d: torch.Tensor,
             for s in range(scheme.difftop.dof):
                 if inward[s]:
                     alb[d, s] = float(wtop[d])
-    amean = albedo2d.float().mean()
+    amean = _domain_mean(albedo2d.float().mean(), mesh)
     D[-1] -= amean * torch.as_tensor(alb, device=dev).to(icomplex)[:, :, None]
 
     Lp = _pad_blocks(L1)
@@ -296,20 +312,34 @@ def unpool2d(rc: torch.Tensor, cf: int) -> torch.Tensor:
 
 
 def make_two_level_pc(scheme: StreamScheme, coeff, albedo2d: torch.Tensor,
-                      cf: int = 0, coarse_target: int = 32):
+                      cf: int = 0, coarse_target: int = 32, mesh=None):
     """M(r), the additive two-level preconditioner; the coarse and line
-    factorisations run here, once per solve."""
+    factorisations run here, once per solve.  With a `mesh`, coeff,
+    albedo2d and r are this rank's block."""
     from tenstream_tpu_torch.pprts.ediff import make_line_pc
 
     nx, ny = coeff.shape[-2], coeff.shape[-1]
+    gnx, gny = (nx, ny) if mesh is None else mesh.global_shape(nx, ny)
     if cf <= 0:
-        cf = auto_coarse_factor(nx, ny, coarse_target)
-    factors = build_coarse_factors(scheme, coeff, albedo2d, cf, nx // cf, ny // cf)
+        cf = auto_coarse_factor(gnx, gny, coarse_target)
+    if nx % cf or ny % cf:
+        raise ValueError(f"the two-level preconditioner pools {cf} x {cf} cells (from the "
+                         f"{gnx} x {gny} grid), which does not divide this rank's {nx} x {ny} "
+                         "block; choose a layout whose blocks it divides, or diff_precond="
+                         "'two_level_<N>' / 'line'")
+    factors = build_coarse_factors(scheme, coeff, albedo2d, cf, gnx // cf, gny // cf, mesh)
     line = make_line_pc(scheme, coeff, albedo2d)
+    if mesh is not None:
+        bx, by = nx // cf, ny // cf
+        own = (slice(mesh.px * bx, (mesh.px + 1) * bx), slice(mesh.py * by, (mesh.py + 1) * by))
 
     def M(r):
         rc = pool2d(r, cf)
         z_hi = line(r - unpool2d(rc, cf))
-        return z_hi + unpool2d(coarse_solve(factors, rc), cf)
+        if mesh is None:
+            zc = coarse_solve(factors, rc)
+        else:
+            zc = coarse_solve(factors, mesh.all_gather_blocks(rc))[..., own[0], own[1]]
+        return z_hi + unpool2d(zc, cf)
 
     return M

@@ -28,6 +28,15 @@ sub-solves, recombined in `get_result`.
 
 The solver lives on its grid's device (`Grid.create(..., device=...)`);
 the `OptProp` has to be on the same device.
+
+Decomposed over ranks (`set_mesh` with a `parallel.mesh.Mesh`, one
+process per GPU) the solver is built on the global `Grid` and everything
+it takes and gives per cell is the rank's (x, y) block, as each MPI rank
+of the reference feeds its subdomain: `set_optical_properties` takes the
+blocks that `parallel.mesh.scatter_global` / `shard_fields` return, and
+`get_result` returns the rank's block (`parallel.mesh.gather_to_host`
+assembles the global field).  Halos come from the neighbouring ranks, and
+every convergence decision reads global residuals.
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ from tenstream_tpu_torch.pprts.coeffs import (
     fold_thermal_emission,
     onedee_blocks_collapsed,
 )
-from tenstream_tpu_torch.pprts.ediff import solve_bicgstab, solve_richardson
+from tenstream_tpu_torch.pprts.ediff import lane_norms, solve_bicgstab, solve_richardson
 from tenstream_tpu_torch.pprts.edir import inner_iter_policy, solve_edir
 from tenstream_tpu_torch.pprts.geometric import dir2dir_geometric, zlev_from_dz
 from tenstream_tpu_torch.pprts.grid import Grid
@@ -156,12 +165,18 @@ class LaneSolution(NamedTuple):
     host_syncs: int  # for the whole chunk
 
 
-def _validate_optprops(fields: Dict[str, torch.Tensor]) -> None:
-    """Input sanity checks (reference `src/pprts.F90:1831-1859`)."""
+def _validate_optprops(fields: Dict[str, torch.Tensor], mesh=None) -> None:
+    """Input sanity checks (reference `src/pprts.F90:1831-1859`); on a
+    mesh over the whole domain, so that every rank raises or none."""
     for name, x in fields.items():
-        if not bool(torch.isfinite(x).all()):
+        bad = (~torch.isfinite(x)).any().float()
+        stats = torch.stack([bad, -x.min(), x.max()])
+        if mesh is not None:
+            stats = mesh.all_reduce(stats, "max")
+        bad, lo, hi = stats.tolist()
+        if bad > 0:
             raise ValueError(f"non-finite values in {name}")
-        lo, hi = float(x.min()), float(x.max())
+        lo = -lo
         if name != "g" and lo < 0.0:
             raise ValueError(f"negative values in {name} (min {lo:.3e})")
         if name == "g" and (lo < -1.0 or hi > 1.0):
@@ -211,6 +226,8 @@ class PprtsSolver:
         self._spectral_cache: Dict[Any, tuple] = {}
         self._spectral_trackers: Dict[Any, Any] = {}
         self._spectral_skips = 0
+        self._mesh = None
+        self.lgrid = grid  # this rank's block of the grid (the grid without a mesh)
 
     def _refuse_unported_options(self) -> None:
         """Raise for an option the port does not read (checked at
@@ -238,16 +255,41 @@ class PprtsSolver:
         self._h_srfc = torch.as_tensor(h_srfc, dtype=ireals, device=self.device)
 
     def set_mesh(self, mesh) -> None:
-        raise NotImplementedError("multi-device solves are not ported (ROADMAP M19)")
+        """Decompose the solve over a `parallel.mesh.Mesh` (None undoes it):
+        from here on the solver's fields are this rank's (x, y) block of
+        the grid (`lgrid`), and the solution cache starts empty.  Raises
+        without a process group whose backend takes the solver's tensors
+        (NCCL or gloo on the card, gloo on the CPU), or where the layout
+        does not divide the grid."""
+        import torch.distributed as dist
+
+        self.solutions.clear()
+        self._pending_convergence.clear()
+        if mesh is None:
+            self._mesh, self.lgrid = None, self.grid
+            return
+        if not dist.is_initialized():
+            raise RuntimeError("set_mesh needs a torch.distributed process group "
+                               "(parallel.mesh.init_distributed)")
+        ok = ("nccl", "gloo") if self.device.type == "cuda" else ("gloo",)
+        if mesh.backend not in ok:
+            raise ValueError(f"a solver on {self.device.type} takes a {' or '.join(ok)} group, "
+                             f"not {mesh.backend}")
+        g = self.grid
+        sx, sy = mesh.block(g.nx, g.ny)
+        dz = g.dz if g.dz.dim() == 1 else g.dz[:, sx, sy].contiguous()
+        self._mesh = mesh
+        self.lgrid = Grid(g.nz, sx.stop - sx.start, sy.stop - sy.start, g.dx, g.dy, dz)
 
     def set_buildings(self, buildings: Optional[Buildings]) -> None:
         """Attach `pprts.buildings.Buildings` (None detaches); its tensors
         move to the solver's device.  Buildings force the dense
         coefficient form."""
         if buildings is not None:
-            if tuple(buildings.solid.shape) != (self.grid.nz, self.grid.nx, self.grid.ny):
+            lg = self.lgrid
+            if tuple(buildings.solid.shape) != (lg.nz, lg.nx, lg.ny):
                 raise ValueError(f"buildings.solid {tuple(buildings.solid.shape)} != grid "
-                                 f"{(self.grid.nz, self.grid.nx, self.grid.ny)}")
+                                 f"{(lg.nz, lg.nx, lg.ny)}")
             buildings = buildings.to(self.device)
         self._buildings = buildings
 
@@ -263,10 +305,10 @@ class PprtsSolver:
             fields = dict(kabs=kabs, ksca=ksca, g=g)
             if planck is not None:
                 fields["planck"] = planck
-            _validate_optprops(fields)
+            _validate_optprops(fields, self._mesh)
         if self.options.get_bool("pprts_delta_scale", ldelta_scaling):
             kabs, ksca, g = delta_scale(kabs, ksca, g)
-        a2d = (torch.full((self.grid.nx, self.grid.ny), float(albedo), dtype=ireals, device=dev)
+        a2d = (torch.full((self.lgrid.nx, self.lgrid.ny), float(albedo), dtype=ireals, device=dev)
                if albedo_2d is None else t(albedo_2d))
         self._atm = dict(kabs=kabs, ksca=ksca, g=g, albedo2d=a2d, planck=planck,
                          planck_srfc=planck_srfc)
@@ -283,7 +325,7 @@ class PprtsSolver:
         """dz3d on the solve grid (atm_collapse folds the top K layers
         into one)."""
         K = self.options.get_int("atm_collapse", 0)
-        dz3 = self.grid.dz3d
+        dz3 = self.lgrid.dz3d
         if K > 1:
             dz3 = torch.cat([dz3[:K].sum(0, keepdim=True), dz3[K:]], dim=0)
         return dz3
@@ -358,7 +400,8 @@ class PprtsSolver:
         """The solve of a chunk: (collapse), assembly, edir, sources,
         diffuse solve, absorption; fields carry a leading lane dim."""
         self._refuse_unported_options()
-        scheme, grid, sun, opts = self.scheme, self.grid, self.sun, self.options
+        scheme, grid, sun, opts = self.scheme, self.lgrid, self.sun, self.options
+        mesh = self._mesh
         kabs, ksca, g, planck = atm["kabs"], atm["ksca"], atm["g"], atm["planck"]
         nb = kabs.shape[0]
         l1d = np.asarray(self._l1d, bool)
@@ -429,7 +472,8 @@ class PprtsSolver:
             # terrain-tilted analytic direct transport replaces the LUT's
             # dir2dir outside the 1-D layers
             zlev = zlev_from_dz(grid.dz3d, getattr(self, "_h_srfc", None))
-            dd_geo = dir2dir_geometric(zlev, grid.dx, grid.dy, self._sundir_raw, kabs + ksca)
+            dd_geo = dir2dir_geometric(zlev, grid.dx, grid.dy, self._sundir_raw, kabs + ksca,
+                                       mesh=mesh)
             mask = torch.as_tensor(l1d, device=self.device)[None, None, None, :, None, None]
             coeffs = CoeffFields(torch.where(mask, coeffs.dir2dir, dd_geo), coeffs.dir2diff,
                                  coeffs.diff2diff)
@@ -444,8 +488,9 @@ class PprtsSolver:
             fac = edirTOA * grid.az / scheme.dirtop.area_divider
             inc = fac[:, None, None, None].expand(nb, scheme.dirtop.dof, grid.nx, grid.ny)
             edir = solve_edir(scheme, coeffs.dir2dir, inc.contiguous(), sun.xinc, sun.yinc,
-                              n_inner=n_inner, aitken=edir_aitken, cleanup=edir_cleanup)
-            b = b + dir2diff_source(scheme, coeffs.dir2diff, edir, sun.xinc, sun.yinc)
+                              n_inner=n_inner, aitken=edir_aitken, cleanup=edir_cleanup,
+                              mesh=mesh)
+            b = b + dir2diff_source(scheme, coeffs.dir2diff, edir, sun.xinc, sun.yinc, mesh)
             b = b + direct_surface_reflection(scheme, edir, albedo2d)
             # reduced now, so the direct coefficient fields are freed
             # before the diffuse solve
@@ -472,14 +517,14 @@ class PprtsSolver:
             b = b + building_sources(
                 scheme, buildings, edir, grid.az, dz3d=grid.dz3d, dx=grid.dx, dy=grid.dy,
                 xinc=sun.xinc if with_sun else 1, yinc=sun.yinc if with_sun else 1,
-                planck=planck_bldg if emit else None)
+                planck=planck_bldg if emit else None, mesh=mesh)
 
         b_th = None
         if lthermal and planck is not None:
             c_top, c_bot = (None, None) if emission is None else emission
             b_th = thermal_source(scheme, diff2diff_f32, planck, kabs, dz_full, grid.dx, grid.dy,
                                   albedo2d, l1d, planck_srfc=atm["planck_srfc"],
-                                  collapse_btop=c_top, collapse_bbot=c_bot)
+                                  collapse_btop=c_top, collapse_bbot=c_bot, mesh=mesh)
             b = b + b_th
         del diff2diff_f32
 
@@ -493,18 +538,17 @@ class PprtsSolver:
                 float(edirTOA[i]) if sun_on else 0.0, planck=planck[i] if thermal else None,
                 planck_srfc=None if (ps is None or not thermal) else ps[i]) for i in range(nb)])
 
-        tol = [max(rtol * q, atol)
-               for q in torch.linalg.vector_norm(b.reshape(nb, -1), dim=1).tolist()]
+        tol = [max(rtol * q, atol) for q in lane_norms(b, mesh).tolist()]
         syncs = 1
         if opts.get("diff_solver", "bicgstab") == "bicgstab":
             ediff, niter_b, res, s = solve_bicgstab(
                 scheme, diff2diff, b, albedo2d, x0=x0, rtol=rtol, atol=atol,
-                maxiter=max_iter, precond=precond)
+                maxiter=max_iter, precond=precond, mesh=mesh)
             # convergence-guaranteed polish: a lane that BiCGStab already
             # converged takes one step
             ediff, niter_p, omega, res_p, s2 = solve_richardson(
                 scheme, diff2diff, b, albedo2d, x0=ediff, omega0=omega0, rtol=rtol,
-                atol=atol, max_iter=max_iter, precond=precond, tol=tol)
+                atol=atol, max_iter=max_iter, precond=precond, tol=tol, mesh=mesh)
             # NaN-propagating, as jnp.minimum: Python's min(a, nan) is a
             res = [math.nan if math.isnan(a) or math.isnan(c) else min(a, c)
                    for a, c in zip(res, res_p)]
@@ -513,11 +557,12 @@ class PprtsSolver:
             niter_b = [0] * nb
             ediff, niter_p, omega, res, s = solve_richardson(
                 scheme, diff2diff, b, albedo2d, x0=x0, omega0=omega0, rtol=rtol,
-                atol=atol, max_iter=max_iter, precond=precond)
+                atol=atol, max_iter=max_iter, precond=precond, mesh=mesh)
             syncs += s
 
         abso = calc_flx_div(scheme, diff2diff, ediff, dz_full * grid.az, l1d, kabs, dz_full,
-                            a11, a12, sun=sun, edir=edir, b_thermal=b_th, cdiv_dir=cdiv_dir)
+                            a11, a12, sun=sun, edir=edir, b_thermal=b_th, cdiv_dir=cdiv_dir,
+                            mesh=mesh)
         return LaneSolution(edir, ediff, abso, omega, [a + c for a, c in zip(niter_b, niter_p)],
                             res, tol, niter_b, niter_p, syncs)
 
@@ -544,7 +589,7 @@ class PprtsSolver:
         """The column solvers (reference `src/pprts.F90:2606-2652` through
         `src/pprts_1D_solvers.F90`): fluxes in horizontal [W/m2], kept per
         uid for `get_result`."""
-        atm, g = self._atm, self.grid
+        atm, g = self._atm, self.lgrid
         dz3d = g.dz3d
         sun_on = bool(lsolar and self.sun is not None and self.sun.sun_up)
         thermal_on = bool(lthermal and atm["planck"] is not None)
@@ -657,7 +702,7 @@ class PprtsSolver:
     def _scale_to_wm2(self, ndof: int, ntop: int, top_divider: float, side_dof: int,
                       side_divider: float) -> torch.Tensor:
         """1 / (face area per dof): converts [W] -> [W/m2]."""
-        g = self.grid
+        g = self.lgrid
         dz3 = self._dz_solve()
         rows = []
         for d in range(ndof):
@@ -686,7 +731,8 @@ class PprtsSolver:
 
     def get_result(self, uid: Any = 0):
         """(edir, edn, eup, abso): fluxes in [W/m2] on the (Nz+1, Nx, Ny)
-        levels and absorption in [W/m3]; edir is None for thermal-only."""
+        levels and absorption in [W/m3]; edir is None for thermal-only.  On
+        a mesh, the rank's block."""
         if self.solver_type in _ONED_SOLVERS:
             return self._oned_results[uid]
         self.check_convergence()
@@ -721,8 +767,8 @@ class PprtsSolver:
         cells.  outgoing = albedo * incoming + (1 - albedo) * pi * B_face."""
         if self._buildings is None:
             raise RuntimeError("no buildings attached (set_buildings)")
-        b, g, sol = self._buildings, self.grid, self.solutions[uid]
-        masks = face_masks(b)
+        b, g, sol = self._buildings, self.lgrid, self.solutions[uid]
+        masks = face_masks(b, self._mesh)
         zeros = lambda: torch.zeros((g.nz, g.nx, g.ny), dtype=ireals, device=self.device)
         edir_f = {k: zeros() for k in masks}
         incoming = {k: zeros() for k in masks}
@@ -733,7 +779,7 @@ class PprtsSolver:
                 None if part.edir is None else part.edir.to(ireals) * mu,
                 g.az, g.dx, g.dy, g.dz3d,
                 xinc=self.sun.xinc if self.sun is not None else 1,
-                yinc=self.sun.yinc if self.sun is not None else 1)
+                yinc=self.sun.yinc if self.sun is not None else 1, mesh=self._mesh)
             for k in masks:
                 edir_f[k] = edir_f[k] + ef[k]
                 incoming[k] = incoming[k] + inc[k]

@@ -32,11 +32,12 @@ def thermal_source(
     planck_srfc: Optional[torch.Tensor] = None,
     collapse_btop: Optional[torch.Tensor] = None,  # ([B,] Nx, Ny) [W/m2/sr]
     collapse_bbot: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Thermal emission source b [W], shape ([B,] ndiff, Nz+1, Nx, Ny).
     With `collapse_btop/bbot`, layer 0 is an atm-collapse super-layer
     whose folded emission (emissivity included) replaces the top dofs'
-    layer-0 rows."""
+    layer-0 rows.  With a `mesh` the fields are this rank's block."""
     tauz = kabs * dz3d
     b0 = planck[..., :-1, :, :]
     b1 = planck[..., 1:, :, :]
@@ -75,7 +76,7 @@ def thermal_source(
             val = bsrc * bfac * e_d
             val = torch.where(l1d_mask, torch.zeros_like(val), val)  # no side emission in 1-D layers
         rows.append(val)
-    b = scatter_diff_dst(scheme, torch.stack(rows, dim=-4))
+    b = scatter_diff_dst(scheme, torch.stack(rows, dim=-4), mesh)
 
     # surface emission into the upward dofs
     bsrfc = planck[..., -1, :, :] if planck_srfc is None else planck_srfc

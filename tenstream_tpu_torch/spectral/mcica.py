@@ -9,26 +9,49 @@ The random numbers come from `core.prng.Threefry`, which draws what
 `jax.random.uniform` draws from the same key, so the masks equal the JAX
 package's bit for bit.  The maximum-random overlap is a loop over z; every
 other step is vectorised over (gpt, nx, ny).
+
+On a rank's (x, y) block of a decomposed domain (`block=`) each column
+draws the numbers of its global position (the generator is counter
+based), so a block's masks equal the same columns' masks of the
+undecomposed draw bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tenstream_tpu_torch.core.prng import Threefry
+from tenstream_tpu_torch.core.prng import Threefry, uniform_keys
 from tenstream_tpu_torch.core.types import ireals
 
 
+def _block_uniform(key: Threefry, ngpt: int, f: torch.Tensor, block) -> torch.Tensor:
+    """The (ngpt, nlay, nx, ny) numbers of `key.uniform((ngpt, nlay, NX,
+    NY))` at this block's columns: block = ((x slice, y slice), (NX, NY))."""
+    (sx, sy), (gnx, gny) = block
+    ar = lambda a, b: torch.arange(a, b, dtype=torch.int64, device=f.device)
+    g = ar(0, ngpt)[:, None, None, None]
+    k = ar(0, f.shape[0])[None, :, None, None]
+    i = ar(sx.start, sx.stop)[None, None, :, None]
+    j = ar(sy.start, sy.stop)[None, None, None, :]
+    counters = ((g * f.shape[0] + k) * gnx + i) * gny + j
+    return uniform_keys(key.words(f.device), counters)
+
+
 def mcica_subcolumns(key: Threefry, cld_frac: torch.Tensor, ngpt: int,
-                     overlap: str = "maxrand") -> torch.Tensor:
+                     overlap: str = "maxrand", block=None) -> torch.Tensor:
     """(ngpt, nlay, ...) boolean cloud masks on `cld_frac`'s device.
 
     cld_frac (nlay, ...) in [0, 1]; overlap 'maxrand' (the reference
-    default, icld=2), 'max' or 'random'."""
+    default, icld=2), 'max' or 'random'.  With block = ((x slice, y
+    slice), (NX, NY)), cld_frac (nlay, nx, ny) is that block of a global
+    (nlay, NX, NY) field and the masks are that block's of its draw."""
     if overlap not in ("maxrand", "max", "random"):
         raise ValueError(f"unknown overlap {overlap!r}")
     f = torch.clamp(torch.as_tensor(cld_frac, dtype=ireals), 0.0, 1.0)
-    u = key.uniform((ngpt,) + tuple(f.shape), device=f.device)
+    if block is None:
+        u = key.uniform((ngpt,) + tuple(f.shape), device=f.device)
+    else:
+        u = _block_uniform(key, ngpt, f, block)
     if overlap == "random":
         x = u
     elif overlap == "max":

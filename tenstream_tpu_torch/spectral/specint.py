@@ -27,6 +27,13 @@ and positive `max_solution_err` / `max_solution_time`, band chunks whose
 extrapolated absorption error stays small are skipped and their cached
 contribution reused (the adaptive spectral skip).
 
+On a solver decomposed over ranks (`PprtsSolver.set_mesh`) every field
+here is the rank's (x, y) block: the inputs (lwc, cld_frac, albedo_2d,
+...) and the result.  McICA draws each column's numbers by its global
+position, the adaptive skip decides on the global absorption change, and
+the difficulty order (the same on every rank, as the iteration counts are
+global) is taken from rank 0.  The warm cache stays per rank.
+
 On a 1-D solver ("2str", "schwarzschild", "disort") the g-points go through
 the batched column solvers instead (`_specint_1d`): two-stream columns, or
 DISORT columns for "disort", in chunks of `band_chunk` g-points whose sums
@@ -106,7 +113,7 @@ def _specint_1d(solver, backend, atm, a2d, lthermal: bool, lsolar: bool, band_ch
     chunk of g-points is one more batch dimension of the two-stream (or,
     for "disort", the DISORT) columns.  `fields(sp, kind, gsel)` gives the
     chunk's delta-scaled (kabs, ksca, g), each (B, nz, nx, ny)."""
-    grid = solver.grid
+    grid = solver.lgrid
     dev = solver.device
     dz = grid.dz3d[:, None]  # (nz, 1, nx, ny) against (nz, B, nx, ny)
     nstr = solver.options.get_int("disort_streams", 8)
@@ -207,7 +214,8 @@ def specint_pprts(
     `specint_warm_extrapolate` (x0 = 2 x(t-1) - x(t-2), with the f32
     cache)."""
     backend = _BACKENDS[specint]() if isinstance(specint, str) else specint
-    grid = solver.grid
+    grid = solver.lgrid
+    mesh = solver._mesh
     scheme = solver.scheme
     dev = solver.device
     nz, nx, ny = grid.nz, grid.nx, grid.ny
@@ -259,7 +267,12 @@ def specint_pprts(
         kind, drawn once per call."""
         if kind not in mcica_masks:
             key = Threefry.from_seed(mcica_seed).fold_in(0 if kind == "sw" else 1)
-            mcica_masks[kind] = mcica_subcolumns(key, f_cld, ngpt, overlap=overlap).to(ireals)
+            block = None
+            if mesh is not None:
+                block = (mesh.block(solver.grid.nx, solver.grid.ny),
+                         (solver.grid.nx, solver.grid.ny))
+            mcica_masks[kind] = mcica_subcolumns(key, f_cld, ngpt, overlap=overlap,
+                                                 block=block).to(ireals)
         return mcica_masks[kind]
 
     dz3d = grid.dz3d
@@ -482,7 +495,8 @@ def specint_pprts(
                 host = tuple(None if c is None else c.cpu().numpy() for c in contrib)
                 tracker = solver._spectral_trackers.setdefault(cache_key, SolutionErrorTracker())
                 old = solver._spectral_cache.get(cache_key)
-                tracker.record(time, 0.0 if old is None else abso_change_maxnorm(host[2], old[2]))
+                tracker.record(time, 0.0 if old is None else
+                               abso_change_maxnorm(host[2], old[2], mesh))
                 solver._spectral_cache[cache_key] = host
 
         # freeze the difficulty grouping from the first solve's per-band
@@ -491,7 +505,10 @@ def specint_pprts(
             if sum(len(g) for g, _ in group_niters) == len(gids_all):
                 nit = np.concatenate([np.asarray(n, np.float32) for _, n in group_niters])
                 gid_cat = np.concatenate([g for g, _ in group_niters])
-                solver._band_order[uid_tag] = gid_cat[np.argsort(nit, kind="stable")]
+                order_new = gid_cat[np.argsort(nit, kind="stable")]
+                if mesh is not None:
+                    order_new = mesh.broadcast(torch.as_tensor(order_new)).numpy()
+                solver._band_order[uid_tag] = order_new
         elif group_opt and order is not None:
             # the regrouped keys carry all warm states now; drop this
             # uid_tag's orphaned pre-regroup chunk solutions
@@ -543,17 +560,19 @@ def _building_fluxes(solver: PprtsSolver, acc: Dict[str, torch.Tensor], mu: floa
     incoming is linear in the fields, so one extraction equals the
     reference's per-band accumulation (`ecckd_pprts.F90:440-448`); the
     faces emit the sum of the per-g-point Planck values."""
-    b, grid, scheme, sun = solver._buildings, solver.grid, solver.scheme, solver.sun
+    b, grid, scheme, sun = solver._buildings, solver.lgrid, solver.scheme, solver.sun
+    mesh = solver._mesh
     zeros = torch.zeros((scheme.ndiff, grid.nz + 1, grid.nx, grid.ny), dtype=ireals,
                         device=solver.device)
     ediff_tot = acc.get("ediff_solar", zeros) * mu + acc.get("ediff_thermal", zeros)
     edir_tot = acc["edir"] * mu if "edir" in acc else None
     ef, inc = building_incoming_from_fields(
         scheme, b, ediff_tot, edir_tot, grid.az, grid.dx, grid.dy, grid.dz3d,
-        xinc=sun.xinc if sun is not None else 1, yinc=sun.yinc if sun is not None else 1)
+        xinc=sun.xinc if sun is not None else 1, yinc=sun.yinc if sun is not None else 1,
+        mesh=mesh)
     B_tot = 0.0 if pb_gpt is None else pb_gpt.sum(0)
     out = {}
-    for k, m in face_masks(b).items():
+    for k, m in face_masks(b, mesh).items():
         zero = torch.zeros_like(inc[k])
         outgoing = b.albedo * inc[k] + (1.0 - b.albedo) * PI * B_tot
         out[k] = dict(edir=torch.where(m, ef[k], zero), incoming=torch.where(m, inc[k], zero),

@@ -1,6 +1,9 @@
 """The CUDA kernels K1 (`fused_A_dots`), K2 (`orbit_contract`), K3
 (`diffuse_apply_dense`) and K4 (`boxmc_trace`) against their plain PyTorch
-versions, on the card; and the 1-D column solvers (Schwarzschild, DISORT,
+versions, on the card, K1 and K3 also in their halo mode (a decomposed
+solve's block: against the periodic launch bit for bit where the ring is
+the block's own wrap, against the plain halo version otherwise); and the
+1-D column solvers (Schwarzschild, DISORT,
 `PprtsSolver`'s 1-D types), the wedge solvers (`plexrt`, with NCA and
 `specint_plexrt`) and the wedge photon tracer and table creation on the card
 against the CPU.
@@ -319,6 +322,90 @@ def test_cuda_binding_checks_raise(cuda_device):
     for inst in (-1, len(cuda_ops.ORBIT_SCHEMES)):  # no instantiation with this index
         with pytest.raises(RuntimeError):
             ext.fused_A_dots(dev(u), dev(w), dev(orb), dev(alb), inst)
+
+
+def _wrap_pad(t):
+    """t (..., nx, ny) with the periodic one-cell ring: what `Mesh.pad`
+    gives a rank that is its own neighbour."""
+    t = torch.cat([t[..., -1:, :], t, t[..., :1, :]], dim=-2)
+    return torch.cat([t[..., -1:], t, t[..., :1]], dim=-1).contiguous()
+
+
+def _random_ring(t, seed):
+    """t padded by a one-cell ring of other random values (a neighbour's)."""
+    g = torch.Generator(device=t.device).manual_seed(seed)
+    p = torch.rand(tuple(t.shape[:-2]) + (t.shape[-2] + 2, t.shape[-1] + 2), generator=g,
+                   device=t.device) * float(t.max())
+    p[..., 1:-1, 1:-1] = t
+    return p
+
+
+HALO_SHAPES = ((2, 5, 6, 10), (1, 39, 64, 64), (1, 7, 33, 65), (2, 4, 9, 136))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nz,nx,ny", HALO_SHAPES)
+@pytest.mark.parametrize("name", ["3_10", "3_6", "8_12", "3_16", "8_18", "3_24", "3_30"])
+def test_cuda_k1_halo_mode(cuda_device, name, B, nz, nx, ny):
+    """K1's halo mode (staged design at 3_10 / 3_6, direct above): with the
+    periodic ring (a rank that is its own neighbour) it gives the periodic
+    launch's outputs bit for bit; with another ring, its plain version's."""
+    ts, idx, orb, u, w, alb, _ = _inputs(name, B, nz, nx, ny, seed=4)
+    atol = FIELD_ATOL if ts.ndiff <= 10 else WIDE_FIELD_ATOL
+    dev = lambda a: torch.as_tensor(a, device=cuda_device)
+    orb, u, w, alb = dev(orb), dev(u), dev(w), dev(alb)
+    Au, dots = cuda_ops.fused_A_dots(ts, idx, orb, u, w, alb)
+    cuda_ops.reset_launch_counts()
+    Au_h, dots_h = cuda_ops.fused_A_dots(ts, idx, _wrap_pad(orb), _wrap_pad(u), w, alb, halo=True)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["fused_A_dots"] == 1 and cuda_ops.HALO_LAUNCHES["fused_A_dots"] == 1
+    assert torch.equal(Au_h, Au) and torch.equal(dots_h, dots)
+    up, op = _random_ring(u, 1), _random_ring(orb, 2)
+    Au_r, dots_r = cuda_ops.fused_A_dots(ts, idx, op, up, w, alb, halo=True)
+    Au_p, dots_p = cuda_ops.fused_A_dots_plain(ts, idx, op, up, w, alb, halo=True)
+    np.testing.assert_allclose(Au_r.cpu().numpy(), Au_p.cpu().numpy(), atol=atol)
+    np.testing.assert_allclose(dots_r.cpu().numpy(), dots_p.cpu().numpy(), rtol=DOT_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,nz,nx,ny", HALO_SHAPES)
+@pytest.mark.parametrize("name", ["3_10", "3_6", "3_16", "3_30"])
+def test_cuda_k3_halo_mode(cuda_device, name, dtype, B, nz, nx, ny):
+    """K3's halo mode: with the block's own first planes as halos and its
+    edge outputs folded back onto itself it gives the periodic launch's
+    output bit for bit; with other halo planes, its plain version's three
+    outputs.  Run right after a NaN-filled block of the output's size was
+    freed, so a face the kernel never writes shows."""
+    ts = get_scheme(name)
+    nd = ts.ndiff
+    rng = np.random.default_rng(nd + 1)
+    c = torch.as_tensor((rng.random((B, nd, nd, nz, nx, ny)) * 0.1).astype(np.float32),
+                        device=cuda_device).to(dtype)
+    x = torch.as_tensor(rng.random((B, nd, nz + 1, nx, ny)).astype(np.float32),
+                        device=cuda_device)
+    ref = cuda_ops.diffuse_apply_dense(ts, c, x)
+    cshift, _ = cuda_ops._shift_tables(ts)
+    cuda_ops.reset_launch_counts()
+    torch.full_like(x, float("nan"))
+    out, ox, oy = cuda_ops.diffuse_apply_dense(
+        ts, c, x, halo=(x[..., 0, :].contiguous(), x[..., :, 0].contiguous()))
+    torch.cuda.synchronize()
+    assert cuda_ops.HALO_LAUNCHES["diffuse_apply_dense"] == 1
+    for d, (_, cx, cy) in enumerate(cshift):
+        if cx == -1:
+            out[:, d, :, 0, :] = ox[:, d]
+        elif cy == -1:
+            out[:, d, :, :, 0] = oy[:, d]
+    assert torch.equal(out, ref)
+    hx = torch.as_tensor(rng.random((B, nd, nz + 1, ny)).astype(np.float32), device=cuda_device)
+    hy = torch.as_tensor(rng.random((B, nd, nz + 1, nx)).astype(np.float32), device=cuda_device)
+    torch.full_like(x, float("nan"))
+    got = cuda_ops.diffuse_apply_dense(ts, c, x, halo=(hx, hy))
+    want = cuda_ops.diffuse_apply_dense_plain(ts, c, x, halo=(hx, hy))
+    atol = FIELD_ATOL if nd <= 10 else WIDE_FIELD_ATOL
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=atol)
 
 
 def _chunk_solve(device, plain: bool):

@@ -255,15 +255,19 @@ def test_unported_options_raise(jlut, opts):
 
 
 def test_unported_entry_points_raise(jlut):
-    """`set_mesh` (ROADMAP M19) raises; the 1-D solver types, which raised
-    here until they were ported, construct (their parity with JAX:
+    """`set_mesh` (ROADMAP M19, ported: `tests/test_torch_parallel*.py`)
+    raises without a torch.distributed process group, and `set_mesh(None)`
+    keeps the undecomposed solve; the 1-D solver types, which raised here
+    until they were ported, construct (their parity with JAX:
     `test_torch_oned.py`); bad optical properties raise."""
     opp = OptProp(lut_from_arrays(jlut, "cpu"), device="cpu")
     grid = Grid.create(NZ, NX, NY, 100.0, 100.0, 100.0, device="cpu")
     assert PprtsSolver(grid, opp, solver_type="2str").solver_type == "2str"
     solver = PprtsSolver(grid, opp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver.set_mesh(None)
+    with pytest.raises(RuntimeError, match="process group"):
+        solver.set_mesh(object())
+    solver.set_mesh(None)
+    assert solver.lgrid is solver.grid
     ka, ks, g, _ = _scene()
     with pytest.raises(ValueError):
         solver.set_optical_properties(0.2, -ka, ks, g)
