@@ -9,7 +9,7 @@ Phases, each printing its lines; any failure raises (non-zero exit):
   2. build    -- builds the kernels (csrc/) and times it; then `nvcc
                  -Xptxas -v` on each CUDA source prints every kernel's
                  registers, shared memory and spills.  Phases 25-28, which
-                 launch no kernel, run meanwhile.
+                 launch no kernel, and phase 32 run meanwhile.
   3. kernels  -- K1 fused_A_dots, K2 orbit_contract and K3
                  diffuse_apply_dense (float32 and bfloat16 coefficients)
                  against their plain PyTorch versions on the card, at their
@@ -51,9 +51,9 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  of 8 solved as one batch through K1/K2, atm_collapse over
                  the leading 1-D layers (16: a solve grid of 24 layers) and
                  the f32 warm cache: a cold solve, an identical warm re-solve
-                 and two perturbed steps (the cloud field rolled one cell on
-                 alternating axes).  Prints each solve's wall, its K1/K2
-                 launches, columns/s of the perturbed steps, niter and
+                 and a perturbed step (the cloud field rolled one cell).
+                 Prints each solve's wall, its K1/K2
+                 launches, columns/s of the perturbed step, niter and
                  res/tol per chunk and the broadband fluxes; checks finite
                  results, res <= 1.5 tol and niter < 3000 in every lane, TOA
                  edir = sum of the solar weights x mu within 1%, both kernels
@@ -117,7 +117,8 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  (fluxes within 5e-5 of their magnitude, absorption 1e-4
                  W/m3), with DISORT's TF32 control printed beside it.
  20. gas optics parity -- phase 18's two spectra at 32 x 32 through K1/K2
-                 and through their plain versions: phase 13's gates.
+                 and through their plain versions: phase 13's gates (RRTMG_SW
+                 without its ecCKD longwave, which phase 13 holds).
  21. kernels by scheme -- K1, K2 and K3 (float32 and bfloat16) of every
                  instantiation (the table sets of cuda_ops.ORBIT_SCHEMES: 3_10,
                  3_6, 8_12, 3_16, 8_18, 3_24, 3_30) against their plain
@@ -133,8 +134,8 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  the JAX package's own scheme-test tables: coarse axes, tau
                  up to 3 and aspect up to 2, so bench.py's cloud and upper
                  layers are clamped), on phase 4's band at 256 x 256 x 39: a
-                 cold solar+thermal solve and a warm re-solve of the cloud
-                 field rolled one cell.  Prints walls, niter, res/tol, K1/K2
+                 cold solar+thermal solve (phase 12 holds the warm path).
+                 Prints walls, niter, res/tol, K1/K2
                  launches and peak memory; gates finite results, res <= 1.5
                  tol, niter < 3000, K1 and K2 launched (K3 not), and the
                  JAX end-to-end energy balance of the solar part within 6%
@@ -148,8 +149,8 @@ Phases, each printing its lines; any failure raises (non-zero exit):
  24. spectral 3_30 -- phase 12's full-spectrum run (ecCKD 32 + 32, bench.py's
                  scene at 256 x 256 x 39, atm_collapse 16, specint_cache
                  f32) on a 3_30 solver with its test table in band chunks of
-                 4 (at 8 the cold call does not fit the card): a cold call
-                 and one perturbed step; walls, columns/s, niter per chunk,
+                 4 (at 8 the cold call does not fit the card): a cold call;
+                 wall, columns/s, niter per chunk,
                  K1/K2 launches, peak memory; phase 12's gates, with every
                  cloud cell exempt from the heating-rate bound where the
                  clouds' solar w0 lies above the table's w0 axis (printed):
@@ -174,7 +175,7 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  repeats the cold call's work): wall, triangle columns/s, niter per
                  chunk, peak memory; every lane converged, TOA edir within 1% of the
                  sum of the solar weights x mu, heating rates below 100 K/day outside
-                 cloud tops; the first solar chunk profiled over 25 steps.
+                 cloud tops; the first thermal chunk profiled over 25 steps.
  27. wedge ICON -- trimesh_from_structured(256, 256) written as an ICON grid file and
                  read back (topology equal), PlexrtSolverIcon on phase 25's scene as in
                  phase 25 (the balance with the direct and diffuse outflow through the
@@ -231,14 +232,14 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  crop through K3 and through its plain version (equal
                  iterations) and on the CPU (phase 19's gates); (d)
                  tools/train_ann on the production LUT with the committed net's
-                 settings (hidden 128,128,128, batch 8192) but 100 epochs of its
+                 settings (hidden 128,128,128, batch 8192) but 75 epochs of its
                  150: wall, losses, off-grid diff2diff and dir2diff mean |err|
                  against the LUT below 0.01.
  31. decomposed -- the cube solver and the main path over a torch.distributed
                  group (parallel/mesh.py): (a) phase 12's run at 256 x 256 x 39 on
                  a one-rank NCCL group, the solver on a Mesh (every shift a halo
                  exchange, K1 in halo mode, K2 between halo-aware gather and
-                 scatter), its cold, identical warm and first perturbed steps
+                 scatter), its cold, identical warm and perturbed steps
                  held to phase 12's: every band's niter equal, fields within
                  0.1 W/m2 and 1e-4 W/m3 (the largest differences printed, and
                  whether they are 0), K1 launched in halo mode only; (b) four
@@ -255,6 +256,30 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  launch (K1 at the main path's chunk and at a 128 x 128 block,
                  K3 at one band and at 31 (b)'s block), and K2 at the 128 x 128
                  block.
+ 32. wedge decomposed -- the wedge solvers over a torch.distributed group
+                 (set_mesh; no kernel): (a) on a one-rank NCCL group at full
+                 width, phase 25's WEDGE_EXACT band on the 256 x 256 x 39 fish
+                 mesh and phase 27's gated ICON solve with NCA, each held bit for
+                 bit to that phase's run (niter equal, every field's largest
+                 difference 0), then specint_plexrt's first chunk of 8 g-points
+                 of each spectrum decomposed, bit for bit the same two chunks
+                 of phase 26's call;
+                 walls side by side and the exchanges per solve; (b) four
+                 processes (this script with --wedge-rank) in a 2 x 2 gloo group
+                 on cuda:0 solve phase 25's band at 64 x 64 on the fish mesh
+                 (blocks of 32 x 32) and the ICON mesh (2048 cells each), solar
+                 and thermal with NCA, held to this process's one-rank solve
+                 (0.1 W/m2, 1e-4 W/m3, NCA 1e-4 W/m3, fixed-point niter equal);
+                 K1-K4 never launched.
+ 33. capi     -- the port's C bridge (tenstream_tpu_torch/capi/): the library
+                 and demos built with cc; demo_pprts on 3_10 on the card held
+                 bit for bit to the same solve through the Python API;
+                 tenstream_tpu_torch_specint on bench.py's slab at 256 x 256 x 39
+                 (plev, tlev, liquid water in g/kg; ecCKD on the card; 3_10) in
+                 the demo's process held bit for bit to bridge.specint called
+                 here; walls, peak device memory and K1/K2 launches of both;
+                 ecCKD on the card held bit for bit to ecCKD on the host on
+                 the slab's 16 x 16 corner.
  10. boxmc    -- K4 boxmc_trace, the BoxMC photon tracer: one launch of 4096
                  entries drawn with --seed from the production diffuse grid
                  for the orbit-representative sources 0 and 2 and one from
@@ -264,7 +289,9 @@ Phases, each printing its lines; any failure raises (non-zero exit):
                  (bit-identical), checked for row sums <= 1, and held against
                  its plain version on the same rows (per tally 6e-4: three
                  photons' weight, mean 1e-5; the count of tallies that differ
-                 at all is printed).
+                 at all is printed): source 0's whole launch, the other two on
+                 a launch of their first 1024 rows (without the thick corner,
+                 whose ~1e6-step walks set the plain version's time).
  11. lut      -- the LUT generation path end to end: create_production_lut
                  for 3_10 on the production axes with 4 rounds per entry
                  (the staged first pass of `--max-rounds 4`), timed per
@@ -282,12 +309,15 @@ digests recorded from the earlier K4 design, and phase 3 holds K3's
 outputs at every (type, shape) it checks against digests recorded from
 the first K3 design: they must be equal bit for bit.
 
-The phases run in the order 1, 25-28 and 29 (a) (while 2 builds), 3-8, 12, 13, 9, 31,
-14-24, 29 (b), 30, 10, 11.  Each path resets
+The phases run in the order 1, 25-27, 32, 28 and 29 (a) (while 2 builds), 3-8, 12, 13, 9,
+31, 33, 14-24, 29 (b), 30, 10, 11.  Each path resets
 the kernel launch counts before it runs and reads them after; the kernels
 JSON takes K1's and K2's launches from phase 12 (the main path), K3's from
 phase 14 (the urban spectral path, where its entry is timed; its launches on
 the ANN path, phase 30 (b), under "launches_ann") and K4's from the LUT pass;
+each entry also gives its launches on phase 32 (a)'s decomposed wedge path
+("launches_wedge_decomposed", 0) and in phase 33's C-bridge specint
+("launches_capi");
 two more entries are K1's and K3's halo modes, launched on phase 31 (a) and
 31 (b), timed in 31 (c); under "instantiations" K1-K3 list each table set or dof
 count with its phase-21 time and bound and its launches (3_10's on the
@@ -1110,7 +1140,7 @@ def profile_spectral(spec):
     stages = _solver_stages() + [(PprtsSolver, "_collapse"), (specint_mod, "delta_scale"),
                                  (EcckdGasOptics, "solar"), (EcckdGasOptics, "thermal"),
                                  (EcckdGasOptics, "cloud_optprops_gpt")]
-    # phase 12's solver holds the perturbed steps' states: resolve(1) is a one-cell change
+    # phase 12's solver holds the perturbed step's states: resolve(1) is a one-cell change
     phase_profile(resolve, f"spectral {NX}x{NY}x{NZ} ecCKD {NGPT}+{NGPT}", stages, warm=True,
                   window=True)
 
@@ -1284,19 +1314,15 @@ def phase_spectral(cuda_ops, opp, seed, smi):
     keep(res)
     res, walls["warm identical"], _ = spectral_solve(spec, lwc, cuda_ops, "spectral warm")
     keep(res)
-    pert = []
-    for k in range(2):
-        lwc = np.roll(lwc, 1, axis=1 + (k % 2))
-        res, wall, _ = spectral_solve(spec, lwc, cuda_ops, f"spectral perturbed {k + 1}")
-        pert.append(wall)
-        if k == 0:
-            keep(res)
+    lwc = np.roll(lwc, 1, axis=1)
+    res, pert, _ = spectral_solve(spec, lwc, cuda_ops, "spectral perturbed 1")
+    keep(res)
     launches = dict(cuda_ops.LAUNCHES)
     spec = (solver, atm, lwc, gas)
     log(f"spectral: walls " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in walls.items())
-        + f", perturbed {pert[0] * 1e3:.1f} / {pert[1] * 1e3:.1f} ms = "
-        f"{NX * NY / np.mean(pert):.1f} columns/s ({smi}); launches {launches}; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        + f", perturbed {pert * 1e3:.1f} ms = {NX * NY / pert:.1f} columns/s ({smi}); "
+        f"launches {launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     check_spectral_result("spectral", res, atm, lwc, gas.solar(atm).weight)
     for name in ("fused_A_dots", "orbit_contract"):
         if launches[name] == 0:
@@ -1707,8 +1733,13 @@ def card_vs_cpu(label, run, n=None):
     CPU (the port on both): fluxes within CROP_FLUX_RTOL of their largest
     magnitude, absorption within CROP_ABSO_ATOL; TF32 or the device's linear
     algebra would show here."""
-    n = n or CROP
     outs = [tuple(a.cpu() for a in run(dev) if a is not None) for dev in ("cuda", "cpu")]
+    hold_crop(label, outs, n or CROP)
+    return outs[1]
+
+
+def hold_crop(label, outs, n):
+    """(card fields, CPU fields) of an n x n crop within phase 19's gates."""
     errs, rel = crop_errors(outs)
     log(f"{label} {n}x{n} crop, card vs CPU: max abs "
         + ", ".join(f"{e:.3e}" for e in errs[:-1]) + f" W/m2 ({rel:.2e} of the largest flux), "
@@ -1716,7 +1747,6 @@ def card_vs_cpu(label, run, n=None):
     if rel > CROP_FLUX_RTOL or errs[-1] > CROP_ABSO_ATOL:
         raise AssertionError(f"{label}: card and CPU differ on the crop (flux rtol "
                              f"{CROP_FLUX_RTOL}, abso atol {CROP_ABSO_ATOL})")
-    return outs[1]
 
 
 @contextlib.contextmanager
@@ -1865,14 +1895,17 @@ def phase_oned(seed, smi, means_3d):
 
 def phase_gas_optics_parity(cuda_ops, ediff, opp, seed):
     """Phase 20: phase 18's two spectra at SMALL_N x SMALL_N through K1/K2 and
-    through their plain versions on the card, with phase 13's gates."""
+    through their plain versions on the card, with phase 13's gates.  The
+    RRTMG_SW step's ecCKD longwave is left out: phase 13 holds the same
+    ecCKD spectrum on the same scene at 64 x 64 already."""
     for which in GAS_SETS:
         outs, iters = [], []
+        calls = [c for c in gas_calls(which) if not c[0].startswith("ecCKD")]
         for plain in (False, True):
             spec = make_spectral_solver(SMALL_N, SMALL_N, seed, opp)
             with kernels_or_plain(cuda_ops, ediff, plain):
                 res, _, launches = spectral_step(
-                    spec, spec[2], gas_calls(which), cuda_ops,
+                    spec, spec[2], calls, cuda_ops,
                     f"gas optics parity {which} " + ("plain" if plain else "kernels"),
                     report_chunks=False)
             if plain != (launches["fused_A_dots"] == 0):
@@ -1962,6 +1995,9 @@ def _k4_sample(L, direct: bool, n: int, rng):
     return grid[np.sort(rng.choice(len(grid), n, replace=False))]
 
 
+K4_PLAIN_ROWS = 1024  # rows of phase 10's second and third launches held to the plain version
+
+
 def phase_boxmc(ct, L, seed):
     """K4 at the LUT path's launch shape (4096 entries, the thick conservative
     corner swapped into the last rows), against its plain version on the
@@ -1997,19 +2033,27 @@ def phase_boxmc(ct, L, seed):
             f"{100 * k4_flops(nsteps, 4096) / F32_FLOPS_PER_S * 1e3 / ms:.2f}% of the operations "
             "floor's rate")
 
+        # K4 against its plain version on the whole launch for the kernels line's entry, on a
+        # launch of its first K4_PLAIN_ROWS rows for the other two: the plain version's time
+        # is that of its longest walk, and the thick corner's rows (the last ones) walk ~1e6
+        # steps (a row's photon keys depend on its place in the launch, so K4 runs it anew)
+        sub, sub_steps = out, steps
+        if label != "diffuse src 0":
+            rows = rows[:K4_PLAIN_ROWS]
+            sub, sub_steps = ct.boxmc_trace(rows, "3_10", ldir)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
         outp, stp = ct.boxmc_trace_plain(rows, "3_10", ldir)
         e1.record()
         torch.cuda.synchronize()
         plain_ms = e0.elapsed_time(e1)
-        d = (out - outp).abs()
+        d = (sub - outp).abs()
         err, mean = d.max().item(), d.mean().item()
-        log(f"boxmc {label} against plain on the same 4096 rows: plain {plain_ms:.1f} ms; "
+        log(f"boxmc {label} against plain on the same {len(rows)} rows: plain {plain_ms:.1f} ms; "
             f"max |K4 - plain| {err:.3e}, mean {mean:.3e}, "
             f"{int((d > 1e-5).sum().item())} of {d.numel()} tallies differ by more than 1e-5, "
-            f"{int((out != outp).sum().item())} differ at all; "
-            f"photon-steps {nsteps} vs {int(stp.sum().item())}")
+            f"{int((sub != outp).sum().item())} differ at all; "
+            f"photon-steps {int(sub_steps.sum().item())} vs {int(stp.sum().item())}")
         if not (err <= K4_TALLY_ATOL and mean <= K4_MEAN_ATOL):
             raise AssertionError(f"boxmc {label}: K4 disagrees with its plain version (per tally "
                                  f"{K4_TALLY_ATOL}, mean {K4_MEAN_ATOL})")
@@ -2288,8 +2332,7 @@ def solar_balance(solver, dz, theta):
 
 def phase_schemes(cuda_ops, OptProp, LUT, Grid, PprtsSolver, sundir, seed):
     """Phase 22: each scheme on phase 4's band at 256 x 256 x 39, a cold
-    solar+thermal solve and a warm re-solve of the cloud field rolled one
-    cell; K1/K2 launches per scheme."""
+    solar+thermal solve; K1/K2 launches per scheme."""
     dz = build_scene(NX, NY, seed)[0]
     launches = {}
     for name in SCHEMES:
@@ -2302,19 +2345,13 @@ def phase_schemes(cuda_ops, OptProp, LUT, Grid, PprtsSolver, sundir, seed):
         _, cold = solve_and_report(solver, fields, cuda_ops, f"schemes {name} cold")
         t_cold = time.time() - t0
         bal = solar_balance(solver, dz, SUN[1])
-        kabs, ksca, g, planck = fields
-        rolled = tuple(np.roll(a, 1, axis=1) for a in (kabs, ksca, g)) + (planck,)
-        t1 = time.time()
-        _, warm = solve_and_report(solver, rolled, cuda_ops, f"schemes {name} warm")
-        t_warm = time.time() - t1
         got = dict(cuda_ops.LAUNCHES)
         log(f"schemes {name} (nd {opp.scheme.ndiff}) at {NX}x{NY}x{NZ}: cold {t_cold * 1e3:.1f} ms "
-            f"(bicgstab+polish solar {cold[0]}+{cold[1]}, thermal {cold[2]}+{cold[3]}), warm "
-            f"{t_warm * 1e3:.1f} ms ({warm[0]}+{warm[1]}, {warm[2]}+{warm[3]}); solar energy "
-            f"balance {100 * bal:.4f}% of the incoming beam; launches K1 {got['fused_A_dots']} K2 "
+            f"(bicgstab+polish solar {cold[0]}+{cold[1]}, thermal {cold[2]}+{cold[3]}); solar "
+            f"energy balance {100 * bal:.4f}% of the incoming beam; launches K1 {got['fused_A_dots']} K2 "
             f"{got['orbit_contract']} K3 {got['diffuse_apply_dense']}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-        if max(cold + warm) >= 3000:
+        if max(cold) >= 3000:
             raise AssertionError(f"schemes {name}: a solve reached 3000 iterations")
         if not bal < BALANCE_RTOL:
             raise AssertionError(f"schemes {name}: energy balance off by {100 * bal:.2f}%")
@@ -2389,8 +2426,7 @@ def clouds_beyond_table(opp, gas, atm, lwc):
 def phase_spectral_scheme(cuda_ops, OptProp, LUT, seed, smi):
     """Phase 24: phase 12's full-spectrum run (ecCKD 32 + 32 on bench.py's
     scene, atm_collapse, the f32 warm cache) at SCHEME_SPEC_N x SCHEME_SPEC_N
-    on a 3_30 solver in band chunks of SCHEME_CHUNK: a cold call and one
-    perturbed step."""
+    on a 3_30 solver in band chunks of SCHEME_CHUNK: a cold call."""
     opp = scheme_opp(SPECTRAL_SCHEME, OptProp, LUT)
     label = f"spectral {SPECTRAL_SCHEME}"
     n = SCHEME_SPEC_N
@@ -2402,12 +2438,9 @@ def phase_spectral_scheme(cuda_ops, OptProp, LUT, seed, smi):
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launch_counts()
     res, cold, _ = spectral_solve(spec, lwc, cuda_ops, f"{label} cold", chunk=SCHEME_CHUNK)
-    lwc = np.roll(lwc, 1, axis=1)
-    res, pert, _ = spectral_solve(spec, lwc, cuda_ops, f"{label} perturbed", chunk=SCHEME_CHUNK)
     launches = dict(cuda_ops.LAUNCHES)
     log(f"{label}: {n}x{n}x{NZ}, atm_collapse {K_COLLAPSE}, ecCKD {NGPT}+{NGPT}, band chunks of "
-        f"{SCHEME_CHUNK}: walls cold {cold * 1e3:.1f} ms, perturbed {pert * 1e3:.1f} ms = "
-        f"{n * n / pert:.1f} columns/s ({smi}); launches {launches}; peak device memory "
+        f"{SCHEME_CHUNK}: wall cold {cold * 1e3:.1f} ms = {n * n / cold:.1f} columns/s ({smi}); launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     # a table whose w0 axis ends below the clouds' w0 clamps them to its last w0, and they
     # absorb as such clouds do, some 200-400 K/day; the JAX package gives the same on the same
@@ -2578,7 +2611,8 @@ def wedge_runs(label, make, fields, planck, mu, smi, budget=None):
     """The wedge band on the solvers' defaults (twice, the second run also
     profiled) and on WEDGE_EXACT (gated: converged, energy balance);
     `budget(solver)` gives the solar solution and its lateral escape
-    [W/m2]."""
+    [W/m2].  Returns (defaults solver, its thermal solution, the exact
+    solar result, the exact solver, its solar and thermal solutions)."""
     solver = make()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2602,7 +2636,7 @@ def wedge_runs(label, make, fields, planck, mu, smi, budget=None):
     check_finite(f"{label} exact thermal", solver.get_result(sol_t))
     exact = solver.get_result(sol_s)
     wedge_balance(f"{label} exact solar", solver, exact, mu, lateral=lateral)
-    return out + (exact,)
+    return out + (exact, solver, sol_s, sol_t)
 
 
 def phase_wedge(cuda_ops, wopp, seed, smi):
@@ -2610,7 +2644,8 @@ def phase_wedge(cuda_ops, wopp, seed, smi):
     committed full-density table (`wopp`: wedge_opp()); then 18_8 on its
     test table at 64 x 64.  Returns the 5_8 WEDGE_EXACT solar solve for
     phase 29: (domain-mean TOA eup, surface edir + edn per column, the two
-    triangles averaged)."""
+    triangles averaged), and that solve's fields and niter for phase 32
+    (`wedge_reference`)."""
     from tenstream_tpu_torch.plexrt.mesh import fish_mesh
     from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
     from tenstream_tpu_torch.pprts.sun import sundir_from_angles
@@ -2629,11 +2664,13 @@ def phase_wedge(cuda_ops, wopp, seed, smi):
         return s
 
     cuda_ops.reset_launch_counts()
-    edir, edn, eup, _ = wedge_runs(label, make, fields, planck, mu, smi)[2]
+    runs = wedge_runs(label, make, fields, planck, mu, smi)
+    edir, edn, eup, _ = runs[2]
     # phase 29's yardstick: the WEDGE_EXACT solar solve, the two triangles of
     # every rectangle averaged
     exact = (eup[0].mean().item(), (edir[-1] + edn[-1]).mean(0).cpu())
-    del edir, edn, eup
+    ref = wedge_reference(*runs[3:])
+    del edir, edn, eup, runs
     no_cube_kernels(cuda_ops, label)
     torch.cuda.empty_cache()
 
@@ -2647,7 +2684,19 @@ def phase_wedge(cuda_ops, wopp, seed, smi):
     check_finite(f"{label} thermal", s18.get_result(sol_t))
     wedge_balance(f"{label} solar", s18, s18.get_result(sol_s), mu)
     torch.cuda.empty_cache()
-    return exact
+    return exact, ref
+
+
+def wedge_reference(solver, sol_s, sol_t, nca=False):
+    """A WEDGE_EXACT run's solar and thermal fields (on the host), niter
+    and (with `nca`) the NCA of its thermal solve: what phase 32 holds
+    the decomposed runs to."""
+    out = dict(solar=[a.cpu() for a in solver.get_result(sol_s)],
+               thermal=[a.cpu() for a in solver.get_result(sol_t)[1:]],
+               niter=(sol_s.niter_diff, sol_t.niter_diff))
+    if nca:
+        out["nca"] = solver.nca_absorption(sol_t).cpu()
+    return out
 
 
 def check_wedge_spectral(label, res, atm, lwc2, weight):
@@ -2670,17 +2719,28 @@ def check_wedge_spectral(label, res, atm, lwc2, weight):
                              "the cloud tops")
 
 
-def wedge_specint(solver, atm, lwc2, gas, label, lthermal=True, **kw):
+def wedge_specint(solver, atm, lwc2, gas, label, lthermal=True, first=None, lsolar=True, **kw):
     """One solar (+ thermal) `specint_plexrt` call: (result, wall [s], text
     on the lanes' niter and res/tol per chunk, lanes above tolerance).
-    Every lane must stop by the solver's own rule."""
+    Every lane must stop by the solver's own rule.  With a dict `first`, the
+    first chunk of each spectrum is kept there ("solar" / "thermal": its
+    solution and wall [s])."""
     from tenstream_tpu_torch.spectral.specint_plexrt import specint_plexrt
 
     chunks = []
     lanes = solver.solve_lanes
+    sync = torch.cuda.synchronize if solver.device.type == "cuda" else (lambda: None)
 
     def seen(*a, **k):
+        kind = "solar" if a[1] else "thermal"
+        keep = first is not None and kind not in first
+        if keep:
+            sync()
+            t0 = time.perf_counter()
         sol = lanes(*a, **k)
+        if keep:
+            sync()
+            first[kind] = (sol, time.perf_counter() - t0)
         ratio = (sol.diff_res / sol.diff_tol).tolist()
         chunks.append((sol.niter_diff.tolist(), ratio))
         if max(chunks[-1][0]) > solver.diff_iters or not np.isfinite(ratio).all():
@@ -2689,11 +2749,11 @@ def wedge_specint(solver, atm, lwc2, gas, label, lthermal=True, **kw):
 
     solver.solve_lanes = seen
     try:
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
-        res = specint_plexrt(solver, atm, WEDGE_ALBEDO, lthermal, True, specint=gas, lwc=lwc2,
+        res = specint_plexrt(solver, atm, WEDGE_ALBEDO, lthermal, lsolar, specint=gas, lwc=lwc2,
                              **kw)
-        torch.cuda.synchronize()
+        sync()
         wall = time.perf_counter() - t0
     finally:
         del solver.solve_lanes
@@ -2707,8 +2767,10 @@ def wedge_specint(solver, atm, lwc2, gas, label, lthermal=True, **kw):
 def phase_wedge_spectral(cuda_ops, opp, seed, smi):
     """Phase 26: `specint_plexrt`, ecCKD 32 + 32, on phase 25's scene with
     bench.py's cloud field on both orientations, WEDGE_EXACT, band chunks
-    of WEDGE_CHUNK: one cold call, gated, then the first solar chunk
-    profiled over WEDGE_PROFILE_STEPS steps.
+    of WEDGE_CHUNK: one cold call, gated, then the first thermal chunk
+    profiled over WEDGE_PROFILE_STEPS steps.  Returns the cold call's first
+    chunk of each spectrum, reduced as `specint_plexrt(max_gpt=WEDGE_CHUNK)`
+    reduces them, with their walls: phase 32 (a)'s undecomposed run.
     No perturbed step: the wedge spectral path has no warm start (as in the
     JAX package), so a step repeats the cold call's work (PERF.md)."""
     from tenstream_tpu_torch.plexrt.mesh import fish_mesh
@@ -2726,8 +2788,18 @@ def phase_wedge_spectral(cuda_ops, opp, seed, smi):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launch_counts()
+    first = {}
     res, wall, text, above = wedge_specint(solver, atm, lwc2, gas, f"{label} cold",
-                                           band_chunk=WEDGE_CHUNK)
+                                           band_chunk=WEDGE_CHUNK, first=first)
+    (sol_s, wall_s), (sol_t, wall_t) = first["solar"], first["thermal"]
+    area = solver.areas()
+    # the sums and order of specint_plexrt's accumulation: solar, then thermal
+    chunk_ref = ([a.cpu() for a in (sol_s.edir.sum(0) / area,
+                                    (sol_s.edn.sum(0) + sol_t.edn.sum(0)) / area,
+                                    (sol_s.eup.sum(0) + sol_t.eup.sum(0)) / area,
+                                    sol_s.abso.sum(0) + sol_t.abso.sum(0))],
+                 wall_s + wall_t, (sol_s.niter_diff.tolist(), sol_t.niter_diff.tolist()))
+    del first, sol_s, sol_t
     log(f"{label} cold ({WEDGE_EXACT}): {text}")
     if above:
         raise AssertionError(f"{label}: {above} lanes above their tolerance")
@@ -2737,16 +2809,18 @@ def phase_wedge_spectral(cuda_ops, opp, seed, smi):
         f"{2 * NX * NY / wall:.1f} triangle columns/s ({smi}); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; K1-K4 launches 0")
     del res, solver
-    # the busy share of the fixed point's steady state: the first solar chunk, its lanes
-    # stopped after WEDGE_PROFILE_STEPS steps (not gated)
+    # the busy share of the fixed point's steady state: the first thermal chunk (no direct
+    # sweep before its diffuse steps), its lanes stopped after WEDGE_PROFILE_STEPS steps
+    # (not gated)
     solver = PlexrtSolver(fish_mesh(atm.nlay, NX, NY, 100.0, 100.0, atm.dz.astype(np.float32)),
                           opp, **{**WEDGE_EXACT, "diff_iters": WEDGE_PROFILE_STEPS})
     solver.set_angles(sundir_from_angles(*SPECTRAL_SUN))
-    wedge_profile(f"{label} profile (the first solar chunk, {WEDGE_PROFILE_STEPS} steps)",
-                  lambda: wedge_specint(solver, atm, lwc2, gas, label, lthermal=False,
+    wedge_profile(f"{label} profile (the first thermal chunk, {WEDGE_PROFILE_STEPS} steps)",
+                  lambda: wedge_specint(solver, atm, lwc2, gas, label, lsolar=False,
                                         band_chunk=WEDGE_CHUNK, max_gpt=WEDGE_CHUNK))
     del solver
     torch.cuda.empty_cache()
+    return chunk_ref
 
 
 def icon_budget(solver, edir_toa=1000.0):
@@ -2786,7 +2860,20 @@ def phase_wedge_icon(cuda_ops, opp, seed, smi):
     written and read back, solved by PlexrtSolverIcon on phase 25's scene
     (defaults timed, NCA, and the gated solve with its lateral escape); the
     rotation check at 16 x 16; card against CPU on crops for both wedge
-    solvers."""
+    solvers (the CPU sides in a process of their own from the phase's
+    start).  Returns the mesh read back and the gated solve's fields,
+    niter and NCA for phase 32."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu_side = start_wedge_crops_cpu(seed, tmp)
+        try:
+            return _wedge_icon(cuda_ops, opp, seed, smi, cpu_side)
+        finally:
+            if cpu_side[0].poll() is None:
+                cpu_side[0].kill()
+                cpu_side[0].wait()
+
+
+def _wedge_icon(cuda_ops, opp, seed, smi, cpu_side):
     from tenstream_tpu_torch.plexrt import icon
     from tenstream_tpu_torch.plexrt.solver_unstructured import PlexrtSolverIcon
     from tenstream_tpu_torch.pprts.sun import sundir_from_angles
@@ -2815,7 +2902,10 @@ def phase_wedge_icon(cuda_ops, opp, seed, smi):
         return s
 
     cuda_ops.reset_launch_counts()
-    solver, sol_t, _ = wedge_runs(label, make, fields, planck, mu, smi, budget=icon_budget)
+    solver, sol_t, _, xsolver, xsol_s, xsol_t = wedge_runs(label, make, fields, planck, mu, smi,
+                                                          budget=icon_budget)
+    ref = wedge_reference(xsolver, xsol_s, xsol_t, nca=True)
+    del xsolver, xsol_s, xsol_t
     solver.set_optical_properties(WEDGE_ALBEDO, *fields, planck=planck)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2853,7 +2943,8 @@ def phase_wedge_icon(cuda_ops, opp, seed, smi):
     log(f"wedge ICON rotation by {WEDGE_ROT_ANGLE} deg at {n}x{n} ({WEDGE_EXACT}): max |diff| "
         + ", ".join(errs) + " (the JAX test's gates held)")
 
-    wedge_card_vs_cpu(seed)
+    wedge_card_vs_cpu(seed, cpu_side)
+    return mesh, ref
 
 
 def wedge_sundir(phi_deg, theta_deg):
@@ -2863,13 +2954,14 @@ def wedge_sundir(phi_deg, theta_deg):
     return np.array([np.sin(p) * np.sin(t), np.cos(p) * np.sin(t), -np.cos(t)])
 
 
-def wedge_card_vs_cpu(seed):
-    """Both wedge solvers on a crop on the card and on the CPU, monochromatic
-    solar+thermal on WEDGE_EXACT (converged solves; a stall exit's iterate
-    is not reproducible across devices), and through specint_plexrt (max_gpt
-    8): the fish solver's solar and thermal lanes on WEDGE_EXACT (CROP), the
+def wedge_crop_runs(seed, dev):
+    """Phase 27's crops of both wedge solvers on `dev`: [(label, n, run)] with
+    `run()` giving the crop's fields, monochromatic solar+thermal on
+    WEDGE_EXACT (converged solves; a stall exit's iterate is not
+    reproducible across devices), and through specint_plexrt (max_gpt 8):
+    the fish solver's solar and thermal lanes on WEDGE_EXACT (CROP), the
     ICON solver's one chunk of 8 solar lanes on its default BiCGStab
-    (n_inner 128; ICON_CROP), every lane converged: phase 19's gates."""
+    (n_inner 128; ICON_CROP), every lane converged."""
     from tenstream_tpu_torch.plexrt import icon
     from tenstream_tpu_torch.plexrt.mesh import fish_mesh
     from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
@@ -2878,69 +2970,104 @@ def wedge_card_vs_cpu(seed):
     from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
     from tenstream_tpu_torch.spectral.specint_plexrt import specint_plexrt
 
-    opps = {dev: wedge_opp(dev)[0] for dev in ("cuda", "cpu")}
+    opp = wedge_opp(dev)[0]
 
     def scene(n):
         dz, fields, planck = wedge_scene(n, seed)
         atm, lwc = build_bench_atm(n, n, seed)
         return dz, fields, planck, atm, both_orientations(lwc)
 
-    def solver(kind, n, dev, dzv, **kw):
+    def solver(kind, n, dzv, **kw):
         if kind == "fish":
-            s = PlexrtSolver(fish_mesh(len(dzv), n, n, 100.0, 100.0, dzv), opps[dev], **kw)
+            s = PlexrtSolver(fish_mesh(len(dzv), n, n, 100.0, 100.0, dzv), opp, **kw)
         else:
-            s = PlexrtSolverIcon(icon.trimesh_from_structured(n, n, 100.0, 100.0), dzv, opps[dev],
-                                 **kw)
+            s = PlexrtSolverIcon(icon.trimesh_from_structured(n, n, 100.0, 100.0), dzv, opp, **kw)
         s.set_angles(sundir_from_angles(*SPECTRAL_SUN))
         return s
 
     def mono(kind, n):
         cells = (lambda a: a) if kind == "fish" else icon_cells
         dz, fields, planck, _, _ = scene(n)
-
-        def run(dev):
-            s = solver(kind, n, dev, dz, **WEDGE_EXACT)
-            s.set_optical_properties(WEDGE_ALBEDO, *(cells(a) for a in fields),
-                                     planck=cells(planck))
-            return s.get_result(s.solve(lthermal=True, lsolar=True, edirTOA=1000.0))
-        return run
+        s = solver(kind, n, dz, **WEDGE_EXACT)
+        s.set_optical_properties(WEDGE_ALBEDO, *(cells(a) for a in fields), planck=cells(planck))
+        return s.get_result(s.solve(lthermal=True, lsolar=True, edirTOA=1000.0))
 
     def fish_spectral(n):
         *_, atm, lwc2 = scene(n)
-
-        def run(dev):
-            s = solver("fish", n, dev, atm.dz.astype(np.float32), **WEDGE_EXACT)
-            return specint_plexrt(s, atm, WEDGE_ALBEDO, True, True,
-                                  specint=EcckdGasOptics(n_gpt=NGPT), lwc=lwc2,
-                                  max_gpt=WEDGE_CHUNK, band_chunk=WEDGE_CHUNK)
-        return run
+        s = solver("fish", n, atm.dz.astype(np.float32), **WEDGE_EXACT)
+        return specint_plexrt(s, atm, WEDGE_ALBEDO, True, True, specint=EcckdGasOptics(n_gpt=NGPT),
+                              lwc=lwc2, max_gpt=WEDGE_CHUNK, band_chunk=WEDGE_CHUNK)
 
     def icon_spectral(n):
         *_, atm, lwc2 = scene(n)
+        # the default diffuse solver's lanes: the crop's first solar chunk, on which every
+        # BiCGStab lane of the ICON solver converges (its open boundary lets the diffuse
+        # light out; the fish mesh's periodic column stalls, ROADMAP section 3)
+        s = solver("icon", n, atm.dz.astype(np.float32), n_inner=WEDGE_EXACT["n_inner"])
+        label = f"wedge icon specint_plexrt BiCGStab on {dev}"
+        res, _, text, above = wedge_specint(s, atm, icon_cells(lwc2), EcckdGasOptics(n_gpt=NGPT),
+                                            label, lthermal=False, max_gpt=WEDGE_CHUNK,
+                                            band_chunk=WEDGE_CHUNK)
+        log(f"{label}: {text}")
+        if above:
+            raise AssertionError(f"{label}: {above} lanes above their tolerance")
+        return res
 
-        def run(dev):
-            # the default diffuse solver's lanes: the crop's first solar chunk, on which every
-            # BiCGStab lane of the ICON solver converges (its open boundary lets the diffuse
-            # light out; the fish mesh's periodic column stalls, ROADMAP section 3)
-            s = solver("icon", n, dev, atm.dz.astype(np.float32), n_inner=WEDGE_EXACT["n_inner"])
-            label = f"wedge icon specint_plexrt BiCGStab on {dev}"
-            res, _, text, above = wedge_specint(s, atm, icon_cells(lwc2),
-                                                EcckdGasOptics(n_gpt=NGPT), label, lthermal=False,
-                                                max_gpt=WEDGE_CHUNK, band_chunk=WEDGE_CHUNK)
-            log(f"{label}: {text}")
-            if above:
-                raise AssertionError(f"{label}: {above} lanes above their tolerance")
-            return res
-        return run
-
+    runs = []
     for kind, spectral, n, what in (
             ("fish", fish_spectral, CROP, "fixed point, solar + thermal"),
             ("icon", icon_spectral, ICON_CROP, "BiCGStab, solar")):
-        with cpu_threads(CROP):
-            card_vs_cpu(f"wedge {kind} monochromatic", mono(kind, CROP))
+        runs.append((f"wedge {kind} monochromatic", CROP, lambda k=kind: mono(k, CROP)))
+        runs.append((f"wedge {kind} specint_plexrt ({what}, max_gpt {WEDGE_CHUNK})", n,
+                     lambda f=spectral, m=n: f(m)))
+    return runs
+
+
+def wedge_crops_cpu(path_out: str, seed: str) -> None:
+    """The CPU sides of phase 27's crops, run in a process of its own while the
+    card works: each crop's fields to path_out."""
+    out = {}
+    for k, (_, n, run) in enumerate(wedge_crop_runs(int(seed), "cpu")):
         with cpu_threads(n):
-            card_vs_cpu(f"wedge {kind} specint_plexrt ({what}, max_gpt {WEDGE_CHUNK})",
-                        spectral(n), n=n)
+            t0 = time.perf_counter()
+            fields = [a for a in run() if a is not None]
+            out[f"{k}_wall"] = np.asarray(time.perf_counter() - t0)
+        for q, a in enumerate(fields):
+            out[f"{k}_{q}"] = a.numpy()
+    np.savez(path_out, **out)
+
+
+def start_wedge_crops_cpu(seed, tmp):
+    """Start `wedge_crops_cpu` in a process of its own: (process, its npz)."""
+    path = os.path.join(tmp, "wedge_crops_cpu.npz")
+    proc = subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; "
+                             "chip_smoke.wedge_crops_cpu(*sys.argv[1:])", path, str(seed)],
+                            cwd=REPO)
+    return proc, path
+
+
+def wedge_card_vs_cpu(seed, cpu_side):
+    """Both wedge solvers on crops on the card, held to the same crops on the
+    CPU (`cpu_side`: the process of `start_wedge_crops_cpu` and its npz) with
+    phase 19's gates."""
+    proc, path = cpu_side
+    runs = wedge_crop_runs(seed, "cuda")
+    cards = []
+    for label, n, run in runs:
+        with cpu_threads(n):
+            cards.append(tuple(a.cpu() for a in run() if a is not None))
+    try:
+        if proc.wait(timeout=900) != 0:
+            raise AssertionError(f"wedge crops: the CPU side failed (exit {proc.returncode})")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    z = np.load(path)
+    for k, ((label, n, _), card) in enumerate(zip(runs, cards)):
+        cpu = tuple(torch.as_tensor(z[f"{k}_{q}"]) for q in range(len(card)))
+        hold_crop(f"{label} (the CPU's {float(z[f'{k}_wall']):.1f} s in a process of its own)",
+                  (card, cpu), n)
 
 
 # ---------------------------------------------------------------------------
@@ -3324,8 +3451,9 @@ def phase_mcdmda_solvers(cuda_ops, opp, mc, wedge_exact, seed):
 
 
 ANN_PATH = os.path.join(REPO, "data", "ann", "ANN_3_10_production.npz")
-# the committed net's settings, but 100 epochs of its 150: (d) took 20.8-31.2 s at 150
-ANN_HIDDEN, ANN_EPOCHS, ANN_BATCH = (128, 128, 128), 100, 8192
+# the committed net's settings, but 75 epochs of its 150: (d) took 20.8-31.2 s at 150 and
+# 18.7 s at 100 with a diff2diff off-grid error of 3.4e-3 against the gate's 0.01
+ANN_HIDDEN, ANN_EPOCHS, ANN_BATCH = (128, 128, 128), 75, 8192
 ANN_COEFF_TOL = 0.01  # mean |err| against the LUT: tests/test_ann.py:98, 103
 
 
@@ -3643,40 +3771,7 @@ def phase_decomposed_ranks(cuda_ops, opp, Grid, PprtsSolver, Options, sundir, se
         o, it = solve_and_report(solver, fields, cuda_ops, f"decomposed one-rank {kind}")
         ref[kind] = ([a.cpu().numpy() for a in o], (it[0] + it[1], it[2] + it[3]))
     nxp, nyp = DECOMP_LAYOUT
-    world = nxp * nyp
-    port = _free_port()
-    with tempfile.TemporaryDirectory() as tmp:
-        procs, logs = [], []
-        for r in range(world):
-            lg = open(os.path.join(tmp, f"rank{r}.log"), "w")
-            logs.append(lg)
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
-                 "--decomposed-rank", str(r), "--port", str(port), "--out",
-                 os.path.join(tmp, f"rank{r}.npz")], cwd=REPO, stdout=lg,
-                stderr=subprocess.STDOUT))
-        t0 = time.perf_counter()
-        try:
-            for p in procs:
-                p.wait(timeout=max(1.0, DECOMP_TIMEOUT - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            pass
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            for lg in logs:
-                lg.close()
-        wall = time.perf_counter() - t0
-        codes = [p.returncode for p in procs]
-        if any(c != 0 for c in codes):
-            for r in range(world):
-                with open(os.path.join(tmp, f"rank{r}.log")) as fh:
-                    log(f"decomposed rank {r} (exit {codes[r]}):\n" + fh.read()[-4000:])
-            raise AssertionError(f"decomposed ranks: exit codes {codes} (killed after "
-                                 f"{DECOMP_TIMEOUT:.0f} s where a rank hung)")
-        outs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(world)]
+    outs, wall = spawn_ranks("--decomposed-rank", nxp * nyp, seed, DECOMP_TIMEOUT, "decomposed")
     glob_ = lambda key: np.concatenate(
         [np.concatenate([outs[px * nyp + py][key] for py in range(nyp)], axis=-1)
          for px in range(nxp)], axis=-2)
@@ -3824,6 +3919,477 @@ def phase_halo_kernels(cuda_ops, scheme, idx, nx, ny):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 32: the wedge solvers decomposed; phase 33: the port's C bridge
+# ---------------------------------------------------------------------------
+
+WEDGE_DECOMP_N = 64  # 32 (b): phase 25's band at 64 x 64 ...
+WEDGE_DECOMP_LAYOUT = (2, 2)  # ... in 2 x 2: fish blocks of 32 x 32, 2048 ICON cells per rank
+# ... on WEDGE_EXACT with 16 inner steps of the direct sweep, not 128: each step is one
+# exchange, which gloo stages through the host (~5 ms on one card shared by four ranks), and
+# (b) holds the ranks to one rank on the same options, not the sweep to its exact limit
+WEDGE_DECOMP_OPTS = {**WEDGE_EXACT, "n_inner": 16}
+CAPI_TIMEOUT = 600.0  # [s] for each demo process of phase 33
+CAPI_PPRTS_N = 8  # the JAX demo's 8 x 8 x 8 grid (capi/demo_pprts.c)
+CAPI_SLAB_N = 256  # bench.py's slab for the bridge's specint, at bench.py's width
+CAPI_GAS_N = 16  # the slab's corner on which ecCKD on the card is held to ecCKD on the host
+
+
+def spawn_ranks(flag: str, world: int, seed: int, timeout: float, label: str):
+    """Start this script `world` times with `flag R --port P --out F` (one
+    rank each) and return each rank's npz as a dict, in rank order, and the
+    wall [s]; a rank that hangs past `timeout` is killed and fails it."""
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, logs = [], []
+        for r in range(world):
+            lg = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            logs.append(lg)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed", str(seed), flag, str(r),
+                 "--port", str(port), "--out", os.path.join(tmp, f"rank{r}.npz")], cwd=REPO,
+                stdout=lg, stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for lg in logs:
+                lg.close()
+        wall = time.perf_counter() - t0
+        codes = [p.returncode for p in procs]
+        if any(c != 0 for c in codes):
+            for r in range(world):
+                with open(os.path.join(tmp, f"rank{r}.log")) as fh:
+                    log(f"{label} rank {r} (exit {codes[r]}):\n" + fh.read()[-4000:])
+            raise AssertionError(f"{label} ranks: exit codes {codes} (killed after "
+                                 f"{timeout:.0f} s where a rank hung)")
+        return [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(world)], wall
+
+
+def decomposed_wedge(solver, fields, planck, pmesh, label, nca=True):
+    """Phase 25's gated solar and thermal solves (`wedge_solves`) of a
+    solver: its solar fields, its thermal (edn, eup, abso), niter, the NCA
+    of the thermal solve and, with a mesh, the exchanges and all-reduces of
+    each solve."""
+    seen = {}
+
+    def solar(s):
+        if pmesh is not None:
+            pmesh.reset_stats()
+        sol = s.solve(lthermal=False, lsolar=True, edirTOA=1000.0)
+        if pmesh is not None:
+            seen.update(pmesh.stats)
+        return sol, 0.0
+
+    sol_s, sol_t, wall, text, _ = wedge_solves(solver, fields, planck, label, budget=solar)
+    out = wedge_reference(solver, sol_s, sol_t, nca=nca)
+    out.update(wall=wall, text=text)
+    if pmesh is not None:
+        out["stats"] = (dict(seen), {k: pmesh.stats[k] - seen[k] for k in seen})
+    return out
+
+
+def hold_wedge(label, got, want, exact: bool):
+    """Fields, niter and NCA of a decomposed run against the undecomposed
+    one: bit for bit (`exact`), else within the cube's gates (0.1 W/m2, 1e-4
+    W/m3) and equal fixed-point niter."""
+    errs = _max_diffs(got["solar"] + got["thermal"], want["solar"] + want["thermal"])
+    nca = _max_diffs([got["nca"]], [want["nca"]])[0] if "nca" in want else 0.0
+    flux = max(errs[:3] + errs[4:6])
+    abso = max(errs[3], errs[6], nca)
+    log(f"{label}: max abs solar edir {errs[0]:.3e} edn {errs[1]:.3e} eup {errs[2]:.3e} W/m2, "
+        f"abso {errs[3]:.3e} W/m3; thermal edn {errs[4]:.3e} eup {errs[5]:.3e} W/m2, abso "
+        f"{errs[6]:.3e} W/m3; NCA {nca:.3e} W/m3 (all 0: {max(errs + [nca]) == 0.0}); niter "
+        f"{got['niter']} against {want['niter']}")
+    if got["niter"] != want["niter"]:
+        raise AssertionError(f"{label}: niter {got['niter']} against {want['niter']}")
+    if exact and max(errs + [nca]) != 0.0:
+        raise AssertionError(f"{label}: not bit for bit the undecomposed run")
+    if flux > FLUX_ATOL or abso > ABSO_ATOL:
+        raise AssertionError(f"{label}: beyond the gates (0.1 W/m2, 1e-4 W/m3)")
+
+
+def _max_diffs(got, want):
+    return [float((a.cpu() - b.cpu()).abs().max()) for a, b in zip(got, want)]
+
+
+def _exchanges(stats) -> str:
+    return ", ".join(f"{what}: {s['exchanges']} exchanges ({s['messages']} messages to other "
+                     f"ranks), {s['reductions']} all-reduces" for what, s in
+                     zip(("solar", "thermal"), stats))
+
+
+def phase_wedge_decomposed(cuda_ops, opp, seed, smi, fish_ref, icon_mesh, icon_ref, chunk_ref):
+    """32 (a): the wedge path at full width on a one-rank NCCL group: phase
+    25's WEDGE_EXACT band on the 256 x 256 x 39 fish mesh and phase 27's
+    gated ICON solve with NCA, each through `set_mesh` and held bit for bit
+    to that phase's run (kept in memory); then `specint_plexrt` (ecCKD, the
+    first chunk of 8 g-points of each spectrum, max_gpt 8) decomposed, held
+    bit for bit to the same two chunks of phase 26's undecomposed call
+    (`chunk_ref`, reduced as the call reduces them; not run a second time).
+    Walls beside each other, the exchanges per solve, K1-K4 never
+    launched: returns the launch counts (all 0)."""
+    import torch.distributed as dist
+
+    from tenstream_tpu_torch.parallel.mesh import init_distributed, make_mesh, shard_fields
+    from tenstream_tpu_torch.plexrt.mesh import fish_mesh
+    from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
+    from tenstream_tpu_torch.plexrt.solver_unstructured import PlexrtSolverIcon
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+    from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
+
+    sun = sundir_from_angles(*SPECTRAL_SUN)
+    init_distributed(f"localhost:{_free_port()}", num_processes=1, process_id=0, device="cuda")
+    try:
+        pmesh = make_mesh(1, 1)
+        cuda_ops.reset_launch_counts()
+        dz, fields, planck = wedge_scene(NX, seed)
+        label = f"wedge decomposed fish {NX}x{NY}x{NZ} ({pmesh}, {WEDGE_EXACT})"
+        solver = PlexrtSolver(fish_mesh(NZ, NX, NY, 100.0, 100.0, dz), opp, **WEDGE_EXACT)
+        solver.set_angles(sun)
+        solver.set_mesh(pmesh)
+        blocks = shard_fields(pmesh, *fields, planck)
+        run = decomposed_wedge(solver, blocks[:3], blocks[3], pmesh, label, nca=False)
+        log(f"{label}: wall {run['wall'] * 1e3:.1f} ms (phase 25's exact run took its "
+            f"WEDGE_EXACT wall above); {run['text']}; {_exchanges(run['stats'])}")
+        hold_wedge(f"{label} vs phase 25", run, fish_ref, exact=True)
+        del solver, run, blocks
+        torch.cuda.empty_cache()
+
+        label = f"wedge decomposed ICON {icon_mesh.ncell} cells x {NZ} ({pmesh}, {WEDGE_EXACT})"
+        solver = PlexrtSolverIcon(icon_mesh, dz, opp, **WEDGE_EXACT)
+        solver.set_angles(sun)
+        solver.set_mesh(pmesh)
+        blocks = shard_fields(pmesh, *(icon_cells(a) for a in fields), icon_cells(planck),
+                              cell_axis=-1)
+        run = decomposed_wedge(solver, blocks[:3], blocks[3], pmesh, label)
+        log(f"{label}: wall {run['wall'] * 1e3:.1f} ms; {run['text']}; "
+            f"{_exchanges(run['stats'])}")
+        hold_wedge(f"{label} vs phase 27", run, icon_ref, exact=True)
+        del solver, run, blocks
+        torch.cuda.empty_cache()
+
+        atm, lwc = build_bench_atm(NX, NY, seed)
+        gas = EcckdGasOptics(n_gpt=NGPT)
+        label = f"wedge decomposed spectral {NX}x{NY}x{atm.nlay}"
+        solver = PlexrtSolver(fish_mesh(atm.nlay, NX, NY, 100.0, 100.0, atm.dz.astype(np.float32)),
+                              opp, **WEDGE_EXACT)
+        solver.set_angles(sun)
+        solver.set_mesh(pmesh)
+        (lwc2,) = shard_fields(pmesh, both_orientations(lwc))
+        pmesh.reset_stats()
+        first = {}
+        res, wall, text, above = wedge_specint(solver, atm, lwc2, gas, label, first=first,
+                                               band_chunk=WEDGE_CHUNK, max_gpt=WEDGE_CHUNK)
+        if above:
+            raise AssertionError(f"{label}: {above} lanes above their tolerance")
+        want, want_wall, want_iters = chunk_ref
+        iters = tuple(first[k][0].niter_diff.tolist() for k in ("solar", "thermal"))
+        errs = _max_diffs(res, want)
+        log(f"{label}, ecCKD the first {WEDGE_CHUNK} g-points of each spectrum ({WEDGE_EXACT}): "
+            f"{wall * 1e3:.1f} ms decomposed against phase 26's same two chunks "
+            f"{want_wall * 1e3:.1f} ms ({smi}); {text}; {pmesh.stats['exchanges']} exchanges, "
+            f"{pmesh.stats['reductions']} all-reduces; max abs edir {errs[0]:.3e} edn "
+            f"{errs[1]:.3e} eup {errs[2]:.3e} W/m2, abso {errs[3]:.3e} W/m3 (all 0: "
+            f"{max(errs) == 0.0}); lanes' niter equal: {iters == want_iters}")
+        if iters != want_iters or max(errs) != 0.0:
+            raise AssertionError(f"{label}: not bit for bit phase 26's first chunks")
+        del solver, res, first
+        no_cube_kernels(cuda_ops, "wedge decomposed")
+        launches = dict(cuda_ops.LAUNCHES)
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def wedge_decomposed_rank(rank: int, port: int, out: str, seed: int) -> None:
+    """32 (b), one rank of the 2 x 2 gloo group on cuda:0: phase 25's band
+    at 64 x 64 on WEDGE_DECOMP_OPTS on the fish mesh (this rank's 32 x 32 block)
+    and on the ICON mesh (its 2048 cells), solar and thermal with NCA;
+    writes this rank's fields, niter, exchanges and walls."""
+    import torch.distributed as dist
+
+    from tenstream_tpu_torch.parallel.mesh import init_distributed, make_mesh, shard_fields
+    from tenstream_tpu_torch.plexrt import icon
+    from tenstream_tpu_torch.plexrt.mesh import fish_mesh
+    from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
+    from tenstream_tpu_torch.plexrt.solver_unstructured import PlexrtSolverIcon
+    from tenstream_tpu_torch.pprts import cuda_ops
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    nxp, nyp = WEDGE_DECOMP_LAYOUT
+    init_distributed(f"localhost:{port}", num_processes=nxp * nyp, process_id=rank,
+                     device="cuda", backend="gloo")
+    pmesh = make_mesh(nxp, nyp)
+    opp = wedge_opp()[0]
+    n = WEDGE_DECOMP_N
+    dz, fields, planck = wedge_scene(n, seed)
+    result = {}
+    for kind in ("fish", "icon"):
+        if kind == "fish":
+            solver = PlexrtSolver(fish_mesh(NZ, n, n, 100.0, 100.0, dz), opp, **WEDGE_DECOMP_OPTS)
+            blocks = shard_fields(pmesh, *fields, planck)
+        else:
+            solver = PlexrtSolverIcon(icon.trimesh_from_structured(n, n, 100.0, 100.0), dz, opp,
+                                      **WEDGE_DECOMP_OPTS)
+            blocks = shard_fields(pmesh, *(icon_cells(a) for a in fields), icon_cells(planck),
+                                  cell_axis=-1)
+        solver.set_angles(sundir_from_angles(*SPECTRAL_SUN))
+        solver.set_mesh(pmesh)
+        cuda_ops.reset_launch_counts()
+        run = decomposed_wedge(solver, blocks[:3], blocks[3], pmesh, f"wedge 2x2 {kind}")
+        for name, a in zip(("edir", "edn", "eup", "abso", "t_edn", "t_eup", "t_abso", "nca"),
+                           run["solar"] + run["thermal"] + [run["nca"]]):
+            result[f"{kind}_{name}"] = a.numpy()
+        result[kind + "_niter"] = np.asarray(run["niter"])
+        result[kind + "_wall"] = np.asarray(run["wall"])
+        result[kind + "_stats"] = np.asarray([[s[k] for k in ("exchanges", "messages",
+                                                              "reductions")]
+                                              for s in run["stats"]])
+        result[kind + "_launches"] = np.asarray(sum(cuda_ops.LAUNCHES.values()))
+    np.savez(out, **result)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_wedge_decomposed_ranks(cuda_ops, opp, seed):
+    """32 (b): real neighbours on one card.  Four processes in a 2 x 2 gloo
+    group on cuda:0 solve phase 25's band at 64 x 64 on WEDGE_DECOMP_OPTS on the
+    fish mesh (blocks of 32 x 32) and on the ICON mesh (2048 cells each),
+    solar and thermal with NCA; each held to this process's one-rank solve
+    with the cube's gates (0.1 W/m2, 1e-4 W/m3, NCA 1e-4 W/m3) and equal
+    fixed-point niter."""
+    from tenstream_tpu_torch.plexrt import icon
+    from tenstream_tpu_torch.plexrt.mesh import fish_mesh
+    from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
+    from tenstream_tpu_torch.plexrt.solver_unstructured import PlexrtSolverIcon
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    n = WEDGE_DECOMP_N
+    dz, fields, planck = wedge_scene(n, seed)
+    sun = sundir_from_angles(*SPECTRAL_SUN)
+    refs = {}
+    for kind in ("fish", "icon"):
+        if kind == "fish":
+            solver = PlexrtSolver(fish_mesh(NZ, n, n, 100.0, 100.0, dz), opp, **WEDGE_DECOMP_OPTS)
+            f, p = fields, planck
+        else:
+            solver = PlexrtSolverIcon(icon.trimesh_from_structured(n, n, 100.0, 100.0), dz, opp,
+                                      **WEDGE_DECOMP_OPTS)
+            f, p = tuple(icon_cells(a) for a in fields), icon_cells(planck)
+        solver.set_angles(sun)
+        refs[kind] = decomposed_wedge(solver, f, p, None, f"wedge one-rank {kind} {n}x{n}")
+    nxp, nyp = WEDGE_DECOMP_LAYOUT
+    outs, wall = spawn_ranks("--wedge-rank", nxp * nyp, seed, DECOMP_TIMEOUT, "wedge 2x2")
+    for kind in ("fish", "icon"):
+        if kind == "fish":
+            glob_ = lambda key: torch.as_tensor(np.concatenate(
+                [np.concatenate([outs[px * nyp + py][key] for py in range(nyp)], axis=-1)
+                 for px in range(nxp)], axis=-2))
+        else:
+            glob_ = lambda key: torch.as_tensor(np.concatenate([o[key] for o in outs], axis=-1))
+        iters = [tuple(int(v) for v in o[kind + "_niter"]) for o in outs]
+        if len(set(iters)) != 1:
+            raise AssertionError(f"wedge 2x2 {kind}: the ranks report other niter {iters}")
+        got = dict(solar=[glob_(f"{kind}_{k}") for k in ("edir", "edn", "eup", "abso")],
+                   thermal=[glob_(f"{kind}_{k}") for k in ("t_edn", "t_eup", "t_abso")],
+                   nca=glob_(kind + "_nca"), niter=iters[0])
+        hold_wedge(f"wedge 2x2 gloo {kind} vs one rank", got, refs[kind], exact=False)
+        stats = outs[0][kind + "_stats"]
+        launches = sum(int(o[kind + "_launches"]) for o in outs)
+        log(f"wedge 2x2 gloo {kind} {n}x{n}: wall {max(float(o[kind + '_wall']) for o in outs) * 1e3:.1f}"
+            f" ms against one rank's {refs[kind]['wall'] * 1e3:.1f} ms; rank 0 solar {stats[0][0]} "
+            f"exchanges ({stats[0][1]} messages), {stats[0][2]} all-reduces; thermal "
+            f"{stats[1][0]} / {stats[1][1]} / {stats[1][2]}; K1-K4 launches over the ranks "
+            f"{launches}")
+        if launches:
+            raise AssertionError(f"wedge 2x2 {kind}: the wedge path launched cube kernels")
+    log(f"wedge 2x2 on one card: {wall:.1f} s for the four ranks (start-up included)")
+
+
+def capi_slab(n, seed):
+    """bench.py's slab at n x n for the C bridge: plev, tlev (nz+1, n, n)
+    [Pa, K] and its liquid water (nz, n, n) converted to g/kg with the air
+    density the bridge computes back."""
+    from tenstream_tpu_torch.core.types import R_DRY_AIR
+
+    atm, lwc = build_bench_atm(n, n, seed)
+    shape = (atm.nlay + 1, n, n)
+    plev = np.broadcast_to(np.asarray(atm.plev, np.float32)[:, None, None], shape).copy()
+    tlev = np.broadcast_to(np.asarray(atm.tlev, np.float32)[:, None, None], shape).copy()
+    p, t = plev.astype(np.float64), tlev.astype(np.float64)
+    rho = (0.5 * (p[:-1] + p[1:])) / (R_DRY_AIR * 0.5 * (t[:-1] + t[1:]))
+    return plev, tlev, (lwc / rho).astype(np.float32)
+
+
+def hold_gas_optics_device(plev, tlev):
+    """ecCKD's gas optics on the card against the same on the host, bit for
+    bit, on the slab's CAPI_GAS_N x CAPI_GAS_N corner merged as the bridge
+    merges it: the bridge builds its backend on the card."""
+    from tenstream_tpu_torch.atm import setup_tenstr_atm
+    from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
+
+    c = (slice(None), slice(0, CAPI_GAS_N), slice(0, CAPI_GAS_N))
+    atm = setup_tenstr_atm(plev[c].astype(np.float64), tlev[c].astype(np.float64))
+    host, card = EcckdGasOptics(n_gpt=NGPT), EcckdGasOptics(n_gpt=NGPT, device="cuda")
+    same = all(torch.equal(getattr(getattr(host, kind)(atm), k),
+                           getattr(getattr(card, kind)(atm), k).cpu())
+               for kind, keys in (("solar", ("tau", "w0", "weight")),
+                                  ("thermal", ("tau", "planck")))
+               for k in keys)
+    log(f"capi ecCKD {NGPT}+{NGPT} gas optics on the card vs the host, {CAPI_GAS_N}x"
+        f"{CAPI_GAS_N} columns of {atm.nlay} merged layers: bit for bit {same}")
+    if not same:
+        raise AssertionError("ecCKD on the card differs from ecCKD on the host")
+
+
+def phase_capi(cuda_ops, seed, smi):
+    """33: the port's C bridge on the card.  Builds the library and demos
+    with cc (`capi/build.py`); runs `demo_pprts --solver 3_10` on the card and
+    holds its fields bit for bit to the same solve through the Python API
+    here; runs `demo_specint` on bench.py's slab at CAPI_SLAB_N x CAPI_SLAB_N
+    x 39 (its plev, tlev and liquid water in g/kg; ecCKD; 3_10 on the mockup
+    table the bridge loads) and holds it bit for bit to `bridge.specint`
+    called here.  The two demo processes start together (demo_pprts's 8 x 8
+    x 8 solve beside demo_specint's start-up); this process touches the card
+    only after both have ended.  Prints the walls of both, their peak device
+    memory and their K1/K2 launches; returns the demo's specint call's
+    launches."""
+    from tenstream_tpu_torch.capi import bridge
+    from tenstream_tpu_torch.capi.build import build
+    from tenstream_tpu_torch.optprop.facade import OptProp
+    from tenstream_tpu_torch.optprop.lut import load_or_create_lut, mockup_axes
+    from tenstream_tpu_torch.pprts.grid import Grid
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    t0 = time.perf_counter()
+    paths = build()
+    log(f"capi: library and demos built in {time.perf_counter() - t0:.1f} s into "
+        f"{os.path.relpath(os.path.dirname(paths['lib']), REPO)}")
+    n_slab = CAPI_SLAB_N
+    plev, tlev, lwc = capi_slab(n_slab, seed)
+    nz = lwc.shape[0]
+    hold_gas_optics_device(plev, tlev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        slab = os.path.join(tmp, "slab.bin")
+        with open(slab, "wb") as fh:
+            fh.write(np.asarray([nz, n_slab, n_slab], np.int32).tobytes())
+            fh.write(np.asarray([100.0, 100.0], np.float64).tobytes())
+            for a in (plev, tlev, lwc):
+                fh.write(a.tobytes())
+
+        def start(name, *args):
+            """The demo's process, logging its calls to a file of its own."""
+            calls = os.path.join(tmp, f"{name}.jsonl")
+            env = dict(os.environ, TENSTREAM_TPU_TORCH_CAPI_LOG=calls)
+            proc = subprocess.Popen([paths[name], *args], env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            return name, args, calls, proc, time.perf_counter()
+
+        def finish(run):
+            name, args, calls, proc, t0 = run
+            try:
+                stdout, stderr = proc.communicate(timeout=CAPI_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+            wall = time.perf_counter() - t0
+            if proc.returncode:
+                raise AssertionError(f"capi {name}: exit {proc.returncode}\n{stdout}\n"
+                                     f"{stderr[-4000:]}")
+            with open(calls) as fh:
+                call = json.loads(fh.read().splitlines()[-1])
+            flags = " ".join(a for a in args if "/" not in a)
+            log(f"capi {name} {flags}: {stdout.strip()}; process {wall:.1f} s, its "
+                f"{call['call']} call {call['wall_s'] * 1e3:.1f} ms, peak device memory "
+                f"{call['peak_gib']:.2f} GiB, launches {call['launches']}")
+            return call
+
+        out_pprts, out_spec = os.path.join(tmp, "pprts.bin"), os.path.join(tmp, "spec.bin")
+        runs = [start("demo_pprts", "--solver", "3_10", "--out", out_pprts),
+                start("demo_specint", "--solver", "3_10", "--specint", "ecckd", "--in", slab,
+                      "--out", out_spec)]
+        try:
+            call_pprts = finish(runs[0])
+            call = finish(runs[1])
+        finally:
+            for run in runs:
+                if run[3].poll() is None:
+                    run[3].kill()
+                    run[3].communicate()
+
+        n = CAPI_PPRTS_N
+        raw = np.fromfile(out_pprts, np.float32)
+        lev = (n + 1) * n * n
+        got = [raw[k * lev:(k + 1) * lev] for k in range(3)] + [raw[3 * lev:]]
+        lut = load_or_create_lut("3_10", mockup_axes(True), mockup_axes(False), n_photons=2000,
+                                 device="cuda")
+        solver = PprtsSolver(Grid.create(n, n, n, 100.0, 100.0, np.full(n, 100.0, np.float32),
+                                         device="cuda"), OptProp(lut, device="cuda"))
+        solver.set_angles(sundir_from_angles(180.0, 40.0))
+        ones = np.ones((n, n, n), np.float32)
+        solver.set_optical_properties(0.2, 1e-4 * ones, 1e-3 * ones, 0.5 * ones)
+        cuda_ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(lthermal=False, lsolar=True, edirTOA=1364.0)
+        want = [a.reshape(-1).cpu().numpy() for a in solver.get_result()]
+        wall = time.perf_counter() - t0
+        errs = [float(np.abs(a - b).max()) for a, b in zip(got, want)]
+        log(f"capi demo_pprts against the Python API's solve ({wall * 1e3:.1f} ms, launches "
+            f"{dict(cuda_ops.LAUNCHES)}): max abs edir {errs[0]:.3e} edn {errs[1]:.3e} eup "
+            f"{errs[2]:.3e} W/m2, abso {errs[3]:.3e} W/m3 (all 0: {max(errs) == 0.0})")
+        if max(errs) != 0.0 or call_pprts["launches"]["fused_A_dots"] == 0:
+            raise AssertionError("capi demo_pprts: not bit for bit the Python API's solve, or "
+                                 "no K1 launch")
+        del solver
+
+        n = n_slab
+        raw = np.fromfile(out_spec, np.float32)
+        nzm = int(raw[:1].view(np.int32)[0])
+        lev = (nzm + 1) * n * n
+        got = [raw[1 + k * lev:1 + (k + 1) * lev] for k in range(3)] + [raw[1 + 3 * lev:]]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = bridge.specint(nz, n, n, 100.0, 100.0, 180.0, 40.0, 0.1, 0.25, "ecckd", "3_10",
+                             plev.tobytes(), tlev.tobytes(), lwc.tobytes(),
+                             np.full(lwc.shape, 10.0, np.float32).tobytes(), None, None, 1, 1)
+        wall = time.perf_counter() - t0
+        bridge.destroy()
+        want = [np.frombuffer(b, np.float32) for b in res[1:]]
+        errs = [float(np.abs(a - b).max()) for a, b in zip(got, want)]
+        chunk = bridge._band_chunk(torch.device("cuda"), (nzm + 1) * n * n)
+        log(f"capi specint on bench.py's slab {n}x{n}x{nz} (merged to {nzm} layers), ecCKD, "
+            f"3_10, chunks of {chunk}: the demo's call {call['wall_s'] * 1e3:.1f} ms (K1 "
+            f"{call['launches']['fused_A_dots']}, K2 {call['launches']['orbit_contract']}), "
+            f"bridge.specint here {wall * 1e3:.1f} ms (K1 {cuda_ops.LAUNCHES['fused_A_dots']}, "
+            f"K2 {cuda_ops.LAUNCHES['orbit_contract']}), {smi}; peak device memory here "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; max abs edir {errs[0]:.3e} "
+            f"edn {errs[1]:.3e} eup {errs[2]:.3e} W/m2, abso {errs[3]:.3e} W/m3 (all 0: "
+            f"{max(errs) == 0.0})")
+        if res[0] != nzm or max(errs) != 0.0:
+            raise AssertionError("capi specint: the demo is not bit for bit bridge.specint")
+        if not all(np.isfinite(a).all() for a in want):
+            raise AssertionError("capi specint: non-finite fields")
+        if call["launches"]["fused_A_dots"] == 0 or call["launches"]["orbit_contract"] == 0:
+            raise AssertionError("capi specint: K1 or K2 not launched")
+    torch.cuda.empty_cache()
+    return call["launches"]
+
+
 def instantiation_rows(cuda_ops, by_scheme, scheme_launches, dense_launches, main_launches,
                        spectral_launches):
     """Per kernel, its instantiations: (scheme, nd, norb, ms, bound_ms,
@@ -3871,6 +4437,8 @@ def main():
     ap.add_argument("--seed", type=int, default=7)
     # one rank of phase 31 (b), started by the script itself
     ap.add_argument("--decomposed-rank", type=int, default=None, help=argparse.SUPPRESS)
+    # one rank of phase 32 (b)
+    ap.add_argument("--wedge-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -3878,6 +4446,11 @@ def main():
         if not torch.cuda.is_available():
             sys.exit(2)
         decomposed_rank(args.decomposed_rank, args.port, args.out, args.seed)
+        return
+    if args.wedge_rank is not None:
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        wedge_decomposed_rank(args.wedge_rank, args.port, args.out, args.seed)
         return
 
     name, smi = phase_device()
@@ -3904,15 +4477,22 @@ def main():
         # the wedge phases launch no kernel: they run while the kernels build
         built = ex.submit(phase_build, cuda_ops)
         wopp = wedge_opp()
-        wedge_exact = phase_wedge(cuda_ops, wopp, args.seed, smi)
+        wedge_exact, fish_ref = phase_wedge(cuda_ops, wopp, args.seed, smi)
         lap("25 wedge")
         wopp = wopp[0]
-        phase_wedge_spectral(cuda_ops, wopp, args.seed, smi)
+        chunk_ref = phase_wedge_spectral(cuda_ops, wopp, args.seed, smi)
         lap("26 wedge spectral")
-        phase_wedge_icon(cuda_ops, wopp, args.seed, smi)
-        del wopp
+        icon_mesh, icon_ref = phase_wedge_icon(cuda_ops, wopp, args.seed, smi)
         torch.cuda.empty_cache()
         lap("27 wedge ICON")
+        wedge_launches = phase_wedge_decomposed(cuda_ops, wopp, args.seed, smi, fish_ref,
+                                                icon_mesh, icon_ref, chunk_ref)
+        del fish_ref, icon_mesh, icon_ref, chunk_ref
+        lap("32a wedge decomposed")
+        phase_wedge_decomposed_ranks(cuda_ops, wopp, args.seed)
+        del wopp
+        torch.cuda.empty_cache()
+        lap("32b wedge decomposed ranks")
         phase_wedge_tables(cuda_ops, args.seed, smi)
         torch.cuda.empty_cache()
         lap("28 wedge tables")
@@ -3952,6 +4532,8 @@ def main():
     report["orbit_contract"].update(halo_report["orbit_contract"])
     torch.cuda.empty_cache()
     lap("31b-c decomposed ranks, halo kernels")
+    capi_launches = phase_capi(cuda_ops, args.seed, smi)
+    lap("33 capi")
     launches["diffuse_apply_dense"] = phase_urban_spectral(
         cuda_ops, opp, args.seed, smi, report["diffuse_apply_dense"])["diffuse_apply_dense"]
     torch.cuda.empty_cache()
@@ -3995,6 +4577,10 @@ def main():
             kernels[-1]["instantiations"] = insts[kname]
         if kname == "diffuse_apply_dense":
             kernels[-1]["launches_ann"] = ann_launches  # phase 30 (b): the ANN path
+        # phase 32 (a): the decomposed wedge path launches none; phase 33: the C bridge's
+        # specint in its demo's process
+        kernels[-1]["launches_wedge_decomposed"] = wedge_launches[kname]
+        kernels[-1]["launches_capi"] = capi_launches[kname]
     # the halo modes: K1's launches on phase 31 (a)'s decomposed main path, K3's on 31 (b)'s
     # dense solves; times from 31 (c)
     for kname, n in (("fused_A_dots", decomp_halo["fused_A_dots"]),

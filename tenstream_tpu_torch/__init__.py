@@ -2,10 +2,12 @@
 
 The package mirrors the JAX package's layout (`core/`, `ops/`,
 `optprop/`, `boxmc/`, `pprts/`, `plexrt/`, `spectral/`, `parallel/`,
-`utils/`, `streams.py`) so each module's counterpart is easy to find.
-`parallel/` decomposes the cube solver and the full-spectrum integration over a
-`torch.distributed` group (one process per GPU, each rank an (x, y)
-block); `utils/` holds the file formats (scene dumps, NetCDF, XDMF,
+`utils/`, `streams.py`, and `capi/` for the JAX package's top-level `capi/`)
+so each module's counterpart is easy to find.  `parallel/` decomposes the
+cube solver, the wedge solvers and both full-spectrum integrations over a
+`torch.distributed` group (one process per GPU, each rank an (x, y) block,
+or a range of an ICON mesh's cells); `capi/` is the C API a C or Fortran
+host model links (`capi/build.py` compiles it at first use); `utils/` holds the file formats (scene dumps, NetCDF, XDMF,
 HDF5) and `utils/chip.py`'s device probe and watchdogs.  It imports torch and numpy only.  Every
 entry point takes an explicit `device` (default ``"cuda"``); on a CUDA
 device the diffuse solve runs through the hand-written kernels in

@@ -16,6 +16,11 @@ iteration reads the lanes' flags (whether each update was finite, improved
 on its best and is still above its tolerance); iteration and stall counts
 are kept on the host, and the selections the flags steer are skipped
 where every lane agrees.
+
+On a decomposed state (each rank holding its part of every leaf) pass
+`reduce`, a sum over the ranks: every dot is one all-reduce, so every
+flag the host reads, and with it every rank's sequence of collectives,
+is the same on every rank.
 """
 
 from __future__ import annotations
@@ -32,13 +37,15 @@ def _lane(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return c.view((-1,) + (1,) * (a.dim() - 1))
 
 
-def _dot(u: Sequence[torch.Tensor], v: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Per-lane dot product over all leaves, (B,)."""
-    return sum((a * b).sum(dim=tuple(range(1, a.dim()))) for a, b in zip(u, v))
+def _dot(u: Sequence[torch.Tensor], v: Sequence[torch.Tensor], reduce=None) -> torch.Tensor:
+    """Per-lane dot product over all leaves, (B,); `reduce` sums it over
+    the ranks of a decomposed state."""
+    d = sum((a * b).sum(dim=tuple(range(1, a.dim()))) for a, b in zip(u, v))
+    return d if reduce is None else reduce(d)
 
 
-def _norm(u) -> torch.Tensor:
-    return torch.sqrt(torch.clamp(_dot(u, u), min=0.0))
+def _norm(u, reduce=None) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(_dot(u, u, reduce), min=0.0))
 
 
 def _safe(v: torch.Tensor, eps: float) -> torch.Tensor:
@@ -71,13 +78,17 @@ def bicgstab_tree(
     maxiter: int = 1000,
     stall_limit: int = 30,
     restart_every: int = 10,
+    reduce: Optional[Callable] = None,
 ):
     """Right-preconditioned BiCGStab on A(x) = b; `b`, `x0` and A's
     argument and result are tuples of tensors whose leaves lead with the
-    lane dimension B.  Returns (x, niter, res, tol): niter (B,) int64 and
-    res, tol (B,) tensors."""
+    lane dimension B.  `reduce` sums a (B,) partial dot over the ranks of a
+    decomposed state (None: the state is whole).  Returns (x, niter, res,
+    tol): niter (B,) int64 and res, tol (B,) tensors."""
     if M is None:
         M = lambda r: r
+    dot = lambda u, v: _dot(u, v, reduce)
+    norm = lambda u: _norm(u, reduce)
 
     b = tuple(b)
     dev, dtype = b[0].device, b[0].dtype
@@ -88,8 +99,8 @@ def bicgstab_tree(
 
     x = zeros if x0 is None else tuple(x0)
     r = tuple(bb - ax for bb, ax in zip(b, A(x)))
-    tol = torch.clamp(rtol * _norm(b), min=atol)
-    res0 = _norm(r)
+    tol = torch.clamp(rtol * norm(b), min=atol)
+    res0 = norm(r)
     rhat, p, v = r, zeros, zeros
     rho = alpha = omega = one
     best_x, best_r, best_res = x, r, res0
@@ -108,10 +119,10 @@ def bicgstab_tree(
             p, v = _select(restart, zeros, p), _select(restart, zeros, v)
             rho, alpha, omega = (torch.where(rm, one, c) for c in (rho, alpha, omega))
 
-        rho_new = _dot(rhat, r)
-        breakdown = rho_new.abs() < eps * torch.clamp(_norm(rhat) * _norm(r), min=eps)
+        rho_new = dot(rhat, r)
+        breakdown = rho_new.abs() < eps * torch.clamp(norm(rhat) * norm(r), min=eps)
         rhat = tuple(torch.where(_lane(breakdown, a), c, a) for a, c in zip(rhat, r))
-        rho_new = torch.where(breakdown, _dot(r, r), rho_new)
+        rho_new = torch.where(breakdown, dot(r, r), rho_new)
         beta = (rho_new / _safe(rho, eps)) * (alpha / _safe(omega, eps))
         p = tuple(torch.where(_lane(breakdown, rr), rr,
                               rr + _lane(beta, rr) * (pp - _lane(omega, vv) * vv))
@@ -119,18 +130,18 @@ def bicgstab_tree(
 
         phat = M(p)
         v = A(phat)
-        alpha = rho_new / _safe(_dot(rhat, v), eps)
+        alpha = rho_new / _safe(dot(rhat, v), eps)
         s = _axpy(r, -alpha, v)
         shat = M(s)
         t = A(shat)
-        omega = _dot(t, s) / _safe(_dot(t, t), eps)
+        omega = dot(t, s) / _safe(dot(t, t), eps)
         x_new = tuple(xx + _lane(alpha, ph) * ph + _lane(omega, sh) * sh
                       for xx, ph, sh in zip(x, phat, shat))
         r_new = _axpy(s, -omega, t)
         rho = rho_new
 
-        rr_dot = _dot(r_new, r_new)
-        ok = torch.isfinite(rr_dot) & torch.isfinite(_dot(x_new, x_new))
+        rr_dot = dot(r_new, r_new)
+        ok = torch.isfinite(rr_dot) & torch.isfinite(dot(x_new, x_new))
         res_new = torch.sqrt(torch.clamp(rr_dot, min=0.0))
         improved = res_new < best_res * (1.0 - 1e-4)
         # the iteration's one host sync
@@ -139,7 +150,7 @@ def bicgstab_tree(
             # a non-finite update falls back to the best iterate and its residual
             x_new = _select(ok_h, x_new, best_x)
             r_new = _select(ok_h, r_new, tuple(bb - ax for bb, ax in zip(b, A(best_x))))
-            res_new = _norm(r_new)
+            res_new = norm(r_new)
             improved = res_new < best_res * (1.0 - 1e-4)
             improved_h, above_h = torch.stack([improved, res_new > tol]).tolist()
 
@@ -157,7 +168,7 @@ def bicgstab_tree(
                 stall_h[i] = 0 if improved_h[i] and ok_h[i] else stall_h[i] + 1
                 act[i] = it_h[i] < maxiter and above_h[i] and stall_h[i] < stall_limit
 
-    final_res = _norm(r)
+    final_res = norm(r)
     x_out = _select((best_res < final_res).tolist(), best_x, x)
     it = torch.as_tensor(it_h, dtype=torch.int64, device=dev)
     return x_out, it, torch.minimum(best_res, final_res), tol

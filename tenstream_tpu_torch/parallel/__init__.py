@@ -2,7 +2,9 @@
 `tenstream_tpu/parallel/`)."""
 
 from tenstream_tpu_torch.parallel.mesh import (  # noqa: F401
+    GhostExchange,
     Mesh,
+    cell_partition,
     gather_to_host,
     init_distributed,
     make_mesh,

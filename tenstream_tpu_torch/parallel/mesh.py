@@ -11,10 +11,17 @@ NCCL on CUDA tensors and gloo on the CPU (or an explicit backend).
 JAX gets its halos from GSPMD (`jnp.roll` lowers to collective permutes).
 Here they are written out: every periodic shift across x or y of a
 decomposed field is a halo exchange with the neighbouring ranks
-(`Mesh.roll`, `Mesh.pad`, `Mesh.shift`), every global flip an exchange
+(`Mesh.roll`, `Mesh.roll_many`, `Mesh.pad`), every global flip an exchange
 with the mirror rank (`Mesh.flip`), and every sum that a decision of the
 solver reads an `all_reduce`.  A rank that is its own neighbour (one rank
 along an axis) copies locally, through the same functions.
+
+Unstructured (ICON) meshes decompose their flat cell axis instead:
+contiguous ranges in rank order (`cell_partition`, the JAX package's
+`P(("x", "y"))` placement), and a `GhostExchange` built once from the
+mesh's neighbour tables sends each neighbouring rank the values it reads,
+the reference's PetscSF.  Every rank holds the whole topology, so every
+rank knows every rank's send and receive lists without a handshake.
 
 gloo's point-to-point calls and `all_gather` take CPU tensors only
 (`torch.distributed`'s backend table), so with gloo every exchange of a
@@ -88,6 +95,7 @@ class Mesh:
             raise ValueError(f"mesh {nxproc} x {nyproc} != world size {self.world}")
         self.nxproc, self.nyproc = nxproc, nyproc
         self.backend = dist.get_backend()
+        self.stats = dict.fromkeys(("exchanges", "messages", "reductions"), 0)
         self.px, self.py = divmod(self.rank, nyproc)
         # row and column sub-groups, created in the same order on every rank:
         # the ranks along x that share this py, and those along y sharing px
@@ -147,35 +155,69 @@ class Mesh:
     def _back(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         return t.to(device=like.device, dtype=like.dtype)
 
+    def reset_stats(self) -> None:
+        """Zero the counts of exchanges (one batch of point-to-point
+        messages, or of local copies on a rank that is its own neighbour),
+        of the messages to other ranks in them, and of all-reduces."""
+        for k in self.stats:
+            self.stats[k] = 0
+
     def sendrecv(self, items) -> List[torch.Tensor]:
         """items: (tensor, dst rank, src rank).  Sends each tensor to its
-        dst and receives a tensor of its shape from its src, all in one
-        batch; sends and receives are posted in the items' order with the
-        item index as tag, so two items with the same peer stay apart."""
+        dst and receives a tensor of its shape from its src: item k of this
+        rank goes to item k of its dst, so every rank passes the same list
+        of shapes.  One `exchange`: one message per peer and direction."""
         out: List[Optional[torch.Tensor]] = [None] * len(items)
-        ops, recvs = [], []
+        moved = []
         for q, (t, dst, src) in enumerate(items):
             if dst == self.rank and src == self.rank:
                 out[q] = t.clone()
-                continue
-            st = self._staged(t)
-            rv = torch.empty_like(st)
-            ops.append(dist.P2POp(dist.isend, st, dst, tag=q))
-            recvs.append((q, rv, t, src))
-        for q, rv, _, src in recvs:
-            ops.append(dist.P2POp(dist.irecv, rv, src, tag=q))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-        for q, rv, t, _ in recvs:
-            out[q] = self._back(rv, t)
+            else:
+                moved.append(q)
+        if not moved:
+            self.stats["exchanges"] += 1
+            return out
+        like = items[moved[0]][0]
+        if any(items[q][0].dtype != like.dtype for q in moved):
+            raise ValueError("Mesh.sendrecv exchanges tensors of one dtype per call")
+        by_dst, by_src = {}, {}
+        for q in moved:
+            by_dst.setdefault(items[q][1], []).append(q)
+            by_src.setdefault(items[q][2], []).append(q)
+        sends = [(torch.cat([items[q][0].reshape(-1) for q in qs]), dst)
+                 for dst, qs in by_dst.items()]
+        recvs = [((sum(items[q][0].numel() for q in qs),), src) for src, qs in by_src.items()]
+        for flat, qs in zip(self.exchange(sends, recvs, like), by_src.values()):
+            for q, g in zip(qs, flat.split([items[q][0].numel() for q in qs])):
+                out[q] = g.view(items[q][0].shape)
         return out
 
-    def shift(self, plane: torch.Tensor, axis: int, direction: int) -> torch.Tensor:
-        """Send `plane` to the neighbour `direction` (+1 / -1) along axis and
-        return the plane the opposite neighbour sent."""
-        return self.sendrecv([(plane, self.neighbour(axis, direction),
-                                self.neighbour(axis, -direction))])[0]
+    def exchange(self, sends, recvs, like: torch.Tensor) -> List[torch.Tensor]:
+        """One batch of messages of any shapes: sends [(tensor, dst rank)],
+        recvs [(shape, src rank)] with tensors of `like`'s dtype and device
+        back, in the order of `recvs`.  At most one message per direction
+        and peer; every rank must post the counterpart of each message.
+        Staged through one buffer each way, as `sendrecv`."""
+        self.stats["exchanges"] += 1
+        if not sends and not recvs:
+            return []
+        sizes = [int(np.prod(shape)) for shape, _ in recvs]
+        sbuf = self._staged(torch.cat([t.reshape(-1) for t, _ in sends]) if sends else
+                            like.new_empty(0))
+        rbuf = sbuf.new_empty(sum(sizes))
+        ops, start = [], 0
+        for t, dst in sends:
+            ops.append(dist.P2POp(dist.isend, sbuf.narrow(0, start, t.numel()), dst))
+            start += t.numel()
+        start = 0
+        for n, (_, src) in zip(sizes, recvs):
+            ops.append(dist.P2POp(dist.irecv, rbuf.narrow(0, start, n), src))
+            start += n
+        self.stats["messages"] += len(sends)
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        got = self._back(rbuf, like).split(sizes)
+        return [g.view(shape) for g, (shape, _) in zip(got, recvs)]
 
     @staticmethod
     def _dim_axis(v: torch.Tensor, dim: int, axis: Optional[int]) -> Tuple[int, int]:
@@ -194,15 +236,33 @@ class Mesh:
         for shift +1 or -1 along x or y (axis 0 / 1; the last two dims are
         x and y unless `axis` says otherwise): one plane from one
         neighbour."""
-        d, axis = self._dim_axis(v, dim, axis)
-        n = v.shape[d]
-        if shift == 1:
-            recv = self.shift(v.narrow(d, n - 1, 1), axis, 1)
-            return torch.cat([recv, v.narrow(d, 0, n - 1)], dim=d)
-        if shift == -1:
-            recv = self.shift(v.narrow(d, 0, 1), axis, -1)
-            return torch.cat([v.narrow(d, 1, n - 1), recv], dim=d)
-        raise ValueError(f"Mesh.roll shifts by +1 or -1, not {shift}")
+        return self.roll_many([(v, shift, dim, axis)])[0]
+
+    def roll_many(self, items) -> List[torch.Tensor]:
+        """`roll` of each (v, shift, dim[, axis]) item, every plane in one
+        exchange; along an axis of one rank, a local `torch.roll`."""
+        out: List[Optional[torch.Tensor]] = [None] * len(items)
+        planes, cut = [], []
+        for k, it in enumerate(items):
+            v, shift, dim = it[:3]
+            d, axis = self._dim_axis(v, dim, it[3] if len(it) > 3 else None)
+            if shift not in (1, -1):
+                raise ValueError(f"Mesh.roll shifts by +1 or -1, not {shift}")
+            if (self.nxproc, self.nyproc)[axis] == 1:
+                out[k] = torch.roll(v, shift, dims=d)
+                continue
+            n = v.shape[d]
+            edge = n - 1 if shift == 1 else 0
+            planes.append((v.narrow(d, edge, 1), self.neighbour(axis, shift),
+                           self.neighbour(axis, -shift)))
+            cut.append((k, v, d, n, shift))
+        if not planes:
+            self.stats["exchanges"] += 1
+            return out
+        for recv, (k, v, d, n, shift) in zip(self.sendrecv(planes), cut):
+            out[k] = (torch.cat([recv, v.narrow(d, 0, n - 1)], dim=d) if shift == 1 else
+                      torch.cat([v.narrow(d, 1, n - 1), recv], dim=d))
+        return out
 
     def pad(self, v: torch.Tensor) -> torch.Tensor:
         """v (..., nx, ny) with a one-cell ring from the neighbours:
@@ -233,6 +293,7 @@ class Mesh:
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """A new tensor: t reduced over every rank ("sum", "max", "min")."""
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
+        self.stats["reductions"] += 1
         st = self._staged(t)
         st = st.clone() if st.data_ptr() == t.data_ptr() else st
         dist.all_reduce(st, op=red)
@@ -260,6 +321,20 @@ class Mesh:
                 for px in range(self.nxproc)]
         return self._back(torch.cat(rows, dim=-2), t)
 
+    def all_gather_cells(self, t: torch.Tensor, axis: int) -> torch.Tensor:
+        """The global field from every rank's range of a flat cell axis,
+        on every rank."""
+        if self.world == 1:
+            return t
+        st = self._staged(t)
+        outs = [torch.empty_like(st) for _ in range(self.world)]
+        dist.all_gather(outs, st)
+        return self._back(torch.cat(outs, dim=axis), t)
+
+    def cell_range(self, nc: int) -> Tuple[int, int]:
+        """This rank's range [lo, hi) of a flat cell axis of nc cells."""
+        return cell_partition(nc, self.world)[self.rank]
+
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         st = self._staged(t)
         st = st.clone() if st.data_ptr() == t.data_ptr() else st
@@ -284,9 +359,109 @@ def make_mesh(nxproc: Optional[int] = None, nyproc: Optional[int] = None) -> Mes
     return Mesh(nxproc, nyproc)
 
 
-def _block_index(mesh: Mesh, shape: Sequence[int], ndim_leading: Optional[int]):
+def check_mesh(mesh: Mesh, device) -> None:
+    """What a solver's `set_mesh` asks of its mesh: a process group that is
+    up, with a backend that takes tensors on `device` (NCCL or gloo on the
+    card, gloo on the CPU)."""
+    if not dist.is_initialized():
+        raise RuntimeError("set_mesh needs a torch.distributed process group "
+                           "(parallel.mesh.init_distributed)")
+    kind = torch.device(device).type
+    ok = ("nccl", "gloo") if kind == "cuda" else ("gloo",)
+    if mesh.backend not in ok:
+        raise ValueError(f"a solver on {kind} takes a {' or '.join(ok)} group, not {mesh.backend}")
+
+
+def cell_partition(nc: int, world: int) -> List[Tuple[int, int]]:
+    """Every rank's range [lo, hi) of a flat cell axis of nc cells:
+    contiguous equal ranges in rank order, over every mesh axis (the JAX
+    package's `P(..., ("x", "y"), ...)`).  As JAX's `device_put` with that
+    placement, a world size that does not divide nc raises."""
+    if nc % world:
+        raise ValueError(f"{nc} cells do not divide into {world} equal ranges (one per rank)")
+    n = nc // world
+    return [(r * n, (r + 1) * n) for r in range(world)]
+
+
+class GhostExchange:
+    """The values of other ranks' cells that this rank's cells read, the
+    reference's PetscSF.  `index` (nc, k) holds, for every global cell, k
+    flat indices into a global (nc * unit,) field (cell c owns entries
+    c * unit .. c * unit + unit - 1); entries where `valid` is False are
+    read as index 0 and must be masked by the caller.  Built once: every
+    rank holds the whole topology, so it computes every rank's send and
+    receive lists itself.
+
+    `exchange(flat)` takes this rank's (..., nloc * unit) values and
+    returns them followed by its ghosts; `index_local` (nloc, k) indexes
+    that extended field.  On one rank there are no ghosts and
+    `index_local` is `index`."""
+
+    def __init__(self, mesh: "Mesh", index: np.ndarray, valid: np.ndarray, unit: int, device):
+        index = np.asarray(index, np.int64)
+        valid = np.asarray(valid, bool)
+        nc = index.shape[0]
+        parts = cell_partition(nc, mesh.world)
+        span = nc // mesh.world
+        self.mesh = mesh
+        lo, hi = parts[mesh.rank]
+        self.nloc = hi - lo
+
+        def remote(r):
+            """The sorted global indices rank r reads from other ranks."""
+            a, b = parts[r]
+            idx = index[a:b][valid[a:b]]
+            cell = idx // unit
+            return np.unique(idx[(cell < a) | (cell >= b)])
+
+        ghosts = remote(mesh.rank)
+        owners = ghosts // unit // span
+        # ghosts are sorted by index, so each owner's are one run, owners ascending
+        self.recvs = [(int(q), int((owners == q).sum())) for q in np.unique(owners)]
+        self.sends = []
+        for q in range(mesh.world):
+            if q == mesh.rank:
+                continue
+            theirs = remote(q)
+            mine = theirs[(theirs // unit >= lo) & (theirs // unit < hi)]
+            if mine.size:
+                self.sends.append((q, torch.as_tensor(mine - lo * unit, device=device)))
+        loc = index[lo:hi]
+        own = (loc // unit >= lo) & (loc // unit < hi)
+        out = np.where(own, loc - lo * unit, 0)
+        far = ~own & valid[lo:hi]
+        out[far] = self.nloc * unit + np.searchsorted(ghosts, loc[far])
+        self.n_ghosts = int(ghosts.size)
+        self.index_local = torch.as_tensor(out, device=device)
+
+    def exchange(self, flat: torch.Tensor) -> torch.Tensor:
+        """This rank's values (..., nloc * unit) followed by its ghosts
+        (..., n_ghosts), in one exchange with the neighbouring ranks."""
+        if self.mesh.world == 1:
+            self.mesh.stats["exchanges"] += 1
+            return flat
+        lead = tuple(flat.shape[:-1])
+        got = self.mesh.exchange([(flat.index_select(-1, i), q) for q, i in self.sends],
+                                 [(lead + (n,), q) for q, n in self.recvs], flat)
+        return torch.cat([flat] + got, dim=-1)
+
+    def gather(self, flat: torch.Tensor) -> torch.Tensor:
+        """out[..., c, j] = the global field at index[c, j] for this rank's
+        cells: (..., nloc * unit) -> (..., nloc, k)."""
+        ext = self.exchange(flat)
+        got = torch.index_select(ext, -1, self.index_local.reshape(-1))
+        return got.reshape(tuple(flat.shape[:-1]) + tuple(self.index_local.shape))
+
+
+def _block_index(mesh: Mesh, shape: Sequence[int], ndim_leading: Optional[int],
+                 cell_axis: Optional[int] = None):
     """The tuple of slices that selects this rank's block of a global
-    array: whole leading dims, then the (x, y) block."""
+    array: whole leading dims, then the (x, y) block; or, with
+    `cell_axis`, this rank's range of that flat cell axis."""
+    if cell_axis is not None:
+        ax = cell_axis % len(shape)
+        lo, hi = mesh.cell_range(shape[ax])
+        return tuple(slice(None) for _ in range(ax)) + (slice(lo, hi),)
     lead = len(shape) - 2 if ndim_leading is None else ndim_leading
     if lead != len(shape) - 2:
         raise ValueError("fields have their (x, y) dims last")
@@ -294,16 +469,17 @@ def _block_index(mesh: Mesh, shape: Sequence[int], ndim_leading: Optional[int]):
     return tuple(slice(None) for _ in range(lead)) + (sx, sy)
 
 
-def shard_fields(mesh: Mesh, *arrays, ndim_leading=None):
+def shard_fields(mesh: Mesh, *arrays, ndim_leading=None, cell_axis: Optional[int] = None):
     """This rank's blocks of full arrays (numpy or tensors) whose last two
-    dims are (nx, ny), as contiguous tensors where each array is; None
-    passes through."""
+    dims are (nx, ny), or, with `cell_axis`, their ranges of that flat
+    cell axis (an ICON mesh's), as contiguous tensors where each array is;
+    None passes through."""
     out = []
     for a in arrays:
         if a is None:
             out.append(None)
             continue
-        blk = a[_block_index(mesh, tuple(a.shape), ndim_leading)]
+        blk = a[_block_index(mesh, tuple(a.shape), ndim_leading, cell_axis)]
         t = torch.as_tensor(np.ascontiguousarray(blk) if isinstance(blk, np.ndarray) else blk)
         out.append(t.contiguous())
     return tuple(out)
@@ -315,10 +491,11 @@ def scatter_global(
     global_shape: Optional[Tuple[int, ...]] = None,
     dtype=None,
     ndim_leading: Optional[int] = None,
+    cell_axis: Optional[int] = None,
 ) -> torch.Tensor:
-    """This rank's block of an (x, y)-decomposed global field, the
-    reference's host-model input path (each MPI rank owns its subdomain's
-    optical properties).
+    """This rank's block of an (x, y)-decomposed global field, or its
+    range of the flat cell axis `cell_axis`, the reference's host-model
+    input path (each MPI rank owns its subdomain's optical properties).
 
     `data` is a callable `data(index: tuple[slice, ...]) -> array` that
     returns the block of the GLOBAL array that `index` selects (it is asked
@@ -328,18 +505,22 @@ def scatter_global(
     if callable(data):
         if global_shape is None or dtype is None:
             raise ValueError("scatter_global(callable) needs global_shape and dtype")
-        index = _block_index(mesh, tuple(global_shape), ndim_leading)
+        index = _block_index(mesh, tuple(global_shape), ndim_leading, cell_axis)
         blk = np.asarray(data(index), dtype)
     else:
         arr = np.asarray(data)
-        blk = arr[_block_index(mesh, arr.shape, ndim_leading)]
+        blk = arr[_block_index(mesh, arr.shape, ndim_leading, cell_axis)]
     return torch.as_tensor(np.ascontiguousarray(blk))
 
 
-def gather_to_host(x, mesh: Optional[Mesh] = None) -> np.ndarray:
+def gather_to_host(x, mesh: Optional[Mesh] = None, cell_axis: Optional[int] = None) -> np.ndarray:
     """The global field as a numpy array on EVERY rank (the reference's
     `pprts_get_result_toZero`, here on all ranks): an all-gather of the
-    blocks; without a mesh, x itself."""
+    blocks, or of the ranges of the flat cell axis `cell_axis`; without a
+    mesh, x itself."""
     if mesh is None:
         return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
-    return mesh.all_gather_blocks(torch.as_tensor(x)).detach().cpu().numpy()
+    x = torch.as_tensor(x)
+    if cell_axis is not None:
+        return mesh.all_gather_cells(x, cell_axis % x.dim()).detach().cpu().numpy()
+    return mesh.all_gather_blocks(x).detach().cpu().numpy()

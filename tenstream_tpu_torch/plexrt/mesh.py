@@ -10,7 +10,8 @@ so T1's transfer coefficients are the canonical wedge table's at
 phi + 180.  Side order: 0 = AB, 1 = BC, 2 = CA (the diagonal).  Side s of
 T0(i, j) is side s of T1 at offset SIDE_OFFSETS[s] (periodic); side-face
 fields live on the T0 owner, (..., 3, nx, ny), and every exchange is a
-`torch.roll` (same sign as `jnp.roll`).
+`torch.roll` (same sign as `jnp.roll`), or on a decomposed solve a halo
+exchange of the rank's (x, y) block (`roll2_many`).
 
 Cell fields: (nz, 2, nx, ny); z-face fields: (nz+1, 2, nx, ny).
 """
@@ -74,6 +75,24 @@ def roll2(a: torch.Tensor, di: int, dj: int) -> torch.Tensor:
     if dj:
         a = torch.roll(a, dj, dims=-1)
     return a
+
+
+def roll2_many(items, pmesh=None):
+    """`roll2` of each (a, di, dj) item.  With a `parallel.mesh.Mesh`, every
+    a is this rank's block of a global field and every plane of the call
+    goes in one halo exchange.  The side offsets (SIDE_OFFSETS) shift one
+    axis at a time, so no corner (diagonal) value is ever exchanged."""
+    if pmesh is None:
+        return [roll2(a, di, dj) for a, di, dj in items]
+    if any(di and dj for _, di, dj in items):
+        raise ValueError("roll2_many on a mesh shifts one axis at a time")
+    out = [a for a, _, _ in items]
+    moved = [k for k, (_, di, dj) in enumerate(items) if di or dj]
+    got = pmesh.roll_many([(items[k][0], items[k][1], -2) if items[k][1] else
+                           (items[k][0], items[k][2], -1) for k in moved])
+    for k, g in zip(moved, got):
+        out[k] = g
+    return out
 
 
 def side_to_t1(arr: torch.Tensor, s: int) -> torch.Tensor:

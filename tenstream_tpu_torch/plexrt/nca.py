@@ -8,7 +8,8 @@ solve are replaced by 3-D-corrected ones built from the fluxes of the
 three side-neighbouring columns and the cells above and below.  Every
 (layer, cell) computes at once; side neighbours come from one gather
 through the TriMesh tables (`nca_icon`) or the structured mesh's rolls
-(`nca_structured`), and the emissivity / correction tables
+(`nca_structured`), on a decomposed solve through one ghost-cell or
+halo exchange with the neighbouring ranks, and the emissivity / correction tables
 (`data/nca/nca_tables.npz`) are read by clamped bilinear interpolation
 with the thin-optical-depth analytic limit.  The `atan` weight fits of
 `determine_weights` / `Absside` (nca_multi_tri.F90:345-376) are the
@@ -25,7 +26,8 @@ import torch
 
 from tenstream_tpu_torch.core.types import PI, ireals
 from tenstream_tpu_torch.ops.interp import fractional_index
-from tenstream_tpu_torch.plexrt.mesh import SIDE_OFFSETS, roll2
+from tenstream_tpu_torch.parallel.mesh import GhostExchange
+from tenstream_tpu_torch.plexrt.mesh import SIDE_OFFSETS, roll2_many
 
 # height of the unit equilateral triangle: hc = H * edge
 _H = 0.86603
@@ -162,48 +164,70 @@ def _tables_on(tables, device):
     return NcaTables.load(device=device) if tables is None else tables
 
 
-def nca_icon(mesh, dz, kabs, planck, edn, eup, tables: NcaTables | None = None):
+def nca_neighbours(mesh) -> np.ndarray:
+    """(nc, 3) side neighbour of each cell of a TriMesh, the cell itself at
+    open boundaries (`get_neigh_face_info`)."""
+    own = np.arange(mesh.ncell)[:, None]
+    return np.where(mesh.nbr >= 0, mesh.nbr, own)
+
+
+def nca_exchange(mesh, pmesh, device) -> GhostExchange:
+    """The ghost-cell exchange of `nca_icon` on a `parallel.mesh.Mesh`:
+    each rank's cells read their `nca_neighbours`, one value per cell."""
+    nbr = nca_neighbours(mesh)
+    return GhostExchange(pmesh, nbr, np.ones(nbr.shape, bool), 1, device)
+
+
+def nca_icon(mesh, dz, kabs, planck, edn, eup, tables: NcaTables | None = None, exchange=None):
     """NCA absorption of a TriMesh wedge column stack [W/m3]: kabs (nz, nc)
     [1/m], planck (nz+1, nc) radiance [W/m2/sr], edn / eup (nz+1, nc)
     [W/m2].  Vertical neighbours fall back to the own cell at TOA and the
-    surface, side neighbours at open boundaries (`get_neigh_face_info`)."""
+    surface, side neighbours at open boundaries (`nca_neighbours`).  With
+    an `exchange` (`nca_exchange`, built once per decomposition), the
+    fields are its rank's range of cells (`Mesh.cell_range`) and the
+    neighbours' values come in one ghost-cell exchange."""
     dev = kabs.device
     tables = _tables_on(tables, dev)
     t = lambda a: torch.as_tensor(a, dtype=ireals, device=dev)
     kabs, planck, edn, eup = t(kabs), t(planck), t(edn), t(eup)
     nz = kabs.shape[0]
     dzc = torch.broadcast_to(t(np.asarray(dz, np.float32)).reshape(-1), (nz,))[:, None]
-    own = np.arange(mesh.ncell)[:, None]
-    nbr_eff = torch.as_tensor(np.where(mesh.nbr >= 0, mesh.nbr, own), device=dev)  # (nc, 3)
-    gather = lambda fld: fld[:, nbr_eff]  # (nz*, nc, 3)
+    fields = torch.stack([kabs, edn[:-1], eup[:-1], edn[1:], eup[1:]])
+    if exchange is None:
+        cells = slice(None)
+        nbrs = fields[:, :, torch.as_tensor(nca_neighbours(mesh), device=dev)]  # (5, nz, nc, 3)
+    else:
+        cells = slice(*exchange.mesh.cell_range(mesh.ncell))
+        nbrs = exchange.gather(fields)
 
     kabs_top = torch.cat([kabs[:1], kabs[:-1]], dim=0)
     kabs_bot = torch.cat([kabs[1:], kabs[-1:]], dim=0)
-    dx_s = t(mesh.side_len)[None]
-    area = t(mesh.area)[None]
+    dx_s = t(mesh.side_len[cells])[None]
+    area = t(mesh.area[cells])[None]
     area_s = dx_s * dzc[..., None]
     vol = area * dzc
     return nca_heating_rate(tables, dx_s, dzc, area, area, area_s, vol, kabs, kabs_top, kabs_bot,
-                            edn[:-1], eup[1:], planck[:-1], planck[1:], gather(kabs),
-                            gather(edn[:-1]), gather(eup[:-1]), gather(edn[1:]), gather(eup[1:]))
+                            edn[:-1], eup[1:], planck[:-1], planck[1:], *nbrs)
 
 
-def nca_structured(grid, kabs, planck, edn, eup, tables: NcaTables | None = None):
+def nca_structured(grid, kabs, planck, edn, eup, tables: NcaTables | None = None, pmesh=None):
     """NCA absorption on the structured fish-mesh grid [W/m3]: side
     neighbours through the periodic roll exchange (T0(i, j) side s <->
     T1(i+di, j+dj) side s).  kabs (nz, 2, nx, ny); planck / edn / eup
-    (nz+1, 2, nx, ny)."""
+    (nz+1, 2, nx, ny).  With a `parallel.mesh.Mesh` `pmesh`, `grid` and the
+    fields are this rank's (x, y) block and the rolls one halo exchange."""
     dev = kabs.device
     tables = _tables_on(tables, dev)
     t = lambda a: torch.as_tensor(a, dtype=ireals, device=dev)
     kabs, planck, edn, eup = t(kabs), t(planck), t(edn), t(eup)
     dzc = t(grid.dz)[:, None, None, None]
 
-    def gather(fld):  # (nz*, 2, nx, ny) -> (nz*, 2, nx, ny, 3)
-        outs = []
+    def gather(fld):  # (5, nz, 2, nx, ny) -> (5, nz, 2, nx, ny, 3)
+        items = []
         for di, dj in SIDE_OFFSETS:
-            outs.append(torch.stack([roll2(fld[:, 1], -di, -dj), roll2(fld[:, 0], di, dj)], dim=1))
-        return torch.stack(outs, dim=-1)
+            items += [(fld[:, :, 1], -di, -dj), (fld[:, :, 0], di, dj)]
+        got = roll2_many(items, pmesh)
+        return torch.stack([torch.stack(got[2 * s:2 * s + 2], dim=2) for s in range(3)], dim=-1)
 
     kabs_top = torch.cat([kabs[:1], kabs[:-1]], dim=0)
     kabs_bot = torch.cat([kabs[1:], kabs[-1:]], dim=0)
@@ -211,6 +235,6 @@ def nca_structured(grid, kabs, planck, edn, eup, tables: NcaTables | None = None
     area = t(grid.area_tri)
     area_s = dx_s * dzc[..., None]
     vol = area * dzc
+    nbrs = gather(torch.stack([kabs, edn[:-1], eup[:-1], edn[1:], eup[1:]]))
     return nca_heating_rate(tables, dx_s, dzc, area, area, area_s, vol, kabs, kabs_top, kabs_bot,
-                            edn[:-1], eup[1:], planck[:-1], planck[1:], gather(kabs),
-                            gather(edn[:-1]), gather(eup[:-1]), gather(edn[1:]), gather(eup[1:]))
+                            edn[:-1], eup[1:], planck[:-1], planck[1:], *nbrs)

@@ -12,6 +12,12 @@ every source of the table in one photon loop, with the JAX package's
 per-entry keys: the port's tables equal JAX's up to float32 rounding.
 Shape-blended tables (`WedgeOptPropShaped`) cover meshes whose cells
 differ in shape.
+
+On a decomposed solve (the solvers' `set_mesh`) nothing here changes:
+the lookups are per cell and take the rank's cells, and
+`WedgeOptPropShaped.bind_cells` is given the rank's cells' shapes.  Table
+creation stays undecomposed, as in the JAX package, and runs before
+`set_mesh`.
 """
 
 from __future__ import annotations

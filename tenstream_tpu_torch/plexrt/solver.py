@@ -13,6 +13,12 @@ fixed point.  Both orientations read the same canonical wedge table (the
 rotated triangle at phi + 180).  Stream states are in [W]; `get_result`
 converts to W/m2 on the triangle areas.
 
+Decomposed (`set_mesh`): the fish mesh's trailing (nx, ny) axes split
+into the (x, y) blocks of a `parallel.mesh.Mesh`, as the cube solver's;
+every roll across x or y becomes a halo exchange of the rank's block
+(all planes of one step in one exchange), and the diffuse iteration's
+sums are all-reduced, so each rank feeds and reads its block.
+
 Lanes: `solve_lanes` solves a leading batch of independent
 monochromatic problems (the g-points of a spectral chunk) in one pass of
 every step, each lane with its own convergence, as the JAX package's
@@ -35,13 +41,9 @@ import torch
 from tenstream_tpu_torch.core.types import PI, TINY, ireals
 from tenstream_tpu_torch.ops.krylov import bicgstab_tree
 from tenstream_tpu_torch.ops.planck import b_eff
-from tenstream_tpu_torch.plexrt.mesh import SIDE_OFFSETS, PlexGrid, roll2
+from tenstream_tpu_torch.parallel.mesh import check_mesh
+from tenstream_tpu_torch.plexrt.mesh import SIDE_OFFSETS, PlexGrid, roll2_many
 from tenstream_tpu_torch.plexrt.optprop import NDIFF, WedgeOptProp
-
-# the cube solver decomposes (`PprtsSolver.set_mesh`); the wedge solvers' flat
-# cell axes need general ghost-cell gathers, the next slice of the port
-SHARDING_ITEM = ("ROADMAP §1 item 4, M19 remainder: the wedge solvers' sharding and "
-                 "specint_plexrt on a mesh, the next slice")
 
 
 class PlexSolution(NamedTuple):
@@ -71,10 +73,13 @@ def _lane_sum(a: torch.Tensor) -> torch.Tensor:
     return (a * a).sum(dim=tuple(range(1, a.dim())))
 
 
-def iterate_diffuse(G_for, E0, F0, solver: str, max_iter: int, rtol: float):
+def iterate_diffuse(G_for, E0, F0, solver: str, max_iter: int, rtol: float, reduce=None):
     """Drive the affine diffuse map G((E, F)) = S(E, F) + b (lanes
     leading) to convergence.  `G_for(lanes)` gives G on a subset of the
-    lanes (an index tensor; None: all of them).
+    lanes (an index tensor; None: all of them).  `reduce` sums per-lane
+    partial sums over the ranks of a decomposed state, so that every rank
+    reads the same sums and a lane leaves the batch on every rank in the
+    same step.
 
     'fixedpoint': x <- G(x) until the update norm falls below rtol times
     the state norm (the reference's explicit-SOR analogue); a lane that
@@ -91,7 +96,7 @@ def iterate_diffuse(G_for, E0, F0, solver: str, max_iter: int, rtol: float):
             return (x[0] - GE + bvec[0], x[1] - GF + bvec[1])
 
         (E, F), niter, res, tol = bicgstab_tree(A, bvec, x0=(E0, F0), rtol=rtol, atol=1e-8,
-                                                maxiter=max_iter)
+                                                maxiter=max_iter, reduce=reduce)
         return E, F, niter, res, tol
     if solver != "fixedpoint":
         raise ValueError(f"unknown diff_solver {solver!r} (bicgstab | fixedpoint)")
@@ -104,8 +109,10 @@ def iterate_diffuse(G_for, E0, F0, solver: str, max_iter: int, rtol: float):
     G, E, F = G_for(None), E0, F0
     while live:
         E2, F2 = G((E, F))
-        res2 = torch.sqrt(_lane_sum(E2 - E) + _lane_sum(F2 - F))
-        cont = res2 > rtol * torch.clamp(torch.sqrt(_lane_sum(E2) + _lane_sum(F2)), min=1e-10)
+        sums = torch.stack([_lane_sum(E2 - E) + _lane_sum(F2 - F), _lane_sum(E2) + _lane_sum(F2)])
+        sums = sums if reduce is None else reduce(sums)
+        res2 = torch.sqrt(sums[0])
+        cont = res2 > rtol * torch.clamp(torch.sqrt(sums[1]), min=1e-10)
         cont_h = cont.tolist()  # the step's one host sync
         keep = []
         for j, lane in enumerate(live):
@@ -122,7 +129,8 @@ def iterate_diffuse(G_for, E0, F0, solver: str, max_iter: int, rtol: float):
                 E2, F2 = E2[kept], F2[kept]
                 G = G_for(torch.as_tensor(live, device=dev))
         E, F = E2, F2
-    tol = rtol * torch.clamp(torch.sqrt(_lane_sum(E_out) + _lane_sum(F_out)), min=1e-10)
+    norm2 = _lane_sum(E_out) + _lane_sum(F_out)
+    tol = rtol * torch.clamp(torch.sqrt(norm2 if reduce is None else reduce(norm2)), min=1e-10)
     niter = torch.as_tensor(it_h, dtype=torch.int64, device=dev)
     return E_out, F_out, niter, res_out, tol
 
@@ -131,7 +139,7 @@ class WedgeSolverBase:
     """What both wedge solvers share: sun, optical properties, the solve
     sequence over lanes and the results.  Subclasses give the mesh
     (`_coeffs`, `_solve_edir`, `_sources`, `_diff_op`, `_diff_divergence`,
-    `_cell_shape`, `_state_zeros`, `_volumes`, `_areas`)."""
+    `cell_shape`, `_state_zeros`, `_volumes`, `areas`)."""
 
     def __init__(self, opp: WedgeOptProp, n_inner: int, diff_iters: int, diff_rtol: float,
                  diff_solver: str, device):
@@ -144,9 +152,23 @@ class WedgeSolverBase:
         self._sundir = None
         self._albedo = 0.0
         self._kabs = self._ksca = self._g = self._planck = self._planck_srfc = None
+        self._pmesh = None
 
-    def set_mesh(self, mesh) -> None:
-        raise NotImplementedError(f"sharded wedge solves are not ported ({SHARDING_ITEM})")
+    def _attach(self, mesh) -> None:
+        """Check and keep the `parallel.mesh.Mesh` of `set_mesh`."""
+        if mesh is not None:
+            check_mesh(mesh, self.device)
+        self._pmesh = mesh
+
+    def cell_dz(self) -> torch.Tensor:
+        """Every cell's layer thickness [m], in this rank's `cell_shape`."""
+        shape = self.cell_shape()
+        return self._dz.reshape((shape[0],) + (1,) * (len(shape) - 1)) * torch.ones(
+            shape, dtype=ireals, device=self.device)
+
+    def _reduce(self):
+        """The sum over the ranks of per-lane partial sums (None undecomposed)."""
+        return None if self._pmesh is None else self._pmesh.all_reduce
 
     def set_angles(self, sundir) -> None:
         self._sundir = np.asarray(sundir, np.float64)
@@ -195,7 +217,7 @@ class WedgeSolverBase:
         f2f, d2d, d2f = self._coeffs(f, need_dir)
 
         edir = sides = None
-        dir_net = torch.zeros((nb,) + self._cell_shape(), dtype=ireals, device=self.device)
+        dir_net = torch.zeros((nb,) + self.cell_shape(), dtype=ireals, device=self.device)
         if need_dir:
             toa = torch.as_tensor(0.0 if edirTOA is None else edirTOA, dtype=torch.float64)
             toa = toa.expand(nb).to(self.device) if toa.dim() == 0 else toa.to(self.device)
@@ -206,7 +228,7 @@ class WedgeSolverBase:
             self._sources(bE, bF, f2f, d2f if need_dir else None, sides, edir, f, albedo)
         del d2f, sides
         dir_sfc = (edir[:, -1] if edir is not None else
-                   torch.zeros((nb,) + self._cell_shape()[1:], dtype=ireals, device=self.device))
+                   torch.zeros((nb,) + self.cell_shape()[1:], dtype=ireals, device=self.device))
 
         def G_for(lanes):
             if lanes is None:
@@ -216,7 +238,7 @@ class WedgeSolverBase:
             return lambda x: self._diff_op(ff, x[0], x[1], b, albedo, ds)
 
         E, F, niter, res, tol = iterate_diffuse(G_for, *self._state_zeros(nb), self.diff_solver,
-                                                self.diff_iters, self.diff_rtol)
+                                                self.diff_iters, self.diff_rtol, self._reduce())
         diff_net = self._diff_divergence(E, F, bE, bF, f2f)
         abso = (dir_net + diff_net) / self._volumes()
         return PlexSolution(edir, E[:, 0], E[:, 1], abso, niter_diff=niter, diff_res=res,
@@ -224,7 +246,7 @@ class WedgeSolverBase:
 
     def get_result(self, sol: PlexSolution):
         """(edir, edn, eup, abso) in W/m2 / W/m3 per triangle column."""
-        a = self._areas()
+        a = self.areas()
         edir = None if sol.edir is None else sol.edir / a
         return edir, sol.edn / a, sol.eup / a, sol.abso
 
@@ -245,37 +267,58 @@ _DIR_CFG = {
 class PlexrtSolver(WedgeSolverBase):
     """Monochromatic wedge-mesh solver on a `PlexGrid` (wedge_5_8 or
     wedge_18_8: the scheme follows the optprop tables).  `device`
-    defaults to the tables' device."""
+    defaults to the tables' device.  `grid` is the global grid, `lgrid`
+    this rank's block of it (the grid itself undecomposed)."""
 
     def __init__(self, grid: PlexGrid, opp: WedgeOptProp, n_inner: int = 24,
                  diff_iters: int = 300, diff_rtol: float = 1e-5,
                  diff_solver: str = "bicgstab", device=None):
         super().__init__(opp, n_inner, diff_iters, diff_rtol, diff_solver, device)
-        self.grid = grid
+        self.grid = self.lgrid = grid
         self.scheme = getattr(opp.lut, "scheme", "5_8")
         if self.scheme not in _DIR_CFG:
             raise ValueError(f"unsupported wedge solver scheme {self.scheme}")
         self._dcfg = _DIR_CFG[self.scheme]
         self._dz = torch.as_tensor(grid.dz, dtype=ireals, device=self.device)
 
-    def _cell_shape(self):
+    def set_mesh(self, mesh) -> None:
+        """Decompose the solve over a `parallel.mesh.Mesh` (None undoes it):
+        from here on every field is this rank's (x, y) block of the trailing
+        (nx, ny) axes (`Mesh.block`, the JAX package's `P(..., "x", "y")`),
+        in `set_optical_properties`, `solve_lanes` and the results."""
+        self._attach(mesh)
         g = self.grid
+        if mesh is None:
+            self.lgrid = g
+            return
+        sx, sy = mesh.block(g.nx, g.ny)
+        self.lgrid = PlexGrid.create(g.nz, sx.stop - sx.start, sy.stop - sy.start, g.dx, g.dy,
+                                     g.dz)
+
+    def _rolls(self, items):
+        """`roll2` of each (a, di, dj) item, on a mesh in one halo exchange."""
+        return roll2_many(items, self._pmesh)
+
+    def cell_shape(self):
+        """This rank's cell shape (nz, 2, nx, ny)."""
+        g = self.lgrid
         return (g.nz, 2, g.nx, g.ny)
 
     def _state_zeros(self, nb):
-        g = self.grid
+        g = self.lgrid
         z = lambda *s: torch.zeros((nb,) + s, dtype=ireals, device=self.device)
         return z(2, g.nz + 1, 2, g.nx, g.ny), z(4, g.nz, 3, g.nx, g.ny)
 
     def _volumes(self):
-        return torch.as_tensor(self.grid.volumes(), dtype=ireals, device=self.device)
+        return torch.as_tensor(self.lgrid.volumes(), dtype=ireals, device=self.device)
 
-    def _areas(self):
-        return self.grid.area_tri
+    def areas(self):
+        """A triangle column's area [m2]."""
+        return self.lgrid.area_tri
 
     def _coeffs(self, f, need_dir: bool):
         """Channels-first (src, dst, B, nz, 2, nx, ny) coefficient fields."""
-        g = self.grid
+        g = self.lgrid
         dz3 = self._dz[:, None, None, None]
         kext = f["kabs"] + f["ksca"]
         tauz = kext * dz3
@@ -296,7 +339,7 @@ class PlexrtSolver(WedgeSolverBase):
         per layer.  Returns edir through the z-faces (B, nz+1, 2, nx, ny),
         the per-cell net direct deposition (B, nz, 2, nx, ny) and every
         layer's full source vector (nsrc, B, nz, 2, nx, ny)."""
-        g = self.grid
+        g = self.lgrid
         cfg = self._dcfg
         n_top, n_q, side0, u_flip = cfg["n_top"], cfg["n_q"], cfg["side0"], cfg["u_flip"]
         nb = toa.shape[0]
@@ -318,14 +361,13 @@ class PlexrtSolver(WedgeSolverBase):
                 # inflow through side s of orientation o is the side-s
                 # outflow of the partner cell; quad-resolved sides flip
                 # their u order under the 180-degree partner rotation
-                new = []
+                items = []
                 for s in range(3):
                     di, dj = SIDE_OFFSETS[s]
-                    for q in range(n_q):
-                        o = out[side0 + n_q * s + u_flip[q]]
-                        new.append(torch.stack([roll2(o[:, 1], -di, -dj), roll2(o[:, 0], di, dj)],
-                                               dim=1))
-                I = torch.stack(new, dim=0)
+                    o = out[[side0 + n_q * s + u_flip[q] for q in range(n_q)]]
+                    items += [(o[:, :, 1], -di, -dj), (o[:, :, 0], di, dj)]
+                got = self._rolls(items)
+                I = torch.cat([torch.stack(got[2 * s:2 * s + 2], dim=2) for s in range(3)])
             # bottom corner k feeds the same corner's top stream of k+1
             bot = out[list(cfg["bot_dst"])]
             bots.append(bot.sum(0))
@@ -338,10 +380,10 @@ class PlexrtSolver(WedgeSolverBase):
     def _gather_in(self, E, F):
         """Per-cell incoming 8-vector in wedge dof order, (8, B, nz, 2, nx, ny)."""
         ins = [E[:, 0, :-1]]
+        got = self._rolls([(F[:, :2, :, s],) + SIDE_OFFSETS[s] for s in range(3)])
         for s in range(3):
-            di, dj = SIDE_OFFSETS[s]
-            ins.append(torch.stack([F[:, 2, :, s], roll2(F[:, 0, :, s], di, dj)], dim=2))
-            ins.append(torch.stack([F[:, 3, :, s], roll2(F[:, 1, :, s], di, dj)], dim=2))
+            ins.append(torch.stack([F[:, 2, :, s], got[s][:, 0]], dim=2))
+            ins.append(torch.stack([F[:, 3, :, s], got[s][:, 1]], dim=2))
         ins.append(E[:, 1, 1:])
         return torch.stack(ins, dim=0)
 
@@ -349,12 +391,13 @@ class PlexrtSolver(WedgeSolverBase):
         """Add per-cell outgoing (8, B, nz, 2, nx, ny) onto the face fields."""
         bE[:, 1, :-1] += src[0]
         bE[:, 0, 1:] += src[7]
+        got = self._rolls([(src[1 + 2 * s:3 + 2 * s, :, :, 1], -SIDE_OFFSETS[s][0],
+                            -SIDE_OFFSETS[s][1]) for s in range(3)])
         for s in range(3):
-            di, dj = SIDE_OFFSETS[s]
             bF[:, 0, :, s] += src[1 + 2 * s][:, :, 0]
             bF[:, 1, :, s] += src[2 + 2 * s][:, :, 0]
-            bF[:, 2, :, s] += roll2(src[1 + 2 * s][:, :, 1], -di, -dj)
-            bF[:, 3, :, s] += roll2(src[2 + 2 * s][:, :, 1], -di, -dj)
+            bF[:, 2, :, s] += got[s][0]
+            bF[:, 3, :, s] += got[s][1]
 
     def _diff_op(self, f2f, E, F, b, albedo, dir_sfc):
         """One application of the transfer operator plus sources."""
@@ -364,11 +407,11 @@ class PlexrtSolver(WedgeSolverBase):
         Edn_new = torch.zeros_like(E[:, 0])
         Edn_new[:, 1:] = out[7]
         Fn = []
+        got = self._rolls([(out[1 + 2 * s:3 + 2 * s, :, :, 1], -SIDE_OFFSETS[s][0],
+                            -SIDE_OFFSETS[s][1]) for s in range(3)])
         for s in range(3):
-            di, dj = SIDE_OFFSETS[s]
             o_dn, o_up = out[1 + 2 * s], out[2 + 2 * s]
-            Fn.append(torch.stack([o_dn[:, :, 0], o_up[:, :, 0], roll2(o_dn[:, :, 1], -di, -dj),
-                                   roll2(o_up[:, :, 1], -di, -dj)], dim=1))
+            Fn.append(torch.stack([o_dn[:, :, 0], o_up[:, :, 0], got[s][0], got[s][1]], dim=1))
         F_new = torch.stack(Fn, dim=3) + b[1]
         E_new = torch.stack([Edn_new, Eup_new], dim=1) + b[0]
         # surface albedo closure: Lambertian reflection of (Edn + direct)
@@ -381,7 +424,7 @@ class PlexrtSolver(WedgeSolverBase):
         """Diffuse sources from direct scattering and thermal emission,
         added onto the zero fields bE, bF.  Emission enters whenever a
         Planck field is set, as in the JAX package."""
-        g = self.grid
+        g = self.lgrid
         if d2f is not None and vs_dir is not None:
             self._scatter(bE, bF, contract(vs_dir, d2f))
         if f["planck"] is not None:
@@ -415,11 +458,11 @@ class PlexrtSolver(WedgeSolverBase):
         v = self._gather_in(E, F)
         out = contract(v, f2f)
         src_tot = bE[:, 1, :-1] + bE[:, 0, 1:]
+        t1_parts = self._rolls([(bF[:, 2, :, s] + bF[:, 3, :, s],) + SIDE_OFFSETS[s]
+                                for s in range(3)])
         for s in range(3):
-            di, dj = SIDE_OFFSETS[s]
             t0_part = bF[:, 0, :, s] + bF[:, 1, :, s]
-            t1_part = roll2(bF[:, 2, :, s] + bF[:, 3, :, s], di, dj)
-            src_tot = src_tot + torch.stack([t0_part, t1_part], dim=2)
+            src_tot = src_tot + torch.stack([t0_part, t1_parts[s]], dim=2)
         return v.sum(0) - out.sum(0) - src_tot
 
     def nca_absorption(self, sol: PlexSolution, tables=None) -> torch.Tensor:
@@ -429,6 +472,6 @@ class PlexrtSolver(WedgeSolverBase):
             raise RuntimeError("NCA is a thermal correction: set planck first")
         from tenstream_tpu_torch.plexrt.nca import nca_structured
 
-        a = self.grid.area_tri
-        return nca_structured(self.grid, self._kabs, self._planck, sol.edn / a, sol.eup / a,
-                              tables)
+        a = self.lgrid.area_tri
+        return nca_structured(self.lgrid, self._kabs, self._planck, sol.edn / a, sol.eup / a,
+                              tables, self._pmesh)

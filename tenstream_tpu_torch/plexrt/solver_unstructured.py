@@ -10,7 +10,13 @@ table.  Lateral domain boundaries are open (vacuum): inflow gathers give
 exact zeros there, and direct side outflow through them leaves the
 domain (`plex_rt.F90:4341`).
 
-State layout (B lanes, nc = mesh.ncell)
+Decomposed (`set_mesh`): the flat cell axis splits into contiguous
+ranges, one per rank in rank order (`parallel.mesh.cell_partition`, the
+JAX package's `P(..., ("x", "y"), ...)`); every neighbour gather reads the
+rank's own side values and a ghost ring that one `GhostExchange` per
+sweep brings from the neighbouring ranks, never the whole side field.
+
+State layout (B lanes, nc = ncell_local: every cell undecomposed)
   edir            : (B, nz+1, nc)
   ediff z-faces E : (B, 2, nz+1, nc)    dof 0 Edn, dof 1 Eup
   ediff side OUT F: (B, 2, nz, nc, 3)   [dn, up] outflow per cell side
@@ -25,7 +31,9 @@ import torch
 
 from tenstream_tpu_torch.core.types import PI, TINY, ireals
 from tenstream_tpu_torch.ops.planck import b_eff
+from tenstream_tpu_torch.parallel.mesh import GhostExchange
 from tenstream_tpu_torch.plexrt.icon import TriMesh
+from tenstream_tpu_torch.plexrt.nca import nca_exchange, nca_icon
 from tenstream_tpu_torch.plexrt.optprop import NDIFF, WedgeOptProp
 from tenstream_tpu_torch.plexrt.param_phi import canonical_azimuth_map
 from tenstream_tpu_torch.plexrt.solver import PlexSolution, WedgeSolverBase, contract
@@ -34,7 +42,8 @@ from tenstream_tpu_torch.plexrt.solver import PlexSolution, WedgeSolverBase, con
 class PlexrtSolverIcon(WedgeSolverBase):
     """Monochromatic wedge_5_8 solve on a TriMesh extruded over nz layers
     of thickness dz (TOA -> surface).  `device` defaults to the tables'
-    device."""
+    device.  Per-cell fields are (..., nc) with nc this rank's cells
+    (`ncell_local`; every cell undecomposed)."""
 
     def __init__(self, mesh: TriMesh, dz, opp: WedgeOptProp, n_inner: int = 24,
                  diff_iters: int = 1000, diff_rtol: float = 1e-5,
@@ -44,13 +53,7 @@ class PlexrtSolverIcon(WedgeSolverBase):
         self.dz = (np.broadcast_to(np.asarray(dz, np.float32).ravel(), (np.size(dz),)).copy()
                    if np.ndim(dz) else np.asarray([dz], np.float32))
         self.nz = self.dz.shape[0]
-        t = lambda a, dt=ireals: torch.as_tensor(np.asarray(a), dtype=dt, device=self.device)
-        self._dz = t(self.dz)
-        self._ex_idx = t(mesh.exchange_index().reshape(-1), torch.int64)  # (nc*3,)
-        self._ex_mask = t(mesh.exchange_mask())  # (nc, 3)
-        self._area = t(mesh.area)  # (nc,)
-        self._side_len = t(mesh.side_len)  # (nc, 3)
-        self._phi_rot = t(mesh.phi_rot)  # (nc,)
+        self._dz = torch.as_tensor(self.dz, dtype=ireals, device=self.device)
 
         # per-cell apex in the cell-local frame (side 0 = AB on +x, unit
         # AB) for the param-phi azimuth map (`plexrt/param_phi.py`)
@@ -61,11 +64,11 @@ class PlexrtSolverIcon(WedgeSolverBase):
         abh = ab / L[:, None]
         cx = (ac * abh).sum(-1) / L
         cy = (ac[:, 1] * abh[:, 0] - ac[:, 0] * abh[:, 1]) / L
-        self._wedge_C = (t(cx), t(np.maximum(cy, 1e-6)))
+        self._apex = (cx, np.maximum(cy, 1e-6))
+        self.set_mesh(None)
         if hasattr(opp, "bind_cells"):
             # shape-blended tables (`WedgeOptPropShaped`) map the raw azimuth
             # onto each table's own shape: no single-table azimuth map here
-            opp.bind_cells(cx, np.maximum(cy, 1e-6))
             self._table_apex = (1.0, 1.0)
             self._use_param_phi = False
             return
@@ -86,24 +89,57 @@ class PlexrtSolverIcon(WedgeSolverBase):
                 f"(PARITY.md); a shape-aware table is the one traced at the mesh's mean shape "
                 f"(plexrt.optprop.wedge_lut_for_mesh)", stacklevel=2)
 
-    def _cell_shape(self):
-        return (self.nz, self.mesh.ncell)
+    def set_mesh(self, mesh) -> None:
+        """Decompose the solve over a `parallel.mesh.Mesh` (None undoes it):
+        from here on every per-cell field is this rank's range of the flat
+        cell axis (`Mesh.cell_range`), in `set_optical_properties`,
+        `solve_lanes` and the results.  The per-cell constants and the
+        shape-blended tables' weights are sliced to it, and the side
+        exchange gathers the ghost cells' values from their ranks."""
+        self._attach(mesh)
+        m = self.mesh
+        lo, hi = (0, m.ncell) if mesh is None else mesh.cell_range(m.ncell)
+        self.ncell_local = hi - lo
+        t = lambda a, dt=ireals: torch.as_tensor(np.ascontiguousarray(a[lo:hi]), dtype=dt,
+                                                 device=self.device)
+        self._ex_mask = t(m.exchange_mask())  # (nc, 3)
+        self._area = t(m.area)  # (nc,)
+        self._side_len = t(m.side_len)  # (nc, 3)
+        self._phi_rot = t(m.phi_rot)  # (nc,)
+        self._wedge_C = tuple(t(c) for c in self._apex)
+        if hasattr(self.opp, "bind_cells"):
+            self.opp.bind_cells(*(c[lo:hi] for c in self._apex))
+        if mesh is None:
+            self._ex = self._nca_ex = None
+            self._ex_idx = torch.as_tensor(m.exchange_index().reshape(-1), device=self.device)
+        else:
+            self._ex = GhostExchange(mesh, m.exchange_index(), m.nbr >= 0, 3, self.device)
+            self._ex_idx = self._ex.index_local.reshape(-1)  # into own sides, then ghosts
+            self._nca_ex = nca_exchange(m, mesh, self.device)
+
+    def cell_shape(self):
+        """This rank's cell shape (nz, nc)."""
+        return (self.nz, self.ncell_local)
 
     def _state_zeros(self, nb):
-        nz, nc = self.nz, self.mesh.ncell
+        nz, nc = self.nz, self.ncell_local
         z = lambda *s: torch.zeros((nb,) + s, dtype=ireals, device=self.device)
         return z(2, nz + 1, nc), z(2, nz, nc, 3)
 
     def _volumes(self):
         return self._dz[:, None] * self._area[None]
 
-    def _areas(self):
+    def areas(self):
+        """This rank's triangle columns' areas [m2], (1, nc)."""
         return self._area[None]
 
     def _exchange(self, out_side: torch.Tensor) -> torch.Tensor:
         """in[..., c, s] = out[..., nbr[c, s], nbr_side[c, s]], exactly 0 at
-        open boundaries.  out_side: (..., nc, 3)."""
+        open boundaries.  out_side: (..., nc, 3); decomposed, one exchange
+        of the ghost sides with the neighbouring ranks."""
         flat = out_side.reshape(out_side.shape[:-2] + (-1,))
+        if self._ex is not None:
+            flat = self._ex.exchange(flat)
         got = torch.index_select(flat, -1, self._ex_idx).reshape(out_side.shape)
         return got * self._ex_mask
 
@@ -137,7 +173,7 @@ class PlexrtSolverIcon(WedgeSolverBase):
         direct deposition (B, nz, nc), the side inflows (3, B, nz, nc) and
         the direct side outflow through open boundaries, which leaves the
         domain (B, nz, nc)."""
-        nb, nc = toa.shape[0], self.mesh.ncell
+        nb, nc = toa.shape[0], self.ncell_local
         mu = self._mu().to(self.device)
         top0 = self._area[None] * toa.to(ireals)[:, None] * mu  # (B, nc)
         top = top0
@@ -163,8 +199,8 @@ class PlexrtSolverIcon(WedgeSolverBase):
 
     def _gather_in(self, E, F):
         """Per-cell incoming 8-vector in wedge dof order, (8, B, nz, nc)."""
-        in_dn = self._exchange(F[:, 0])
-        in_up = self._exchange(F[:, 1])
+        inflow = self._exchange(F)
+        in_dn, in_up = inflow[:, 0], inflow[:, 1]
         ins = [E[:, 0, :-1]]
         for s in range(3):
             ins += [in_dn[..., s], in_up[..., s]]
@@ -231,8 +267,6 @@ class PlexrtSolverIcon(WedgeSolverBase):
         Approximation [W/m3] (reference `-plexrt_nca`); needs planck."""
         if self._planck is None:
             raise RuntimeError("NCA is a thermal correction: set planck first")
-        from tenstream_tpu_torch.plexrt.nca import nca_icon
-
         a = self._area[None]
         return nca_icon(self.mesh, self.dz, self._kabs, self._planck, sol.edn / a, sol.eup / a,
-                        tables)
+                        tables, self._nca_ex)

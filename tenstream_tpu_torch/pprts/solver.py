@@ -55,6 +55,7 @@ from tenstream_tpu_torch.ops.eddington import eddington_coeff_ec
 from tenstream_tpu_torch.ops.planck import b_eff
 from tenstream_tpu_torch.ops.twostream import delta_eddington_twostream
 from tenstream_tpu_torch.optprop.facade import OptProp
+from tenstream_tpu_torch.parallel.mesh import check_mesh
 from tenstream_tpu_torch.pprts.absorption import calc_flx_div
 from tenstream_tpu_torch.pprts.buildings import (
     Buildings,
@@ -261,20 +262,12 @@ class PprtsSolver:
         without a process group whose backend takes the solver's tensors
         (NCCL or gloo on the card, gloo on the CPU), or where the layout
         does not divide the grid."""
-        import torch.distributed as dist
-
         self.solutions.clear()
         self._pending_convergence.clear()
         if mesh is None:
             self._mesh, self.lgrid = None, self.grid
             return
-        if not dist.is_initialized():
-            raise RuntimeError("set_mesh needs a torch.distributed process group "
-                               "(parallel.mesh.init_distributed)")
-        ok = ("nccl", "gloo") if self.device.type == "cuda" else ("gloo",)
-        if mesh.backend not in ok:
-            raise ValueError(f"a solver on {self.device.type} takes a {' or '.join(ok)} group, "
-                             f"not {mesh.backend}")
+        check_mesh(mesh, self.device)
         g = self.grid
         sx, sy = mesh.block(g.nx, g.ny)
         dz = g.dz if g.dz.dim() == 1 else g.dz[:, sx, sy].contiguous()

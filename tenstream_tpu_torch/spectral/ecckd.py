@@ -3,9 +3,14 @@ reference `ecckd/ecckd_optprop.F90`: `ecckd_dtau` -- per-gas molar
 absorption interpolated bilinearly in (log p, T) with the concentration
 codes None/Linear/RelativeLinear/LUT -- and `ecckd_planck`).
 
-The gas optical depths are float64 numpy on the host, as in the JAX
-package, and come back as float32 CPU tensors.  The per-g-point droplet
-and ice optics work on tensors on the caller's device.
+The gas optical depths are float64, as in the JAX package: the per-cell
+table indices and weights on the host in numpy, the (cells, g-points)
+gathers and blends in torch on the backend's device (the CPU unless the
+caller names one; `specint_pprts` and `specint_plexrt` name the solver's
+when they build the backend from its name).  Every step of the blend is
+one multiply or add, so the card's values equal the host's bit for bit.
+They come back as float32 tensors on that device.  The per-g-point
+droplet and ice optics work on tensors on the caller's device.
 
 Tables are read from the repository's `data/ecckd/*.npz` next to this
 package.
@@ -31,6 +36,10 @@ MOLMASS_AIR = 28.9644e-3  # [kg/mol]
 _NONE, _LINEAR, _LUT, _RELATIVE_LINEAR = 0, 1, 2, 3
 
 DEFAULT_DIR = os.path.join(DATA_DIR, "ecckd")
+
+# cells per block of the gas optics' (cells, g-points) blends: ~0.27 GB
+# of float64 per temporary at 32 g-points
+_BLOCK = 1 << 20
 
 
 def _frac_index(grid: np.ndarray, x: np.ndarray):
@@ -68,16 +77,29 @@ def _load(kind: str, n_gpt: int, data_dir: str) -> _CkdTables:
 class EcckdGasOptics:
     """Gas-optics backend for `specint_pprts(specint='ecckd')`."""
 
-    def __init__(self, n_gpt: int = 32, data_dir: Optional[str] = None):
+    def __init__(self, n_gpt: int = 32, data_dir: Optional[str] = None, device=None):
         self.n_gpt = n_gpt
         self.data_dir = os.path.abspath(data_dir or DEFAULT_DIR)
+        self.device = torch.device("cpu" if device is None else device)
         self._tables: Dict[tuple, tuple] = {}
+        self._on_device: Dict[tuple, torch.Tensor] = {}
+
+    def _t(self, tb: _CkdTables, name: str) -> torch.Tensor:
+        """Table `name` as a float64 tensor on the backend's device."""
+        key = (id(tb), name)
+        if key not in self._on_device:
+            self._on_device[key] = torch.as_tensor(np.asarray(tb.z[name], np.float64),
+                                                   device=self.device)
+        return self._on_device[key]
+
+    def _h(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
 
     # -- core tau computation -------------------------------------------
-    def _gas_tau(self, tb: _CkdTables, atm: Atmosphere) -> np.ndarray:
-        """(ngpt, nlay[, nx, ny]) gas optical depth (reference
-        `ecckd_dtau`).  Per-(x, y)-column atmospheres flatten to pseudo
-        columns through the same interpolation."""
+    def _gas_tau(self, tb: _CkdTables, atm: Atmosphere) -> torch.Tensor:
+        """(ngpt, nlay[, nx, ny]) float64 gas optical depth on the backend's
+        device (reference `ecckd_dtau`).  Per-(x, y)-column atmospheres
+        flatten to pseudo columns through the same interpolation."""
         z = tb.z
         play = np.asarray(atm.play, np.float64)
         grid_shape = play.shape  # (nlay[, nx, ny])
@@ -97,6 +119,7 @@ class EcckdGasOptics:
                 grid_shape,
             ).ravel()
 
+        # per-cell table indices and weights, on the host
         logp = np.log(z["pressure"])  # (53,)
         ip, wp = _frac_index(logp, np.log(np.clip(play, z["pressure"][0], z["pressure"][-1])))
 
@@ -110,51 +133,56 @@ class EcckdGasOptics:
 
         mult = dP / (MOLMASS_AIR * GRAV)  # [mol/m2]
 
-        def interp_pt(mabs):  # mabs (6, 53, ngpt) -> (M, ngpt)
-            v00 = mabs[it, ip]
-            v01 = mabs[it, ip + 1]
-            v10 = mabs[it + 1, ip]
-            v11 = mabs[it + 1, ip + 1]
-            w = wp[:, None]
-            return (1 - wt[:, None]) * ((1 - w) * v00 + w * v01) + wt[:, None] * (
-                (1 - w) * v10 + w * v11
-            )
-
-        def interp_pt_4(mabs4, icsel):  # mabs4 (12, 6, 53, ngpt)
-            sel = mabs4[icsel]  # (M, 6, 53, ngpt)
-            v00 = sel[np.arange(M), it, ip]
-            v01 = sel[np.arange(M), it, ip + 1]
-            v10 = sel[np.arange(M), it + 1, ip]
-            v11 = sel[np.arange(M), it + 1, ip + 1]
-            w = wp[:, None]
-            return (1 - wt[:, None]) * ((1 - w) * v00 + w * v01) + wt[:, None] * (
-                (1 - w) * v10 + w * v11
-            )
-
-        tau = np.zeros((M, tb.ngpt))
+        # per gas: the (M,) factor in front of its molar absorption, and
+        # for LUT-coded gases the concentration index and weight
+        terms = []
         for gas in z["gases"]:
             gas = str(gas)
             code = int(z[f"{gas}_code"])
-            mabs = z[f"{gas}_mabs"]
             if code == _NONE:
-                tau += mult[:, None] * interp_pt(mabs)
+                terms.append((gas, mult, None, None))
             elif code == _LINEAR:
-                vmr = flat_gas(gas)
-                tau += (mult * vmr)[:, None] * interp_pt(mabs)
+                terms.append((gas, mult * flat_gas(gas), None, None))
             elif code == _RELATIVE_LINEAR:
-                vmr = flat_gas(gas)
                 ref = float(z[f"{gas}_ref_vmr"])
-                tau += (mult * (vmr - ref))[:, None] * interp_pt(mabs)
+                terms.append((gas, mult * (flat_gas(gas) - ref), None, None))
             elif code == _LUT:
                 vmr = flat_gas(gas, default=1e-9)
                 frac_grid = np.log(z[f"{gas}_mole_fraction"])  # (12,)
-                ic, wc = _frac_index(frac_grid, np.log(np.clip(vmr, np.exp(frac_grid[0]), np.exp(frac_grid[-1]))))
-                lo = interp_pt_4(mabs, ic)
-                hi = interp_pt_4(mabs, ic + 1)
-                tau += (mult * vmr)[:, None] * ((1 - wc[:, None]) * lo + wc[:, None] * hi)
+                ic, wc = _frac_index(frac_grid, np.log(np.clip(vmr, np.exp(frac_grid[0]),
+                                                               np.exp(frac_grid[-1]))))
+                terms.append((gas, mult * vmr, ic, wc))
 
-        tau = np.maximum(tau, 0.0)
-        return np.moveaxis(tau.reshape(grid_shape + (tb.ngpt,)), -1, 0)
+        # the (M, ngpt) gathers and blends, on the device, in blocks of
+        # cells; each step is one multiply or add, as in the JAX package
+        tau = torch.empty((M, tb.ngpt), dtype=torch.float64, device=self.device)
+        for lo in range(0, M, _BLOCK):
+            sl = slice(lo, min(lo + _BLOCK, M))
+            it_b, ip_b = self._h(it[sl]), self._h(ip[sl])
+            w = self._h(wp[sl])[:, None]
+            wt_b = self._h(wt[sl])[:, None]
+
+            def interp_pt(mabs, *lead):  # mabs ([12,] 6, 53, ngpt) -> (B, ngpt)
+                v00 = mabs[lead + (it_b, ip_b)]
+                v01 = mabs[lead + (it_b, ip_b + 1)]
+                v10 = mabs[lead + (it_b + 1, ip_b)]
+                v11 = mabs[lead + (it_b + 1, ip_b + 1)]
+                return (1 - wt_b) * ((1 - w) * v00 + w * v01) + wt_b * ((1 - w) * v10 + w * v11)
+
+            acc = torch.zeros((sl.stop - lo, tb.ngpt), dtype=torch.float64, device=self.device)
+            for gas, fac, ic, wc in terms:
+                mabs = self._t(tb, f"{gas}_mabs")
+                f = self._h(fac[sl])[:, None]
+                if ic is None:
+                    acc += f * interp_pt(mabs)
+                else:
+                    ic_b = self._h(ic[sl])
+                    wc_b = self._h(wc[sl])[:, None]
+                    lo_v = interp_pt(mabs, ic_b)
+                    hi_v = interp_pt(mabs, ic_b + 1)
+                    acc += f * ((1 - wc_b) * lo_v + wc_b * hi_v)
+            tau[sl] = torch.clamp(acc, min=0.0)
+        return tau.reshape(grid_shape + (tb.ngpt,)).movedim(-1, 0)
 
     # -- public API ------------------------------------------------------
     @property
@@ -169,38 +197,43 @@ class EcckdGasOptics:
         tb = _load("sw", self.n_gpt, self.data_dir)
         tau_gas = self._gas_tau(tb, atm)
         # Rayleigh: molar scattering coefficient per gpt [m2/mol]
-        moles = np.asarray(atm.plev[1:] - atm.plev[:-1], np.float64) / (MOLMASS_AIR * GRAV)
-        coeff = tb.z["rayleigh_molar_scattering_coeff"]
-        tau_ray = coeff.reshape((tb.ngpt,) + (1,) * moles.ndim) * moles[None]
+        moles = self._h(np.asarray(atm.plev[1:] - atm.plev[:-1], np.float64)
+                        / (MOLMASS_AIR * GRAV))
+        coeff = self._t(tb, "rayleigh_molar_scattering_coeff")
+        tau_ray = coeff.reshape((tb.ngpt,) + (1,) * moles.dim()) * moles[None]
         tau = tau_gas + tau_ray
-        w0 = tau_ray / np.maximum(tau, 1e-30)
-        tau_t = torch.as_tensor(tau, dtype=ireals)
-        return SpectralOptProps(tau=tau_t, w0=torch.as_tensor(w0, dtype=ireals),
-                                g=torch.zeros_like(tau_t),
-                                weight=torch.as_tensor(tb.z["solar_irradiance"], dtype=ireals))
+        w0 = tau_ray / torch.clamp(tau, min=1e-30)
+        tau_t = tau.to(ireals)
+        return SpectralOptProps(tau=tau_t, w0=w0.to(ireals), g=torch.zeros_like(tau_t),
+                                weight=self._t(tb, "solar_irradiance").to(ireals))
 
     def thermal(self, atm: Atmosphere) -> SpectralOptProps:
         tb = _load("lw", self.n_gpt, self.data_dir)
-        tau = torch.as_tensor(self._gas_tau(tb, atm), dtype=ireals)
+        tau = self._gas_tau(tb, atm).to(ireals)
         planck = self._planck_table(tb, np.asarray(atm.tlev, np.float64))
         z = torch.zeros_like(tau)
-        return SpectralOptProps(tau=tau, w0=z, g=z, weight=torch.ones(tb.ngpt, dtype=ireals),
-                                planck=torch.as_tensor(planck, dtype=ireals))
+        return SpectralOptProps(tau=tau, w0=z, g=z,
+                                weight=torch.ones(tb.ngpt, dtype=ireals, device=self.device),
+                                planck=planck.to(ireals))
 
-    @staticmethod
-    def _planck_table(tb: _CkdTables, T: np.ndarray) -> np.ndarray:
-        """(ngpt,) + T.shape Planck radiance [W/m2/sr], float64."""
+    def _planck_table(self, tb: _CkdTables, T: np.ndarray) -> torch.Tensor:
+        """(ngpt,) + T.shape Planck radiance [W/m2/sr], float64 on the
+        backend's device."""
         tp = tb.z["temperature_planck"]  # (231,)
-        pf = tb.z["planck_function"]  # (231, ngpt) [W/m2]
+        pf = self._t(tb, "planck_function")  # (231, ngpt) [W/m2]
         itv, wtv = _frac_index(tp, np.clip(T.ravel(), tp[0], tp[-1]))
-        B = ((1 - wtv[:, None]) * pf[itv] + wtv[:, None] * pf[itv + 1]) / PI
-        return np.moveaxis(B.reshape(T.shape + (tb.ngpt,)), -1, 0)
+        B = torch.empty((itv.size, tb.ngpt), dtype=torch.float64, device=self.device)
+        for lo in range(0, itv.size, _BLOCK):
+            sl = slice(lo, min(lo + _BLOCK, itv.size))
+            i, w = self._h(itv[sl]), self._h(wtv[sl])[:, None]
+            B[sl] = ((1 - w) * pf[i] + w * pf[i + 1]) / PI
+        return B.reshape(T.shape + (tb.ngpt,)).movedim(-1, 0)
 
     def planck_at(self, T) -> np.ndarray:
         """Per-g-point Planck emission [W/m2/sr] at temperature(s) `T`,
         shape (ngpt,) + shape(T), float32 (reference `ecckd_planck`)."""
         tb = _load("lw", self.n_gpt, self.data_dir)
-        return self._planck_table(tb, np.asarray(T, np.float64)).astype(np.float32)
+        return self._planck_table(tb, np.asarray(T, np.float64)).to(torch.float32).cpu().numpy()
 
     # -- per-gpoint cloud optics ----------------------------------------
     def _particle_tables(self, kind: str, table: str):

@@ -35,7 +35,8 @@ def _t(a) -> torch.Tensor:
 
 
 class SpectralOptProps(NamedTuple):
-    """Per-gpoint gas optical properties (float32 CPU tensors).
+    """Per-gpoint gas optical properties (float32 tensors, on the backend's
+    device).
 
     tau:    (ngpt, nlay, ...) gas optical depth
     w0:     (ngpt, nlay, ...) single-scatter albedo (Rayleigh)

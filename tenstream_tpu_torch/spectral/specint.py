@@ -74,6 +74,15 @@ _BACKENDS = {"gray": GrayGasOptics, "synthck": SyntheticCKD, "ecckd": EcckdGasOp
              "rrtmg_sw": RrtmgSwOptics, "repwvl": RepwvlOptics}
 
 
+def gas_backend(specint, device):
+    """The gas-optics backend `specint` names (an object passes through);
+    ecCKD, whose per-cell work scales with the columns, runs on `device`."""
+    if not isinstance(specint, str):
+        return specint
+    cls = _BACKENDS[specint]
+    return cls(device=device) if cls is EcckdGasOptics else cls()
+
+
 class SpectralResult(NamedTuple):
     edir: Optional[torch.Tensor]  # (nz_solve+1, Nx, Ny) [W/m2]
     edn: torch.Tensor
@@ -213,11 +222,11 @@ def specint_pprts(
     `specint_band_seed` (seed a cold chunk from the previous chunk) and
     `specint_warm_extrapolate` (x0 = 2 x(t-1) - x(t-2), with the f32
     cache)."""
-    backend = _BACKENDS[specint]() if isinstance(specint, str) else specint
     grid = solver.lgrid
     mesh = solver._mesh
     scheme = solver.scheme
     dev = solver.device
+    backend = gas_backend(specint, dev)
     nz, nx, ny = grid.nz, grid.nx, grid.ny
     nzs = solver.nz_solve  # results and warm states live on the solve grid
     if atm.nlay != nz:

@@ -10,7 +10,9 @@ unstructured `PlexrtSolverIcon`.  The g-points go in chunks of
 `band_chunk`: each chunk's optical properties are one (B, ...) tensor and
 the chunk is one `solve_lanes` call, each lane converging on its own (the
 JAX package's `jax.vmap` of the monochromatic solve).  No delta scaling
-and no warm start, as in the JAX package.
+and no warm start, as in the JAX package.  On a decomposed solver
+(`set_mesh`) every cell field, lwc and reliq included, is the rank's part,
+and so are the results; the chunks are the same on every rank.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from tenstream_tpu_torch.atm import Atmosphere
 from tenstream_tpu_torch.core.types import ireals
 from tenstream_tpu_torch.spectral.gasoptics import cloud_optprops
-from tenstream_tpu_torch.spectral.specint import _BACKENDS, _merge_cloud
+from tenstream_tpu_torch.spectral.specint import _merge_cloud, gas_backend
 
 
 class PlexSpectralResult(NamedTuple):
@@ -38,21 +40,15 @@ def specint_plexrt(solver, atm: Atmosphere, albedo: float, lthermal: bool, lsola
     """Full-spectrum wedge solve on the solver's device.  lwc (cell-shaped,
     [g/m3]) and reliq ([um], scalar or cell-shaped, default 10) give the
     liquid cloud; `max_gpt` limits each spectrum to its first g-points;
-    the sun comes from `solver.set_angles`."""
-    backend = _BACKENDS[specint]() if isinstance(specint, str) else specint
+    the sun comes from `solver.set_angles`.  Cell-shaped means the solver's
+    cells: on a mesh, this rank's."""
     dev = solver.device
+    backend = gas_backend(specint, dev)
     t = lambda a: torch.as_tensor(a, dtype=ireals, device=dev)
-    if hasattr(solver, "grid"):  # structured fish-mesh solver
-        g = solver.grid
-        nz = g.nz
-        cell_shape = (nz, 2, g.nx, g.ny)
-        dz3 = t(g.dz3d())
-        area = g.area_tri
-    else:  # PlexrtSolverIcon on a TriMesh
-        nz, nc = solver.nz, solver.mesh.ncell
-        cell_shape = (nz, nc)
-        dz3 = t(solver.dz).reshape(nz, 1) * torch.ones(cell_shape, dtype=ireals, device=dev)
-        area = t(solver.mesh.area)[None]
+    cell_shape = solver.cell_shape()
+    nz = cell_shape[0]
+    dz3 = solver.cell_dz()
+    area = solver.areas()
     if nz != atm.nlay:
         raise ValueError(f"plex grid nz {nz} must match atm.nlay {atm.nlay}")
     lvl_shape = (nz + 1,) + cell_shape[1:]

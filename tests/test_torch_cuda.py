@@ -6,7 +6,9 @@ the block's own wrap, against the plain halo version otherwise); and the
 1-D column solvers (Schwarzschild, DISORT,
 `PprtsSolver`'s 1-D types), the wedge solvers (`plexrt`, with NCA and
 `specint_plexrt`) and the wedge photon tracer and table creation on the card
-against the CPU.
+against the CPU; a wedge solve on a one-rank NCCL group against the
+undecomposed one, and the port's C library's demo against the Python API,
+bit for bit.
 
 These tests need an NVIDIA GPU (marker `cuda`) and skip without one.  The
 file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -803,3 +805,113 @@ def test_cuda_create_wedge_lut_matches_cpu(cuda_device, tmp_path):
     for k in ("dir2dir", "dir2diff", "diff2diff"):
         assert (getattr(luts[0], k).cpu() - getattr(luts[1], k)).abs().max().item() <= 2 / 400 + 1e-5
         assert torch.equal(getattr(again, k), getattr(luts[0], k))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fish", "icon"])
+def test_cuda_wedge_one_rank_nccl_bit_for_bit(cuda_device, kind):
+    """A wedge solve decomposed over a one-rank NCCL group (`set_mesh`) is
+    the undecomposed solve bit for bit: solar + thermal fields, niter and
+    NCA (every halo and ghost exchange a copy, every all-reduce the sum of
+    one)."""
+    import torch.distributed as dist
+
+    from tenstream_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from tenstream_tpu_torch.plexrt import icon
+    from tenstream_tpu_torch.plexrt.mesh import fish_mesh
+    from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
+    from tenstream_tpu_torch.plexrt.solver_unstructured import PlexrtSolverIcon
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    nz, n = 6, 8
+    mesh = icon.trimesh_from_structured(n, n, 100.0, 100.0)
+    cells = (2, n, n) if kind == "fish" else (mesh.ncell,)
+    ka, ks, g, planck = _wedge_scene(nz, cells)
+    init_distributed(f"localhost:{_free_port()}", num_processes=1, process_id=0, device="cuda")
+    try:
+        out = []
+        for decomposed in (False, True):
+            opp = _wedge_opp(cuda_device)
+            s = (PlexrtSolver(fish_mesh(nz, n, n, 100.0, 100.0, 100.0), opp) if kind == "fish"
+                 else PlexrtSolverIcon(mesh, np.full(nz, 100.0, np.float32), opp))
+            if decomposed:
+                s.set_mesh(make_mesh(1, 1))
+            s.set_angles(sundir_from_angles(210.0, 35.0))
+            s.set_optical_properties(0.2, ka, ks, g, planck=planck)
+            sol = s.solve(lthermal=True, lsolar=True, edirTOA=1000.0)
+            out.append(([a.cpu() for a in s.get_result(sol)] + [s.nca_absorption(sol).cpu()],
+                        sol.niter_diff))
+        assert out[0][1] == out[1][1]
+        for a, b in zip(out[0][0], out[1][0]):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_capi_demo_is_the_python_solve(cuda_device, tmp_path):
+    """The port's C library and `demo_pprts` built with cc, run on the card
+    with 3_10 (K1/K2 on its path): its fields are the same solve through the
+    Python API bit for bit."""
+    import os
+    import subprocess
+
+    from tenstream_tpu_torch.capi.build import build
+    from tenstream_tpu_torch.optprop.facade import OptProp
+    from tenstream_tpu_torch.optprop.lut import load_or_create_lut, mockup_axes
+    from tenstream_tpu_torch.pprts.grid import Grid
+    from tenstream_tpu_torch.pprts.solver import PprtsSolver
+    from tenstream_tpu_torch.pprts.sun import sundir_from_angles
+
+    paths = build()
+    out = str(tmp_path / "fields.bin")
+    run = subprocess.run([paths["demo_pprts"], "--solver", "3_10", "--out", out],
+                         capture_output=True, text=True, timeout=600, env=dict(os.environ))
+    assert run.returncode == 0, run.stderr[-3000:]
+    n = 8
+    raw = np.fromfile(out, np.float32)
+    lev = (n + 1) * n * n
+    got = [raw[k * lev:(k + 1) * lev] for k in range(3)] + [raw[3 * lev:]]
+    lut = load_or_create_lut("3_10", mockup_axes(True), mockup_axes(False), n_photons=2000,
+                             device=cuda_device)
+    solver = PprtsSolver(Grid.create(n, n, n, 100.0, 100.0, np.full(n, 100.0, np.float32),
+                                     device=cuda_device), OptProp(lut, device=cuda_device))
+    solver.set_angles(sundir_from_angles(180.0, 40.0))
+    ones = np.ones((n, n, n), np.float32)
+    solver.set_optical_properties(0.2, 1e-4 * ones, 1e-3 * ones, 0.5 * ones)
+    cuda_ops.reset_launch_counts()
+    solver.solve(lthermal=False, lsolar=True, edirTOA=1364.0)
+    assert cuda_ops.LAUNCHES["fused_A_dots"] > 0
+    for a, b in zip(got, solver.get_result()):
+        np.testing.assert_array_equal(a, b.reshape(-1).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_ecckd_on_the_card_is_the_host(cuda_device):
+    """ecCKD's gas optics on the card (the backend `specint_pprts` builds
+    from the name "ecckd" for a solver there) give the host's bit for bit
+    on a per-column atmosphere: every blend step is one multiply or add."""
+    from tenstream_tpu_torch.atm import setup_tenstr_atm, setup_standard_atmosphere
+    from tenstream_tpu_torch.spectral.specint import gas_backend
+
+    std = setup_standard_atmosphere(z_grid=np.linspace(20e3, 0.0, 21))
+    rng = np.random.default_rng(3)
+    shape = (std.nlay + 1, 5, 4)
+    plev = np.broadcast_to(std.plev[:, None, None], shape) * (1 + 0.01 * rng.random(shape))
+    tlev = np.broadcast_to(std.tlev[:, None, None], shape) + rng.standard_normal(shape)
+    atm = setup_tenstr_atm(plev, tlev)
+    host, card = gas_backend("ecckd", torch.device("cpu")), gas_backend("ecckd", cuda_device)
+    assert card.device.type == "cuda"
+    for kind, keys in (("solar", ("tau", "w0", "weight")), ("thermal", ("tau", "planck"))):
+        a, b = getattr(host, kind)(atm), getattr(card, kind)(atm)
+        for k in keys:
+            assert getattr(b, k).device.type == "cuda"
+            assert torch.equal(getattr(a, k), getattr(b, k).cpu()), (kind, k)

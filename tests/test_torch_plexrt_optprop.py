@@ -293,12 +293,17 @@ def test_icon_solver_refuses_a_shaped_optprop():
 
 
 def test_wedge_set_mesh_refuses():
+    """Both wedge solvers decompose over a process group
+    (`tests/test_torch_parallel_wedge.py`); without one `set_mesh` refuses,
+    and `set_mesh(None)` leaves the solve undecomposed."""
     opp = topt.WedgeOptProp(_load(topt, "test"))
     solvers = [PlexrtSolver(fish_mesh(2, 2, 2, 100.0, 100.0, 100.0), opp),
                PlexrtSolverIcon(ticon.trimesh_from_structured(2, 2, 100.0, 100.0), 100.0, opp)]
     for s in solvers:
-        with pytest.raises(NotImplementedError, match="M19"):
+        with pytest.raises(RuntimeError, match="process group"):
             s.set_mesh(object())
+        s.set_mesh(None)
+        assert s._pmesh is None and s.cell_shape()[1:] in ((2, 2, 2), (8,))
 
 
 def test_create_lut_tool_refuses_wedge_schemes(tmp_path, monkeypatch):

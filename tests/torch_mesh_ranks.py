@@ -268,8 +268,115 @@ def task_scatter(mesh, inp):
                 gathered=gather_to_host(blk, mesh))
 
 
+def _wedge_run(solver, fields, planck, inp, outp, out):
+    """A solar solve, then a thermal one with NCA, of `solver` on this
+    rank's `fields`; writes its results, niter and exchanges under
+    `outp`."""
+    from tenstream_tpu_torch.parallel.mesh import gather_to_host
+
+    pm = solver._pmesh
+    solver.set_angles(np.asarray(inp["sundir"]))
+    solver.set_optical_properties(float(inp["albedo"]), *fields)
+    pm.reset_stats()
+    sol = solver.solve(lthermal=False, lsolar=True, edirTOA=float(inp["toa"]))
+    out[outp + "stats"] = np.asarray([pm.stats[k] for k in ("exchanges", "messages",
+                                                           "reductions")])
+    for k, a in zip(("edir", "edn", "eup", "abso"), solver.get_result(sol)):
+        out[outp + k] = _np(a)
+    solver.set_optical_properties(float(inp["albedo"]), *fields, planck=planck)
+    sol_t = solver.solve(lthermal=True, lsolar=False)
+    out[outp + "thermal_eup"] = _np(solver.get_result(sol_t)[2])
+    out[outp + "nca"] = _np(solver.nca_absorption(sol_t))
+    out[outp + "niter"] = np.asarray([sol.niter_diff, sol_t.niter_diff])
+    # the global field on every rank
+    cell_axis = None if hasattr(solver, "grid") else -1
+    out[outp + "edn_global"] = gather_to_host(solver.get_result(sol)[1], pm, cell_axis=cell_axis)
+
+
+def task_wedge(mesh, inp):
+    """The wedge solvers on this rank's part: the fish solver (BiCGStab and
+    the fixed point) on its (x, y) block, the ICON solver on its range of
+    cells, each solar then thermal with NCA, and `specint_plexrt` on
+    both where the inputs hold an atmosphere; the ghost exchange of a
+    distorted mesh's field."""
+    from tenstream_tpu_torch.parallel.mesh import GhostExchange, scatter_global, shard_fields
+    from tenstream_tpu_torch.plexrt import icon
+    from tenstream_tpu_torch.plexrt.mesh import fish_mesh
+    from tenstream_tpu_torch.plexrt.optprop import WedgeOptProp, load_or_create_wedge_lut
+    from tenstream_tpu_torch.plexrt.solver import PlexrtSolver
+    from tenstream_tpu_torch.plexrt.solver_unstructured import PlexrtSolverIcon
+
+    opp = WedgeOptProp(load_or_create_wedge_lut(n_photons=1500, basename=str(inp["lutdir"]),
+                                                device="cpu"))
+    nz, n = (int(v) for v in inp["fish_shape"])
+    out = {}
+    fish = shard_fields(mesh, *(inp["fish_" + k] for k in ("ka", "ks", "g", "planck")))
+    for ds in ("bicgstab", "fixedpoint"):
+        solver = PlexrtSolver(fish_mesh(nz, n, n, 100.0, 100.0, 100.0), opp, diff_solver=ds)
+        solver.set_mesh(mesh)
+        _wedge_run(solver, fish[:3], fish[3], inp, f"fish_{ds}_", out)
+    m = icon.trimesh_from_structured(*(int(v) for v in inp["icon_n"]), 100.0, 100.0)
+    ic = shard_fields(mesh, *(inp["icon_" + k] for k in ("ka", "ks", "g", "planck")),
+                      cell_axis=-1)
+    solver = PlexrtSolverIcon(m, inp["icon_dz"], opp)
+    solver.set_mesh(mesh)
+    _wedge_run(solver, ic[:3], ic[3], inp, "icon_", out)
+    asked = []
+
+    def reader(index):  # a host model's reader: asked for this rank's cells only
+        asked.append([(s.start, s.stop) for s in index])
+        return inp["icon_ka"][index]
+
+    blk = scatter_global(mesh, reader, global_shape=inp["icon_ka"].shape, dtype=np.float32,
+                         cell_axis=-1)
+    out["icon_scatter"] = _np(blk)
+    out["icon_scatter_asked"] = np.asarray([-1 if v is None else v for v in asked[0][-1]])
+
+    d = icon.trimesh_from_points(inp["dist_verts"], inp["dist_tris"])
+    ex = GhostExchange(mesh, d.exchange_index(), d.nbr >= 0, 3, "cpu")
+    (fld,) = shard_fields(mesh, inp["dist_field"], cell_axis=-2)  # (2, nc, 3)
+    got = ex.gather(fld.reshape(fld.shape[0], -1))
+    lo, hi = mesh.cell_range(d.ncell)
+    out["dist_gather"] = _np(got * _t(d.exchange_mask()[lo:hi]))
+    out["dist_ghosts"] = np.asarray([ex.n_ghosts])
+
+    if "zlev" in inp:
+        from tenstream_tpu_torch.atm import setup_standard_atmosphere
+        from tenstream_tpu_torch.spectral.ecckd import EcckdGasOptics
+        from tenstream_tpu_torch.spectral.specint_plexrt import specint_plexrt
+
+        atm = setup_standard_atmosphere(z_grid=inp["zlev"])
+        dz = np.asarray(atm.dz, np.float32)
+        n = inp["spec_lwc"].shape[-1]
+        for which in ("fish", "icon"):
+            if which == "fish":
+                solver = PlexrtSolver(fish_mesh(atm.nlay, n, n, 500.0, 500.0, dz), opp)
+                (lwc,) = shard_fields(mesh, inp["spec_lwc"])
+            else:
+                solver = PlexrtSolverIcon(icon.trimesh_from_structured(n, n, 500.0, 500.0), dz,
+                                          opp)
+                (lwc,) = shard_fields(mesh, inp["spec_lwc_icon"], cell_axis=-1)
+            solver.set_mesh(mesh)
+            solver.set_angles(np.asarray(inp["sundir"]))
+            lanes, seen = solver.solve_lanes, []
+
+            def lanes_seen(*a, **k):
+                sol = lanes(*a, **k)
+                seen.extend(sol.niter_diff.tolist())
+                return sol
+
+            solver.solve_lanes = lanes_seen
+            res = specint_plexrt(solver, atm, 0.2, True, True, specint=EcckdGasOptics(n_gpt=32),
+                                 lwc=lwc, max_gpt=int(inp["max_gpt"]),
+                                 band_chunk=int(inp["max_gpt"]))
+            for k in ("edir", "edn", "eup", "abso"):
+                out[f"spec_{which}_{k}"] = _np(getattr(res, k))
+            out[f"spec_{which}_niter"] = np.asarray(seen)
+    return out
+
+
 TASKS = dict(ops=task_ops, edir=task_edir, solve=task_solve, buildings=task_buildings,
-             specint=task_specint, scatter=task_scatter)
+             specint=task_specint, scatter=task_scatter, wedge=task_wedge)
 
 
 def main(argv):
